@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` holds one kernel behind a plain C interface. It is
+compiled with ``nvcc`` into ``<name>-<hash>.so`` under the build directory
+(``build/kernels`` at the repo root, or ``$REPRO_TORCH_BUILD_DIR``) the first
+time its wrapper runs, and loaded with ``ctypes``. The file name carries a
+hash of the source and the flags, so an edited source builds anew and an
+unchanged one is built once per checkout. Nothing is built when this module
+is imported: the CPU tests import every module and have no ``nvcc``.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
+one right after the launch returned without error, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Callable, Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES: Dict[str, int] = {"matmul_tiled": 0, "flash_attention": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def build_dir() -> Path:
+    return Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
+                               REPO_ROOT / "build" / "kernels"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin: the port's CUDA "
+        "kernels are built on the machine that has the card")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return build_dir() / f"{name}-{digest[:16]}.so"
+
+
+def compile_source(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library already exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)      # atomic: a concurrent build sees all or none
+    return out
+
+
+def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use.
+    ``bind`` sets ``argtypes``/``restype`` of its functions once."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(compile_source(name)))
+            bind(lib)
+            _LIBS[name] = lib
+        return lib
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -1,0 +1,424 @@
+"""Config-driven decoder (``repro.models.transformer``'s counterpart).
+
+This slice covers decoder-only stacks of global-attention layers with a
+dense MLP (``attn`` blocks; ``parallel_block`` included) under standard or no
+rope. :func:`unsupported` names what a config needs beyond that (local,
+recurrent, MoE, encoder-decoder, M-RoPE).
+
+The parameter tree is ``repro``'s, so converting weights is a copy: the
+layers of each pattern unit sit under ``params["decoder"]["stack"]["u{j}"]``
+with a leading unit axis, leftovers under ``["extra"]["x{j}"]``. Decode
+states use the same layout. Where ``repro`` scans over units, this module
+loops over them in Python. Decode writes each new K/V row into the caches in
+place and returns the same tensors, instead of copying the caches each step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE, apply_mlp, apply_norm, apply_rope, embed_tokens,
+    init_embeddings, init_mlp, init_norm, unembed,
+)
+
+VOCAB_QUANTUM = 128   # embeddings padded to a multiple (no vocab tail)
+CONV_K = 4            # repro.models.recurrent.CONV_K, for param counts
+
+Pos = Union[int, torch.Tensor]
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    v = cfg.vocab_size
+    return ((v + VOCAB_QUANTUM - 1) // VOCAB_QUANTUM) * VOCAB_QUANTUM
+
+
+def unsupported(cfg: ModelConfig) -> Optional[str]:
+    """Why this slice of the port cannot run ``cfg``, or None if it can."""
+    kinds = set(cfg.layer_kinds())
+    if kinds - {"attn"}:
+        return f"layer kinds {sorted(kinds - {'attn'})}"
+    if cfg.moe:
+        return "MoE layers"
+    if cfg.is_encdec:
+        return "encoder-decoder"
+    if cfg.rope_kind not in ("standard", "none"):
+        return f"rope kind {cfg.rope_kind!r}"
+    return None
+
+
+def _check(cfg: ModelConfig) -> None:
+    why = unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {why} are not ported yet (see ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# layer plan
+# ---------------------------------------------------------------------------
+def layer_plan(cfg: ModelConfig, encoder: bool = False) -> list:
+    """[(kind, mlp_kind)] per layer.  Encoder layers are always attn+dense."""
+    n = cfg.encoder_layers if encoder else cfg.n_layers
+    out = []
+    for i in range(n):
+        kind = "attn" if encoder else cfg.block_kind(i)
+        if kind == "rwkv":
+            mlp_kind = "cmix"
+        elif (not encoder and cfg.moe
+              and (i + 1) % max(cfg.moe_interleave, 1) == 0):
+            mlp_kind = "moe"
+        else:
+            mlp_kind = "dense"
+        out.append((kind, mlp_kind))
+    return out
+
+
+def unit_cycle(cfg: ModelConfig, encoder: bool = False) -> int:
+    if encoder:
+        return 1
+    c = len(cfg.block_pattern)
+    if cfg.moe:
+        c = math.lcm(c, max(cfg.moe_interleave, 1))
+    return c
+
+
+def decoder_layer_refs(cfg: ModelConfig) -> list:
+    """Address of every decoder layer under ``params["decoder"]``, in layer
+    order: ``group`` "stack" (``key`` ``u{j}``, ``index`` along the unit
+    axis) or "extra" (``key`` ``x{j}``, ``index`` None). Decode states use
+    the same addresses."""
+    plan = layer_plan(cfg, encoder=False)
+    cycle = unit_cycle(cfg)
+    n_units = len(plan) // cycle
+    refs = []
+    for i, (kind, mlpk) in enumerate(plan):
+        u, j = divmod(i, cycle)
+        if u < n_units:
+            refs.append({"kind": kind, "mlp_kind": mlpk, "group": "stack",
+                         "key": f"u{j}", "index": u})
+        else:
+            refs.append({"kind": kind, "mlp_kind": mlpk, "group": "extra",
+                         "key": f"x{i - n_units * cycle}", "index": None})
+    return refs
+
+
+# ---------------------------------------------------------------------------
+# tree helpers
+# ---------------------------------------------------------------------------
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def cast_params(params: dict, device=None) -> dict:
+    """The tree on ``device`` with every weight in bf16 and every norm
+    parameter kept fp32: the values the layers compute with, cast once
+    instead of at every use."""
+    def walk(tree, in_norm: bool):
+        if isinstance(tree, dict):
+            return {k: walk(v, in_norm or "norm" in k)
+                    for k, v in tree.items()}
+        if in_norm:
+            return tree.to(device)
+        return tree.to(device=device, dtype=COMPUTE_DTYPE)
+    return walk(params, False)
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply
+# ---------------------------------------------------------------------------
+def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               mlp_kind: str, *, lead: tuple = ()) -> dict:
+    if kind != "attn" or mlp_kind != "dense":
+        raise NotImplementedError(f"layer ({kind}, {mlp_kind})")
+    dev = gen.device
+    p: dict = {"norm1": init_norm(cfg.norm, cfg.d_model, lead=lead,
+                                  device=dev),
+               "attn": attn_lib.init_attention(
+                   gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.head_dim, bias=cfg.qkv_bias, lead=lead)}
+    if not cfg.parallel_block:
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, lead=lead, device=dev)
+    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, lead=lead)
+    return p
+
+
+def _rope(cfg: ModelConfig, q, k, positions):
+    if cfg.rope_kind == "none":
+        return q, k
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
+                    cache: Optional[dict], positions: torch.Tensor, pos: Pos,
+                    force: Optional[str]):
+    """Self-attention for train / prefill / decode.  Returns (y, cache).
+
+    In decode, ``pos`` is the write position: an int (every row at the same
+    position) or a (B,) tensor (ragged decode, each row at its own)."""
+    q, k, v = attn_lib.qkv_proj(p, x)
+    q, k = _rope(cfg, q, k, positions)
+    if mode == "decode":
+        kc, vc = cache["k"], cache["v"]
+        if torch.is_tensor(pos) and pos.dim() == 1:
+            rows = torch.arange(x.shape[0], device=x.device)
+            kc[rows, pos] = k[:, 0].to(kc.dtype)
+            vc[rows, pos] = v[:, 0].to(vc.dtype)
+        else:
+            kc[:, pos] = k[:, 0].to(kc.dtype)
+            vc[:, pos] = v[:, 0].to(vc.dtype)
+        o = attn_lib.decode_attention(q[:, 0], kc, vc, pos + 1)
+        return attn_lib.out_proj(p, o[:, None]), {"k": kc, "v": vc}
+    o = attn_lib.prefill_attention(q, k, v, mask_kind="causal", force=force)
+    y = attn_lib.out_proj(p, o)
+    new_cache = None
+    if mode == "prefill":
+        new_cache = {"k": k.to(COMPUTE_DTYPE), "v": v.to(COMPUTE_DTYPE)}
+    return y, new_cache
+
+
+def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                state: Optional[dict], positions: torch.Tensor, pos: Pos,
+                force: Optional[str]):
+    """One attn + dense-MLP layer.  Returns (x, new_state)."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    y, new_state = _self_attention(p["attn"], h, cfg, mode, state,
+                                   positions, pos, force)
+    if cfg.parallel_block:
+        # cohere: out = x + attn(norm(x)) + mlp(norm(x))
+        return x + y + apply_mlp(p["mlp"], h, cfg.mlp_gated,
+                                 force=force), new_state
+    x = x + y
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    return x + apply_mlp(p["mlp"], h, cfg.mlp_gated, force=force), new_state
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    plan = layer_plan(cfg)
+    cycle = unit_cycle(cfg)
+    n_units = len(plan) // cycle
+    out: dict = {}
+    if n_units:
+        out["stack"] = {f"u{j}": init_layer(gen, cfg, *plan[j],
+                                            lead=(n_units,))
+                        for j in range(cycle)}
+    extra = {f"x{j}": init_layer(gen, cfg, *plan[n_units * cycle + j])
+             for j in range(len(plan) - n_units * cycle)}
+    if extra:
+        out["extra"] = extra
+    return out
+
+
+def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                mode: str, states: Optional[dict], positions: torch.Tensor,
+                pos: Pos, force: Optional[str]):
+    """Every decoder layer in order.  Returns (x, new_states); new_states
+    is None in train mode and, in decode, the input states updated."""
+    plan = layer_plan(cfg)
+    cycle = unit_cycle(cfg)
+    n_units = len(plan) // cycle
+    new_states: dict = {}
+
+    def run(lp, st):
+        nonlocal x
+        x, ns = apply_layer(lp, x, cfg, mode=mode, state=st,
+                            positions=positions, pos=pos, force=force)
+        return ns
+
+    if n_units:
+        units = []
+        for u in range(n_units):
+            units.append({
+                f"u{j}": run(_index(stack_p["stack"][f"u{j}"], u),
+                             _index(states["stack"][f"u{j}"], u)
+                             if mode == "decode" else None)
+                for j in range(cycle)})
+        if mode == "prefill":
+            new_states["stack"] = _stack(units)
+    if "extra" in stack_p:
+        extra = {k: run(lp, states["extra"][k] if mode == "decode" else None)
+                 for k, lp in stack_p["extra"].items()}
+        if mode == "prefill":
+            new_states["extra"] = extra
+    if mode == "train":
+        return x, None
+    return x, (states if mode == "decode" else new_states)
+
+
+# ---------------------------------------------------------------------------
+# model API
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random fp32 params in ``repro``'s layout, drawn from ``generator``
+    on its device; ``device``, if given, must be of the generator's type."""
+    _check(cfg)
+    if device is not None and \
+            torch.device(device).type != generator.device.type:
+        raise ValueError(f"generator is on {generator.device}, params "
+                         f"were asked for on {device}")
+    return {
+        "embed": init_embeddings(generator, padded_vocab(cfg), cfg.d_model,
+                                 cfg.tie_embeddings),
+        "final_norm": init_norm(cfg.norm, cfg.d_model,
+                                device=generator.device),
+        "decoder": init_stack(generator, cfg),
+    }
+
+
+def _positions(b: int, s: int, offset: Pos, device) -> torch.Tensor:
+    if torch.is_tensor(offset) and offset.dim() == 1:
+        return offset[:, None]
+    return (offset + torch.arange(s, device=device))[None, :].expand(b, s)
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    logits = unembed(params["embed"], x, cfg.tie_embeddings,
+                     cfg.logit_softcap)
+    return _mask_vocab_pad(logits, cfg)
+
+
+def forward(params: dict, cfg: ModelConfig, *, tokens: torch.Tensor,
+            mode: str = "train", force: Optional[str] = None):
+    """Full-sequence forward over (B, S) tokens.  Returns (logits, states):
+    states are the (B, S) KV caches in prefill mode, None in train mode."""
+    _check(cfg)
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward mode {mode!r}")
+    b, s = tokens.shape
+    x = embed_tokens(params["embed"], tokens, cfg.d_model)
+    x, states = apply_stack(params["decoder"], x, cfg, mode=mode,
+                            states=None,
+                            positions=_positions(b, s, 0, tokens.device),
+                            pos=None, force=force)
+    return _logits(params, x, cfg), states
+
+
+def _mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig):
+    vp = padded_vocab(cfg)
+    if vp == cfg.vocab_size:
+        return logits
+    idx = torch.arange(vp, device=logits.device)
+    return torch.where(idx < cfg.vocab_size, logits,
+                       torch.full((), -1e9, dtype=logits.dtype,
+                                  device=logits.device))
+
+
+# ---------------------------------------------------------------------------
+# decode state
+# ---------------------------------------------------------------------------
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device=None) -> dict:
+    _check(cfg)
+    plan = layer_plan(cfg)
+    cycle = unit_cycle(cfg)
+    n_units = len(plan) // cycle
+
+    def zeros(lead):
+        shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {n: torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
+                for n in ("k", "v")}
+
+    out: dict = {}
+    if n_units:
+        out["stack"] = {f"u{j}": zeros((n_units,)) for j in range(cycle)}
+    extra = {f"x{j}": zeros(()) for j in range(len(plan) - n_units * cycle)}
+    if extra:
+        out["extra"] = extra
+    return out
+
+
+def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                pos: Pos, states: dict, force: Optional[str] = None):
+    """One token per row: tokens (B,), written at ``pos`` (int, or (B,)
+    tensor for ragged rows).  Returns (logits (B, V), states), the states
+    updated in place."""
+    b = tokens.shape[0]
+    x = embed_tokens(params["embed"], tokens[:, None], cfg.d_model)
+    x, states = apply_stack(params["decoder"], x, cfg, mode="decode",
+                            states=states,
+                            positions=_positions(b, 1, pos, tokens.device),
+                            pos=pos, force=force)
+    return _logits(params, x, cfg)[:, 0], states
+
+
+# ---------------------------------------------------------------------------
+# analytic parameter counts
+# ---------------------------------------------------------------------------
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
+                          include_embeddings: bool = True) -> int:
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nrm = d if cfg.norm == "rmsnorm" else 2 * d   # layernorm has a bias
+    total = 0
+    if include_embeddings:
+        total += v * d
+        if not cfg.tie_embeddings:
+            total += d * v
+
+    def attn_params():
+        p = d * h * dh + 2 * d * kv * dh + h * dh * d
+        if cfg.qkv_bias:
+            p += h * dh + 2 * kv * dh
+        return p
+
+    def mlp_params():
+        return (3 if cfg.mlp_gated else 2) * d * f
+
+    def moe_params(active: bool):
+        k = cfg.experts_per_token
+        e = k if active else cfg.n_experts
+        p = d * cfg.n_experts + e * 3 * d * cfg.moe_d_ff
+        if cfg.shared_expert:
+            p += 3 * d * f
+        return p
+
+    def rglru_params():
+        w = d
+        return 2 * d * w + w * d + CONV_K * w + 6 * w
+
+    def rwkv_params():
+        lora = 64
+        tm = 4 * d * h * cfg.rwkv_head_dim + h * cfg.rwkv_head_dim * d \
+            + d * lora + lora * h * cfg.rwkv_head_dim \
+            + 2 * h * cfg.rwkv_head_dim + 5 * d + 2 * d
+        cm = d * f + f * d + d * d + 2 * d
+        return tm + cm
+
+    for encoder in ([True] if cfg.is_encdec else []) + [False]:
+        for kind, mlpk in layer_plan(cfg, encoder):
+            total += nrm  # norm1
+            if kind in ("attn", "local"):
+                total += attn_params()
+            elif kind == "rglru":
+                total += rglru_params()
+            elif kind == "rwkv":
+                total += rwkv_params() + nrm
+                continue
+            if not encoder and cfg.is_encdec:
+                total += attn_params() + nrm      # cross + its norm
+            if not cfg.parallel_block:
+                total += nrm                      # norm2
+            if mlpk == "dense":
+                total += mlp_params()
+            elif mlpk == "moe":
+                total += moe_params(active_only)
+    total += nrm  # final norm
+    if cfg.is_encdec:
+        total += nrm
+    return int(total)
