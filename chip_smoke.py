@@ -7,20 +7,31 @@ From the root of a checkout, on a machine with one CUDA card (an H100 is
 the target) and ``nvcc``:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every kernel of the port from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all at once) and prints the build time;
+2. builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all at once) and prints the build time; Triton
+   compiles the staircase kernel into ``build/triton`` at its first launch;
 3. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes and a few ragged, GQA and local cases, and times
+   main paths' shapes and a few ragged, GQA and local cases, and times
    the kernel, the plain version, the one PyTorch call that computes the
-   same function (a yardstick only: the port never calls it) and the
-   least time the card could take for the work;
+   same function, where there is one (a yardstick only: the port never
+   calls it), and the least time the card could take for the work;
 4. serves 4 mixed-length requests with full-width qwen1.5-0.5b (random
    weights from seed 0) through ``ServeEngine``, with the launch counts set
    to 0 just before and read just after; checks the counts, that a second
    run gives the same tokens, that the prefill logits agree with the same
    forward on the plain versions, that a small model served on the card
    agrees with the CPU, and that the serving CLI runs on the card;
-5. prints one JSON line with every kernel's numbers, then, last,
+5. the planner path, with the counts set to 0 just before and read just
+   after: plans two traffic classes for qwen1.5-0.5b on ``H100_SXM``
+   (one staircase-kernel sweep each), checks that the plans equal the same
+   planner's on the CPU, then serves bursts that select each class on the
+   plans' sliced weights (a cold swap, then warm ones), with exact launch
+   counts and the same tokens on a repeat; holds tokens/s and a decode
+   step's device time on the plans against full width, in alternating
+   bursts; checks that a hand-narrowed
+   plan's sliced forward equals its zero-masked full-shape forward on the
+   kernels, and runs ``launch.serve_batched`` on the card;
+6. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero. Without a card, or outside a checkout, it
@@ -41,6 +52,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 L2_BYTES = 50e6
 ARCH = "qwen1.5-0.5b"
@@ -51,11 +63,21 @@ SEED = 0
 REPLACES = {
     "matmul_tiled": "src/repro/kernels/matmul_tiled.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
+    "staircase_fused": "src/repro/kernels/staircase_fused.py:208",
 }
 SOURCES = {
     "matmul_tiled": "src/repro_torch/csrc/matmul_tiled.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "staircase_fused": "src/repro_torch/kernels/staircase_fused.py",
 }
+ROUTES = {"matmul_tiled": "cuda", "flash_attention": "cuda",
+          "staircase_fused": "triton"}
+# the planner path's traffic classes: one served burst selects each
+# (batch x padded prompt tokens), "long" being the full-width burst's
+CLASSES = (("short", 4 * 32), ("long", 4 * max(PROMPT_LENS)))
+# bursts per side when tokens/s on the planned widths is held against full
+# width, alternating which side goes first
+AB_ROUNDS = 6
 
 
 def fail(msg: str) -> None:
@@ -122,8 +144,8 @@ def wall_ms(torch, fn, reps: int = 10) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -152,10 +174,11 @@ def card_info(torch) -> str:
 
 def build_kernels(build) -> None:
     t0 = time.time()
-    with ThreadPoolExecutor(len(build.LAUNCHES)) as pool:
-        paths = list(pool.map(build.compile_source, build.LAUNCHES))
-    log(f"build: {len(paths)} kernels in {time.time() - t0:.1f}s "
-        f"({', '.join(p.name for p in paths)})")
+    with ThreadPoolExecutor(len(build.CUDA_SOURCES)) as pool:
+        paths = list(pool.map(build.compile_source, build.CUDA_SOURCES))
+    log(f"build: {len(paths)} CUDA kernels in {time.time() - t0:.1f}s "
+        f"({', '.join(p.name for p in paths)}); Triton kernels "
+        f"{', '.join(build.TRITON_KERNELS)} compile at first launch")
 
 
 def compare_matmul(torch, mt, case: tuple, gen) -> dict:
@@ -257,7 +280,7 @@ def serve_full_width(torch, np, mods) -> dict:
     # prefill: 3 MLP products and 1 attention per layer; each of the
     # NEW_TOKENS - 1 decode steps: 3 MLP products per layer
     want = {"matmul_tiled": 3 * cfg.n_layers * NEW_TOKENS,
-            "flash_attention": cfg.n_layers}
+            "flash_attention": cfg.n_layers, "staircase_fused": 0}
     log(f"serve {ARCH}: layers {cfg.n_layers} d_model {cfg.d_model} vocab "
         f"{cfg.vocab_size}; launches {launches} (expected {want}); first "
         f"run {cold_s:.3f}s")
@@ -353,6 +376,275 @@ def small_model_vs_cpu(torch, np, mods) -> None:
           f"small model on the card differs from the CPU by {err}")
 
 
+def staircase_cases(np, mods) -> list:
+    """(name, widths, shard_out, ca, mb, mc, lane) as numpy: the planner's
+    latency-mode sweep for qwen1.5-0.5b on H100_SXM (rows [down-probe, pad,
+    start]), the accuracy-mode size of repro's optimizer benchmark, and a
+    ragged block with shards 1-3, a lane that is not a power of two and
+    widths 1 and exact multiples of shard x lane."""
+    hw, LayerShape = mods["H100_SXM"], mods["LayerShape"]
+    fused_columns = mods["fused_columns"]
+    rng = np.random.default_rng(SEED)
+    cfg = mods["configs"].get_config(ARCH)
+    tpl, _ = mods["serving_templates"](cfg, hw, tokens=CLASSES[1][1])
+    w = np.array([[t.layer.width - hw.lane, 1, t.layer.width] for t in tpl])
+    out = [("planner latency mode", w, *fused_columns(
+        hw, [t.layer for t in tpl]), hw.lane)]
+    layers = [LayerShape(f"l{i}", tokens=int(rng.integers(1, 8192)),
+                         d_in=int(rng.integers(64, 8192)), width=1)
+              for i in range(1024)]
+    out.append(("accuracy mode", rng.integers(1, 50000, size=(1024, 1024)),
+                *fused_columns(hw, layers), hw.lane))
+    lane = 96
+    so = rng.choice([1, 2, 3], size=(37, 1))
+    w = rng.integers(1, 20000, size=(37, 1000))
+    w[:, 0] = 1
+    w[:, 1] = so[:, 0] * lane * rng.integers(1, 50, size=37)
+    out.append(("ragged", w, so, *(rng.random((37, 1)) for _ in range(3)),
+                lane))
+    return out
+
+
+def compare_staircase(torch, sf, case) -> dict:
+    name, w, so, ca, mb, mc, lane = case
+    i32, f32 = torch.int32, torch.float32
+    args = tuple(torch.from_numpy(a.copy()).cuda().to(t) for a, t in
+                 ((w, i32), (so, i32), (ca, f32), (mb, f32), (mc, f32)))
+    lat, wv, occ = sf.staircase_fused(*args, lane=lane)
+    torch.cuda.synchronize()
+    rlat, rwv, rocc = sf.staircase_ref(*args, lane=lane)
+    rows, cols = w.shape
+    check(bool(torch.equal(wv.long(), rwv)),
+          f"staircase_fused {name}: wave counts differ")
+    rel = max(((lat.double() - rlat).abs() / rlat.abs()).max().item(),
+              ((occ.double() - rocc).abs() / rocc.abs()).max().item())
+    # fp32 kernel vs fp64 plain version on the same fp32 inputs: a rounded
+    # product and sum (or one FMA) and a division, a few fp32 ulp
+    check(rel <= 1e-6, f"staircase_fused {name}: relative error {rel} > "
+                       f"1e-6")
+    err = max((lat.double() - rlat).abs().max().item(),
+              (occ.double() - rocc).abs().max().item())
+    # each cell: 4 B in, 12 B out; each row: four 4-byte columns; about 8
+    # fp32 operations per cell outside the tensor cores
+    b_ms, b_by = bound_ms(8.0 * rows * cols, 16.0 * rows * cols + 16.0 * rows,
+                          peak=PEAK_FP32_FLOPS)
+    row = {"case": f"{name} {rows}x{cols} lane={lane}", "max_abs_err": err,
+           "max_rel_err": rel, "tol": "rtol 1e-6, waves exact",
+           "ms": time_ms(torch, lambda *a: sf.staircase_fused(*a, lane=lane),
+                         args),
+           "plain_ms": time_ms(torch, lambda *a: sf.staircase_ref(
+               *a, lane=lane), args),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"staircase_fused {row['case']}: max_rel_err {rel:.3g} "
+        f"max_abs_err {err:.3g} ms {row['ms']:.4f} plain_ms "
+        f"{row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}); no library "
+        f"call computes it")
+    return row
+
+
+def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
+    """The planner path: plan on the card (one staircase launch per
+    class), the same plans as on the CPU, then serve on the plans."""
+    cfg = mods["configs"].get_config(ARCH)
+    tfm, ops, sv = mods["tfm"], mods["ops"], mods["serving"]
+    hw = mods["H100_SXM"]
+    tpl, modules = sv.serving_templates(cfg, hw, tokens=CLASSES[1][1])
+    traffic = [sv.TrafficClass(n, t) for n, t in CLASSES]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tfm.cast_params(tfm.init_params(cfg, gen, "cuda"), "cuda")
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    planner = sv.ServingWidthPlanner(hw, tpl, modules=modules,
+                                     device="cuda")
+    t0 = time.perf_counter()
+    plans = planner.plan(traffic)
+    plan_s = time.perf_counter() - t0
+    after_plan = dict(ops.LAUNCHES)
+    check(after_plan == {"matmul_tiled": 0, "flash_attention": 0,
+                         "staircase_fused": len(traffic)},
+          f"planning launched {after_plan}, expected one staircase sweep "
+          f"per class ({len(traffic)})")
+    on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu")
+    t0 = time.perf_counter()
+    cpu_plans = on_cpu.plan(traffic)
+    times = {"cuda": plan_s, "cpu": time.perf_counter() - t0}
+    for name, p in plans.items():
+        check(cpu_plans[name].widths == p.widths,
+              f"plan {name}: the CPU planner chose other widths")
+    for name, p in plans.items():
+        counts = {}
+        for w in p.widths.values():
+            counts[w] = counts.get(w, 0) + 1
+        log(f"plan[{name}] ({p.traffic.tokens} tokens): widths {counts} "
+            f"of d_ff {cfg.d_ff}; modeled reduction "
+            f"{100 * p.latency_reduction:.2f}%; satisfied {p.satisfied}; "
+            f"equal on the CPU")
+    log(f"planner.plan() wall s, {len(traffic)} classes: card "
+        f"{times['cuda']:.4f} (kernel already compiled), cpu "
+        f"{times['cpu']:.4f}")
+
+    swapper = sv.WidthSwapper(params, cfg)
+    engine = sv.ServeEngine(params, cfg, max_len=max(PROMPT_LENS)
+                            + NEW_TOKENS, batch_slots=4, rng_seed=SEED,
+                            device="cuda", planner=planner, swapper=swapper)
+    rng = np.random.default_rng(SEED + 1)
+    short = [sv.Request(prompt=rng.integers(
+        0, cfg.vocab_size, size=(CLASSES[0][1] // 4,)).astype(np.int32),
+        max_new_tokens=NEW_TOKENS) for _ in range(4)]
+    bursts = [requests(cfg, sv.Request, np), short,
+              requests(cfg, sv.Request, np)]
+    outs, walls = [], []
+    for reqs in bursts:
+        t0 = time.perf_counter()
+        outs.append(engine.generate(reqs))
+        walls.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    want = {"matmul_tiled": 3 * cfg.n_layers * NEW_TOKENS * len(bursts),
+            "flash_attention": cfg.n_layers * len(bursts),
+            "staircase_fused": len(traffic)}
+    check(launches == want, f"planner path launched {launches} != {want}")
+    names = [p.traffic.name for p in engine.plan_log]
+    check(names == ["long", "short", "long"],
+          f"bursts selected {names}, expected long, short, long")
+    hits = [e.cache_hit for e in engine.swap_log]
+    check([e.outcome for e in engine.swap_log] == ["ok"] * 3
+          and hits[0] is False and hits[2] is True,
+          f"swaps {engine.swap_log}: expected a cold then warm swaps")
+    for a, b in zip(outs[0], outs[2]):
+        check(np.array_equal(a.tokens, b.tokens),
+              "a repeat on the cached plan gave other tokens")
+    check(all(len(r.tokens) == NEW_TOKENS and (r.tokens >= 0).all()
+              and (r.tokens < cfg.vocab_size).all() for o in outs for r in o),
+          "tokens out of range or of the wrong count")
+    sliced = swapper.apply(plans["long"])[0]["decoder"]["stack"]["u0"]
+    check(tuple(sliced["mlp"]["w_up"].shape[1:]) == (
+        cfg.d_model, max(plans["long"].widths.values())),
+          "the served params are not the plan's widths")
+    for e in engine.swap_log:
+        log(f"swap -> plan[{e.plan_name}] "
+            f"{'warm (cache hit)' if e.cache_hit else 'cold'} in "
+            f"{e.swap_s * 1e3:.3f} ms")
+    n_new = sum(len(r.tokens) for r in outs[2])
+    tok_s = n_new / walls[2]
+    log(f"serve on plan[long]: {n_new} tokens in {walls[2]:.3f}s "
+        f"({tok_s:.1f} tok/s, repeat burst) vs full width "
+        f"{full_tok_s:.1f} tok/s in this run; launches {launches}")
+    del sliced
+    ab = planned_vs_full(torch, np, mods, engine, plans["long"], swapper)
+    del engine, swapper
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tok_s": tok_s, "plan_s": times,
+            "ab": ab, "params": params, "modules": modules}
+
+
+def planned_vs_full(torch, np, mods, planned, plan, swapper) -> dict:
+    """tokens/s on the planned widths against full width: AB_ROUNDS bursts
+    of the same requests per side, alternating which side goes first, on
+    engines alike but for the planner (the planned side's swaps are warm).
+    Then a decode step's device time on each tree, replayed from a CUDA
+    graph, which the host's noise does not reach, AB_ROUNDS times each,
+    alternating too: one reading of each moved by 7 % between runs."""
+    cfg = mods["configs"].get_config(ARCH)
+    tfm, sv = mods["tfm"], mods["serving"]
+    full = sv.ServeEngine(planned.params, cfg, max_len=planned.max_len,
+                          batch_slots=planned.slots, rng_seed=SEED,
+                          device="cuda")
+    engines = {"full": full, "planned": planned}
+    reqs = requests(cfg, sv.Request, np)
+    tok_s = {"full": [], "planned": []}
+    n_swaps = len(planned.swap_log)
+    for r in range(AB_ROUNDS):
+        for side in (("full", "planned") if r % 2 == 0 else
+                     ("planned", "full")):
+            t0 = time.perf_counter()
+            out = engines[side].generate(reqs)
+            dt = time.perf_counter() - t0
+            tok_s[side].append(sum(len(x.tokens) for x in out) / dt)
+    check(all(e.cache_hit and e.plan_name == plan.traffic.name
+              for e in planned.swap_log[n_swaps:]),
+          "the planned side's bursts did not swap warm to plan[long]")
+    plen = max(PROMPT_LENS)
+    toks = np.zeros((len(PROMPT_LENS), plen), np.int64)
+    for i, q in enumerate(reqs):
+        toks[i, plen - len(q.prompt):] = q.prompt
+    toks = torch.from_numpy(toks).cuda()
+    cur = torch.zeros(len(PROMPT_LENS), dtype=torch.long, device="cuda")
+    trees = {"full": full.params, "planned": swapper.apply(plan)[0]}
+    decode_ms = {"full": [], "planned": []}
+    with torch.inference_mode():
+        states = {}
+        for side, tree in trees.items():
+            _, st = tfm.forward(tree, cfg, tokens=toks, mode="prefill")
+            states[side] = full._ensure_states(st)
+        for r in range(AB_ROUNDS):
+            for side in (("full", "planned") if r % 2 == 0 else
+                         ("planned", "full")):
+                tree, st = trees[side], states[side]
+                decode_ms[side].append(time_ms(
+                    torch, lambda: tfm.decode_step(tree, cfg, cur, plen, st),
+                    (), reps=8))
+    med = {k: float(np.median(v)) for k, v in tok_s.items()}
+    dmed = {k: float(np.median(v)) for k, v in decode_ms.items()}
+    for side in ("full", "planned"):
+        v, d = tok_s[side], decode_ms[side]
+        log(f"A/B {side}: tok/s per burst "
+            f"{[round(x, 2) for x in v]}; median {med[side]:.2f}, min "
+            f"{min(v):.2f}, max {max(v):.2f}; decode step device ms "
+            f"{[round(x, 4) for x in d]}; median {dmed[side]:.4f}")
+    log(f"A/B planned vs full ({AB_ROUNDS} rounds each, alternating): "
+        f"median tok/s {100 * (med['planned'] / med['full'] - 1):+.2f}%, "
+        f"median decode step device time "
+        f"{100 * (dmed['planned'] / dmed['full'] - 1):+.2f}%")
+    del full, trees, states
+    return {"tok_s": tok_s, "decode_ms": decode_ms}
+
+
+def narrowed_plan(torch, np, mods, params, modules) -> None:
+    """A hand-narrowed plan (MLP widths below d_ff, multiples of 64, ragged
+    across the stacked layers): its sliced forward on the kernels equals
+    the zero-masked full-shape forward on the kernels. Zero columns and
+    rows add exact zeros, and each CTA of the MLP kernel sums its K tiles
+    in order, so the two are expected bit for bit."""
+    cfg = mods["configs"].get_config(ARCH)
+    tfm, sv = mods["tfm"], mods["serving"]
+    widths = {name: cfg.d_ff - 64 * (1 + ref.layer % 4)
+              for name, ref in modules.items()}
+    plan = sv.WidthPlan(traffic=sv.TrafficClass("narrow", 512),
+                        widths=widths, latency_s=1.0, baseline_latency_s=1.0,
+                        satisfied=True, modules=modules)
+    swapper = sv.WidthSwapper(params, cfg)
+    sliced, ev = swapper.apply(plan)
+    masked, ev_m = swapper.apply(plan, masked=True)
+    check(ev.outcome == ev_m.outcome == "ok" and ev_m.masked,
+          "the narrowed plan did not swap")
+    plen = max(PROMPT_LENS)
+    toks = np.zeros((len(PROMPT_LENS), plen), np.int64)
+    for i, r in enumerate(requests(cfg, sv.Request, np)):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    toks = torch.from_numpy(toks).cuda()
+    with torch.inference_mode():
+        a, _ = tfm.forward(sliced, cfg, tokens=toks, mode="prefill")
+        b, _ = tfm.forward(masked, cfg, tokens=toks, mode="prefill")
+    v = cfg.vocab_size
+    a, b = a[..., :v].float(), b[..., :v].float()
+    err = (a - b).abs().max().item()
+    w_up = sliced["decoder"]["stack"]["u0"]["mlp"]["w_up"]
+    log(f"narrowed plan (MLP widths {sorted(set(widths.values()))}, sliced "
+        f"w_up {tuple(w_up.shape)}): sliced vs masked prefill logits "
+        f"max_abs_err {err} (bit-identical: {bool(torch.equal(a, b))})")
+    check(bool(torch.isfinite(a).all()) and bool(torch.equal(a, b)),
+          f"the sliced forward differs from the masked one by {err}")
+
+
+def serve_batched_on_card(mods) -> None:
+    t0 = time.perf_counter()
+    engine = mods["serve_batched_main"]([])
+    check(len(engine.swap_log) == 3 and engine.swap_log[-1].cache_hit,
+          "launch.serve_batched did not swap as expected")
+    log(f"launch.serve_batched on the card: {time.perf_counter() - t0:.1f}s")
+
+
 def cli_on_card(mods) -> None:
     ops = mods["ops"]
     ops.reset_launches()
@@ -360,7 +652,8 @@ def cli_on_card(mods) -> None:
                                   "--new-tokens", "4"])
     check(len(results) == 4 and all(len(r.tokens) == 4 for r in results),
           "the serving CLI returned the wrong results")
-    check(all(n > 0 for n in ops.LAUNCHES.values()),
+    check(ops.LAUNCHES["matmul_tiled"] > 0
+          and ops.LAUNCHES["flash_attention"] > 0,
           f"the serving CLI skipped a kernel: {dict(ops.LAUNCHES)}")
 
 
@@ -372,15 +665,22 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} is missing: run from a checkout")
     sys.path.insert(0, str(SRC))
     import numpy as np
-    from repro_torch import configs
+    from repro_torch import configs, serving
+    from repro_torch.core import H100_SXM, LayerShape
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_tiled as mt
+    from repro_torch.kernels import staircase_fused as sf
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.serve_batched import main as serve_batched_main
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import Request, ServeEngine
     mods = {"configs": configs, "ops": ops, "tfm": tfm, "Request": Request,
-            "ServeEngine": ServeEngine, "serve_main": serve_main}
+            "ServeEngine": ServeEngine, "serve_main": serve_main,
+            "serving": serving, "serving_templates": serving.serving_templates,
+            "H100_SXM": H100_SXM, "LayerShape": LayerShape,
+            "fused_columns": sf.fused_columns,
+            "serve_batched_main": serve_batched_main}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -398,19 +698,34 @@ def main() -> None:
            (2, 256, 256, 16, 4, 64, "causal", 0),
            (2, 256, 256, 8, 2, 128, "local", 96),
            (1, 100, 130, 4, 4, 64, "none", 0)]]
+    t0 = time.time()
+    st = [compare_staircase(torch, sf, c)
+          for c in staircase_cases(np, mods)]
+    log(f"staircase_fused: 3 shapes checked and timed in "
+        f"{time.time() - t0:.1f}s, Triton's first compile included")
 
     served = serve_full_width(torch, np, mods)
     small_model_vs_cpu(torch, np, mods)
     cli_on_card(mods)
+    planned = plan_and_serve(torch, np, mods, served["tok_s"])
+    narrowed_plan(torch, np, mods, planned.pop("params"),
+                  planned.pop("modules"))
+    torch.cuda.empty_cache()
+    serve_batched_on_card(mods)
 
     kernels = []
-    for name, row in (("matmul_tiled", mm[0]), ("flash_attention", fl[0])):
-        check(served["launches"][name] > 0,
+    # each kernel's launches are read from the main path that runs it: the
+    # full-width serve for the two CUDA kernels, the planner path (plan,
+    # then serve on the plans) for the staircase kernel
+    for name, row, path in (("matmul_tiled", mm[0], served),
+                            ("flash_attention", fl[0], served),
+                            ("staircase_fused", st[0], planned)):
+        check(path["launches"][name] > 0 and planned["launches"][name] > 0,
               f"{name} was not launched on the main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
+            "name": name, "route": ROUTES[name], "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": served["launches"][name],
+            "launches": path["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels for Hopper (``csrc/``), their ``ctypes``
-wrappers, their plain PyTorch versions, and the dispatch in ``ops``."""
+"""Hand-written kernels for Hopper — CUDA C++ in ``csrc/`` behind ``ctypes``
+wrappers, Triton in ``staircase_fused`` — their plain PyTorch versions, and
+the dispatch in ``ops``."""

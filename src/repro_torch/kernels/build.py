@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's kernels.
 
 Each ``csrc/<name>.cu`` holds one kernel behind a plain C interface. It is
 compiled with ``nvcc`` into ``<name>-<hash>.so`` under the build directory
@@ -7,6 +7,12 @@ time its wrapper runs, and loaded with ``ctypes``. The file name carries a
 hash of the source and the flags, so an edited source builds anew and an
 unchanged one is built once per checkout. Nothing is built when this module
 is imported: the CPU tests import every module and have no ``nvcc``.
+
+The Triton kernels (``TRITON_KERNELS``) are compiled by Triton at their
+first launch; :func:`import_triton` points Triton's cache at
+``build/triton`` under the repo root (unless ``$TRITON_CACHE_DIR`` is set)
+before it imports Triton, so the compiled kernel stays in the gitignored
+``build/``.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
 one right after the launch returned without error, and nowhere else.
@@ -28,7 +34,9 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES: Dict[str, int] = {"matmul_tiled": 0, "flash_attention": 0}
+CUDA_SOURCES = ("matmul_tiled", "flash_attention")   # csrc/<name>.cu
+TRITON_KERNELS = ("staircase_fused",)                 # kernels/<name>.py
+LAUNCHES: Dict[str, int] = {k: 0 for k in CUDA_SOURCES + TRITON_KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -85,6 +93,21 @@ def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             bind(lib)
             _LIBS[name] = lib
         return lib
+
+
+def import_triton():
+    """The ``triton`` module, with its kernel cache under ``build/triton``
+    unless the caller set ``$TRITON_CACHE_DIR``. Raises where Triton is
+    missing: a CUDA tensor then has no kernel to take."""
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          str(REPO_ROOT / "build" / "triton"))
+    try:
+        import triton
+    except ImportError as e:
+        raise RuntimeError(
+            "triton is not installed: the port's Triton kernels run on the "
+            "machine that has the card") from e
+    return triton
 
 
 def reset_launches() -> None:

@@ -4,5 +4,6 @@ kernel's wrapper and collected here."""
 
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.matmul_tiled import matmul_ref
+from repro_torch.kernels.staircase_fused import staircase_ref
 
-__all__ = ["attention_ref", "matmul_ref"]
+__all__ = ["attention_ref", "matmul_ref", "staircase_ref"]

@@ -1,4 +1,13 @@
-from repro_torch.serving.engine import BatchStats, Request, Result, \
-    ServeEngine
+from repro_torch.serving.engine import (
+    AdmissionControl, BatchStats, Request, Result, ServeEngine,
+    ServingWidthPlanner, TrafficClass, WidthPlan,
+)
+from repro_torch.serving.width_swap import (
+    SWAP_STEPS, SwapEvent, WidthSwapper, serving_templates,
+)
 
-__all__ = ["BatchStats", "Request", "Result", "ServeEngine"]
+__all__ = [
+    "AdmissionControl", "BatchStats", "Request", "Result", "ServeEngine",
+    "ServingWidthPlanner", "TrafficClass", "WidthPlan", "SWAP_STEPS",
+    "SwapEvent", "WidthSwapper", "serving_templates",
+]

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA and Triton kernels on the card, against their plain
+versions, and the planner on the card against the same planner on the CPU.
 
 Marked ``cuda``; each test skips where there is no CUDA device. On the card:
 
@@ -13,6 +14,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul_tiled as mt
+from repro_torch.kernels import staircase_fused as sf
 from repro_torch.models import transformer as tfm
 
 pytestmark = pytest.mark.cuda
@@ -105,9 +107,97 @@ def test_prefill_on_kernels_vs_plain(gen):
     ops.reset_launches()
     got, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill")
     assert ops.LAUNCHES == {"matmul_tiled": 3 * cfg.n_layers,
-                            "flash_attention": cfg.n_layers}
+                            "flash_attention": cfg.n_layers,
+                            "staircase_fused": 0}
     want, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill",
                           force="plain")
     v = cfg.vocab_size
     err = (got[..., :v].float() - want[..., :v].float()).abs().max().item()
     assert err <= 4e-2 * max(1.0, want[..., :v].float().abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the staircase kernel (Triton) and the planner on the card
+# ---------------------------------------------------------------------------
+def staircase_inputs(rows, cols, lane, seed=0):
+    """int32 widths in [1, 50000) with width 1 and exact multiples of
+    shard x lane in the first columns, shards 1-3 and 8, fp32 columns."""
+    rng = np.random.default_rng(seed)
+    so = rng.choice([1, 2, 3, 8], size=(rows, 1))
+    w = rng.integers(1, 50000, size=(rows, cols))
+    w[:, 0] = 1
+    if cols > 1:
+        w[:, 1] = so[:, 0] * lane * rng.integers(1, 20, size=rows)
+    cols_f = [rng.random((rows, 1)) * 1e-4 for _ in range(3)]
+    return tuple(torch.from_numpy(a).cuda().to(t) for a, t in
+                 ((w, torch.int32), (so, torch.int32),
+                  *((c, torch.float32) for c in cols_f)))
+
+
+@pytest.mark.parametrize("rows,cols,lane", [(1, 1, 128), (3, 5, 128),
+                                            (8, 128, 128), (13, 200, 128),
+                                            (40, 257, 64), (24, 3, 64),
+                                            (37, 1000, 96),
+                                            (1024, 1024, 64)])
+def test_staircase_kernel_vs_plain(gen, rows, cols, lane):
+    """Waves exact; latency and occupancy within rtol 1e-6 (fp32 kernel vs
+    the fp64 plain version on the same fp32 inputs)."""
+    args = staircase_inputs(rows, cols, lane)
+    before = ops.LAUNCHES["staircase_fused"]
+    lat, wv, occ = sf.staircase_fused(*args, lane=lane)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["staircase_fused"] == before + 1
+    assert (lat.dtype, wv.dtype, occ.dtype) == (torch.float32, torch.int32,
+                                                torch.float32)
+    rlat, rwv, rocc = sf.staircase_ref(*args, lane=lane)
+    assert torch.equal(wv.long(), rwv)
+    assert ((lat.double() - rlat).abs() <= 1e-6 * rlat.abs()).all()
+    assert ((occ.double() - rocc).abs() <= 1e-6 * rocc.abs()).all()
+
+
+@pytest.mark.parametrize("itype", [torch.int64, torch.int32])
+def test_staircase_dispatch_checks_and_casts(gen, itype):
+    """The int32 domain is checked in int64 whatever the inputs' integer
+    type, and the kernel's ceil-divisions do not overflow at its top."""
+    w = torch.tensor([[1, 64, 65]], dtype=itype, device="cuda")
+    so = torch.ones(1, 1, dtype=itype, device="cuda")
+    c = torch.full((1, 1), 1e-6, dtype=torch.float64, device="cuda")
+    lat, wv, occ = ops.staircase_latency(w, so, c, c, c, lane=64)
+    assert wv.tolist() == [[1, 1, 2]] and lat.dtype == torch.float32
+    top = torch.tensor([[2 ** 31 - 1, 2 ** 31 - 2, 2 ** 31 - 64]],
+                       dtype=itype, device="cuda")
+    for shard in (1, 3, 2 ** 31 - 1):
+        s = torch.full((1, 1), shard, dtype=itype, device="cuda")
+        _, wv, occ = ops.staircase_latency(top, s, c, c, c, lane=64)
+        _, rwv, rocc = sf.staircase_ref(top, s, c, c, c, lane=64)
+        assert torch.equal(wv.long(), rwv) and (wv > 0).all()
+        assert ((occ.double() - rocc).abs() <= 1e-6 * rocc).all()
+    bad = [(-w, so), (w, so * 0)]
+    if itype == torch.int64:
+        bad += [(w + 2 ** 31 - 1, so), (w, so + 2 ** 31 - 1)]
+    for bad_w, bad_so in bad:
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            ops.staircase_latency(bad_w, bad_so, c, c, c, lane=64)
+    with pytest.raises(TypeError):
+        sf.staircase_fused(w, so, c, c, c, lane=64)
+
+
+def test_planner_on_the_card_equals_the_cpu(gen):
+    from repro_torch.core import H100_SXM
+    from repro_torch.serving import ServingWidthPlanner, TrafficClass, \
+        serving_templates
+    cfg = get_config("qwen1.5-0.5b")
+    traffic = [TrafficClass("decode", 4), TrafficClass("short", 128),
+               TrafficClass("prefill", 8192, delta=0.9)]
+    tpl, mods = serving_templates(cfg, H100_SXM, tokens=512,
+                                  sites=("mlp", "attn"))
+    ops.reset_launches()
+    card = ServingWidthPlanner(H100_SXM, tpl, modules=mods).plan(traffic)
+    assert ops.LAUNCHES["staircase_fused"] == len(traffic)
+    cpu = ServingWidthPlanner(H100_SXM, tpl, modules=mods,
+                              device="cpu").plan(traffic)
+    for name in cpu:
+        assert card[name].widths == cpu[name].widths
+        assert card[name].satisfied == cpu[name].satisfied
+        assert abs(card[name].latency_s - cpu[name].latency_s) <= \
+            1e-6 * cpu[name].latency_s

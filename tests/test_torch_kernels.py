@@ -3,6 +3,8 @@ package's Pallas kernel (interpret mode) and oracle on the same numpy
 inputs, the dispatch by device, and the build's behaviour without nvcc.
 The CUDA kernels themselves run in tests/test_torch_cuda.py on the card."""
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,5 +140,11 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
     assert p.parent == tmp_path and p.name.startswith("flash_attention-")
     assert p == build.library_path("flash_attention")
     assert p != build.library_path("matmul_tiled")
-    assert set(build.LAUNCHES) == {"matmul_tiled", "flash_attention"}
-    assert all((build.CSRC / f"{n}.cu").is_file() for n in build.LAUNCHES)
+    assert set(build.CUDA_SOURCES) == {"matmul_tiled", "flash_attention"}
+    assert set(build.TRITON_KERNELS) == {"staircase_fused"}
+    assert set(build.LAUNCHES) == set(build.CUDA_SOURCES) \
+        | set(build.TRITON_KERNELS)
+    assert all((build.CSRC / f"{n}.cu").is_file()
+               for n in build.CUDA_SOURCES)
+    assert all((Path(build.__file__).parent / f"{n}.py").is_file()
+               for n in build.TRITON_KERNELS)

@@ -1,5 +1,6 @@
-"""The port's serving engine and CLI against the JAX package's, and the
-port's independence from JAX (CPU)."""
+"""The port's serving engine and CLI against the JAX package's, with and
+without width plans and admission control, and the port's independence
+from JAX (CPU)."""
 
 import ast
 import shutil
@@ -16,11 +17,16 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced
 from repro.models import transformer as jtfm
+from repro import serving as jserving
+from repro.core import TPU_V5E as J_HW
 from repro.serving import Request as JRequest
 from repro.serving import ServeEngine as JServeEngine
+from repro_torch import serving as tserving
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.core import TPU_V5E
 from repro_torch.interop import params_from_jax
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.serve_batched import main as serve_batched_main
 from repro_torch.models import transformer as ttfm
 from repro_torch.serving import Request, ServeEngine
 
@@ -85,6 +91,170 @@ def test_greedy_generate_matches_jax_engine(model):
             assert t.tokens[step] == j.tokens[step], (i, step)
             compared += 1
     assert compared >= NEW * len(ps) // 2
+
+
+def _planner(pkg, hw, cfg, device=None):
+    """A planner of ``pkg`` (repro's or the port's serving module) holding
+    two hand-made plans on the MLP and attention sites: "narrow" (half the
+    FFN, two of four heads) for 4 x 12 = 48 prompt tokens and "full" for
+    one 12-token prompt, as tests/test_serving.py:178 builds them."""
+    _, modules = pkg.serving_templates(cfg, hw, sites=("mlp", "attn"))
+    kw = {} if device is None else {"device": device}
+    planner = pkg.ServingWidthPlanner(hw, [], modules=modules, **kw)
+    narrow = {name: (cfg.d_ff // 2 if ref.site == "mlp"
+                     else 2 * cfg.head_dim)
+              for name, ref in modules.items()}
+    for name, tokens, widths in (("narrow", 48, narrow), ("full", 12, {})):
+        planner.plans[name] = pkg.WidthPlan(
+            traffic=pkg.TrafficClass(name, tokens), widths=widths,
+            latency_s=1.0, baseline_latency_s=2.0, satisfied=True,
+            modules=modules)
+    return planner
+
+
+def _assert_greedy_follows(jc, jparams, jres, tres, ps, new):
+    """The port's greedy tokens equal the JAX engine's up to the first
+    step where JAX's own logits (one forward along its tokens on
+    ``jparams``) have a top-2 margin within twice the bf16 tolerance."""
+    plen = max(len(p) for p in ps)
+    seq = np.zeros((len(ps), plen + new - 1), np.int32)
+    for i, (p, r) in enumerate(zip(ps, jres)):
+        seq[i, plen - len(p):plen] = p
+        seq[i, plen:] = r.tokens[:-1]
+    logits, _, _ = jax.jit(lambda p, t: jtfm.forward(
+        p, jc, tokens=t, mode="prefill"))(jparams, jnp.asarray(seq))
+    logits = np.asarray(logits[:, plen - 1:, :jc.vocab_size]
+                        .astype(jnp.float32))
+    tol = TOL * np.abs(logits).max()
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    compared = 0
+    for i, (j, t) in enumerate(zip(jres, tres)):
+        assert len(t.tokens) == len(j.tokens) == new
+        for step in range(new):
+            if margin[i, step] <= 2 * tol:
+                break
+            assert t.tokens[step] == j.tokens[step], (i, step)
+            compared += 1
+    assert compared >= new * len(ps) // 2
+
+
+def test_planned_serving_matches_jax_engine(model):
+    """Greedy serving with a planner and a swapper: per batch, the same
+    class, the same realized widths and cache hits, and the same tokens
+    as the JAX engine on the same plans."""
+    jc, tc, host = model
+    ps = prompts(tc.vocab_size)
+    jparams = jax.tree.map(jnp.asarray, host)
+    jeng = JServeEngine(jparams, jc, max_len=32, batch_slots=4,
+                        planner=_planner(jserving, J_HW, jc),
+                        swapper=jserving.WidthSwapper(jparams, jc))
+    cast = ttfm.cast_params(params_from_jax(host), "cpu")
+    teng = ServeEngine(cast, tc, max_len=32, batch_slots=4, device="cpu",
+                       planner=_planner(tserving, TPU_V5E, tc, "cpu"),
+                       swapper=tserving.WidthSwapper(cast, tc))
+    for reqs in ([ps], [ps, ps[2:3]]):      # narrow; narrow (warm), full
+        jres = [r for b in reqs for r in jeng.generate(
+            [JRequest(prompt=p, max_new_tokens=NEW) for p in b])]
+        tres = [r for b in reqs for r in teng.generate(
+            [Request(prompt=p, max_new_tokens=NEW) for p in b])]
+        flat = [p for b in reqs for p in b]
+        _assert_greedy_follows(jc, jeng.swapper.apply(
+            jeng.planner.plans["narrow"])[0], jres[:4], tres[:4], flat[:4],
+            NEW)
+        if len(flat) > 4:
+            _assert_greedy_follows(jc, jparams, jres[4:], tres[4:],
+                                   flat[4:], NEW)
+    assert [p.traffic.name for p in teng.plan_log] == \
+        [p.traffic.name for p in jeng.plan_log] == \
+        ["narrow", "narrow", "full"]
+    fields = ("plan_name", "key", "realized", "cache_hit", "outcome",
+              "masked")
+    assert [tuple(getattr(e, f) for f in fields) for e in teng.swap_log] \
+        == [tuple(getattr(e, f) for f in fields) for e in jeng.swap_log]
+    assert [e.cache_hit for e in teng.swap_log] == [False, True, False]
+    w_up = teng.swapper.apply(teng.planner.plans["narrow"])[0][
+        "decoder"]["stack"]["u0"]["mlp"]["w_up"]
+    assert w_up.shape[-1] == tc.d_ff // 2 and w_up.dtype == torch.bfloat16
+    assert teng.swapper.apply(teng.planner.plans["full"])[0] is cast
+
+
+class _Clock:
+    """A virtual clock: advances only by the modeled batch costs."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self):
+        return self.now
+
+    def advance(self, dt):
+        self.now += float(dt)
+
+
+def test_admission_on_a_virtual_clock_matches_jax_engine(model):
+    """Deadlines, shedding and batch telemetry on a virtual clock with a
+    modeled batch cost: the same shed set, deadline misses, latencies
+    and BatchStats as the JAX engine."""
+    jc, tc, host = model
+    rng = np.random.default_rng(5)
+    ps = [rng.integers(0, tc.vocab_size, size=(4,)).astype(np.int32)
+          for _ in range(10)]
+    deadlines = [None, 0.05, 0.5, 0.02, None, 0.3, 0.1, 0.6, None, 0.2]
+
+    def cost(plan, tokens):
+        return 0.004 * tokens + (0.01 if plan is None else 0.0)
+
+    def run(pkg, eng_cls, req_cls, params, cfg, **kw):
+        eng = eng_cls(params, cfg, max_len=8, batch_slots=2,
+                      admission=pkg.AdmissionControl(max_queue_batches=2,
+                                                     target_batch_s=0.03),
+                      clock=_Clock(), batch_cost_fn=cost, **kw)
+        res = eng.generate([req_cls(prompt=p, max_new_tokens=2,
+                                    deadline_s=d)
+                            for p, d in zip(ps, deadlines)])
+        return eng, res
+
+    jeng, jres = run(jserving, JServeEngine, JRequest,
+                     jax.tree.map(jnp.asarray, host), jc)
+    teng, tres = run(tserving, ServeEngine, Request, params_from_jax(host),
+                     tc, device="cpu")
+    assert [r.shed for r in tres] == [r.shed for r in jres]
+    assert any(r.shed for r in tres) and not all(r.shed for r in tres)
+    assert [r.deadline_missed for r in tres] == \
+        [r.deadline_missed for r in jres]
+    assert any(r.deadline_missed for r in tres)
+    assert [r.latency_s for r in tres] == [r.latency_s for r in jres]
+    assert [(b.tokens, b.latency_s, b.plan_name, b.signal)
+            for b in teng.batch_log] == \
+        [(b.tokens, b.latency_s, b.plan_name, b.signal)
+         for b in jeng.batch_log]
+    assert (teng.admission.admitted, teng.admission.shed,
+            teng.admission.batch_ewma) == (jeng.admission.admitted,
+                                           jeng.admission.shed,
+                                           jeng.admission.batch_ewma)
+
+
+def test_engine_refuses_a_swapper_on_other_params(model):
+    _, tc, host = model
+    params = params_from_jax(host)
+    with pytest.raises(ValueError, match="cast params"):
+        ServeEngine(params, tc, device="cpu",
+                    swapper=tserving.WidthSwapper(params, tc))
+    eng = ServeEngine(params, tc, device="cpu")
+    ServeEngine(eng.params, tc, device="cpu",
+                swapper=tserving.WidthSwapper(eng.params, tc))
+
+
+def test_serve_batched_example_runs_on_cpu(capsys):
+    """``python -m repro_torch.launch.serve_batched --device cpu``: the
+    reduced config of examples/serve_batched.py planned on TPU_V5E."""
+    engine = serve_batched_main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "plan[decode]" in out and "plan[prefill]" in out
+    assert len(engine.swap_log) == 3 and engine.swap_log[-1].cache_hit
+    assert all(w % 128 == 0 or w == 576 for p in engine.planner.plans
+               .values() for w in p.widths.values())
 
 
 def test_sampling_follows_the_softmax(model):
