@@ -9,7 +9,8 @@ the target) and ``nvcc``:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once) and prints the build time; Triton
-   compiles the staircase kernel into ``build/triton`` at its first launch;
+   compiles its kernels (staircase, RG-LRU) into ``build/triton`` at their
+   first launch;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and a few ragged, GQA and local cases, and times
    the kernel, the plain version, the one PyTorch call that computes the
@@ -20,7 +21,13 @@ the target) and ``nvcc``:
    to 0 just before and read just after; checks the counts, that a second
    run gives the same tokens, that the prefill logits agree with the same
    forward on the plain versions, that a small model served on the card
-   agrees with the CPU, and that the serving CLI runs on the card;
+   agrees with the CPU, and that the serving CLI runs on the card; then
+   the same for the recurrent families, full-width recurrentgemma-2b
+   (RG-LRU prefill on the Triton kernel, its MLPs on the matmul kernel)
+   and rwkv6-1.6b (RWKV6 prefill on its CUDA kernel, each pass of the
+   prefill also held against its plain version on the layer's own inputs),
+   each freed before the next, and ``launch.serve --arch rwkv6-1.6b`` on
+   the card;
 5. the planner path, with the counts set to 0 just before and read just
    after: plans two traffic classes for qwen1.5-0.5b on ``H100_SXM``
    (one staircase-kernel sweep each), checks that the plans equal the same
@@ -56,22 +63,33 @@ PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 L2_BYTES = 50e6
 ARCH = "qwen1.5-0.5b"
+RECURRENT_ARCHS = ("recurrentgemma-2b", "rwkv6-1.6b")
 PROMPT_LENS = (128, 97, 64, 33)   # prefill M = 4 x 128 = 512
 NEW_TOKENS = 16
 SEED = 0
+# the RWKV6 kernel against its plain version, relative to the largest |o|
+# and |S|: both accumulate in fp32 and sum in other orders; an output sums
+# at most chunk + dh products and a score dh, each rounding by an fp32 ulp
+# (6e-8), so the two differ by about 1e-7 of the largest value
+RWKV6_RTOL = 1e-5
 
 REPLACES = {
     "matmul_tiled": "src/repro/kernels/matmul_tiled.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "staircase_fused": "src/repro/kernels/staircase_fused.py:208",
+    "rglru_scan": "src/repro/kernels/rglru.py:43",
+    "rwkv6": "src/repro/kernels/rwkv6.py:66",
 }
 SOURCES = {
     "matmul_tiled": "src/repro_torch/csrc/matmul_tiled.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "staircase_fused": "src/repro_torch/kernels/staircase_fused.py",
+    "rglru_scan": "src/repro_torch/kernels/rglru.py",
+    "rwkv6": "src/repro_torch/csrc/rwkv6.cu",
 }
 ROUTES = {"matmul_tiled": "cuda", "flash_attention": "cuda",
-          "staircase_fused": "triton"}
+          "staircase_fused": "triton", "rglru_scan": "triton",
+          "rwkv6": "cuda"}
 # the planner path's traffic classes: one served burst selects each
 # (batch x padded prompt tokens), "long" being the full-width burst's
 CLASSES = (("short", 4 * 32), ("long", 4 * max(PROMPT_LENS)))
@@ -258,9 +276,22 @@ def requests(cfg, Request, np):
             for n in PROMPT_LENS]
 
 
-def serve_full_width(torch, np, mods) -> dict:
-    """The main path: full-width qwen1.5-0.5b through ServeEngine."""
-    cfg = mods["configs"].get_config(ARCH)
+def expected_launches(cfg) -> dict:
+    """Launches of one served batch (a prefill and NEW_TOKENS - 1 decode
+    steps): 3 MLP products per attn, local or rglru layer in every forward;
+    one flash attention per global layer, one RG-LRU scan per rglru layer
+    and one RWKV6 pass per rwkv layer, in the prefill only (decode runs
+    the single-step forms, as ``repro`` does). Local attention is plain
+    torch, as ``repro`` computes it outside Pallas."""
+    kinds = cfg.layer_kinds()
+    return {"matmul_tiled": 3 * sum(k != "rwkv" for k in kinds) * NEW_TOKENS,
+            "flash_attention": kinds.count("attn"), "staircase_fused": 0,
+            "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv")}
+
+
+def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
+    """A main path: full-width ``arch`` through ServeEngine."""
+    cfg = mods["configs"].get_config(arch)
     tfm, Request, ServeEngine = mods["tfm"], mods["Request"], \
         mods["ServeEngine"]
     ops = mods["ops"]
@@ -277,11 +308,8 @@ def serve_full_width(torch, np, mods) -> dict:
     first = engine.generate(requests(cfg, Request, np))
     cold_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    # prefill: 3 MLP products and 1 attention per layer; each of the
-    # NEW_TOKENS - 1 decode steps: 3 MLP products per layer
-    want = {"matmul_tiled": 3 * cfg.n_layers * NEW_TOKENS,
-            "flash_attention": cfg.n_layers, "staircase_fused": 0}
-    log(f"serve {ARCH}: layers {cfg.n_layers} d_model {cfg.d_model} vocab "
+    want = expected_launches(cfg)
+    log(f"serve {arch}: layers {cfg.n_layers} d_model {cfg.d_model} vocab "
         f"{cfg.vocab_size}; launches {launches} (expected {want}); first "
         f"run {cold_s:.3f}s")
     check(launches == want, f"launch counts {launches} != {want}")
@@ -296,37 +324,72 @@ def serve_full_width(torch, np, mods) -> dict:
     check(all(len(r.tokens) == NEW_TOKENS and (r.tokens >= 0).all()
               and (r.tokens < cfg.vocab_size).all() for r in second),
           "tokens out of range or of the wrong count")
-    log(f"serve {ARCH}: {n_new} tokens in {warm_s:.3f}s "
+    log(f"serve {arch}: {n_new} tokens in {warm_s:.3f}s "
         f"({n_new / warm_s:.1f} tok/s, second run); tokens of request 0: "
         f"{second[0].tokens.tolist()}")
 
     # prefill logits on the kernels vs the same forward on the plain
-    # versions, on the engine's left-padded batch
+    # versions, on the engine's left-padded batch; in the kernels' forward
+    # each RWKV6 pass is also held against its plain version on that
+    # layer's own inputs
     plen = max(PROMPT_LENS)
     toks = np.zeros((len(PROMPT_LENS), plen), np.int64)
     for i, r in enumerate(requests(cfg, Request, np)):
         toks[i, plen - len(r.prompt):] = r.prompt
     toks = torch.from_numpy(toks).cuda()
+    layer_errs = []
+    dispatch = ops.rwkv6
+
+    def rwkv6_held(*args, **kw):
+        o, s = dispatch(*args, **kw)
+        ro, rs = dispatch(*args, **{**kw, "force": "plain"})
+        layer_errs.append(rwkv6_errors(torch, o, s, ro, rs))
+        return o, s
+
+    ops.rwkv6 = rwkv6_held
+    try:
+        with torch.inference_mode():
+            got, _ = tfm.forward(engine.params, cfg, tokens=toks,
+                                 mode="prefill")
+    finally:
+        ops.rwkv6 = dispatch
     with torch.inference_mode():
-        got, _ = tfm.forward(engine.params, cfg, tokens=toks, mode="prefill")
         want_l, _ = tfm.forward(engine.params, cfg, tokens=toks,
                                 mode="prefill", force="plain")
+    check(len(layer_errs) == cfg.layer_kinds().count("rwkv"),
+          f"{len(layer_errs)} RWKV6 passes in a prefill of "
+          f"{cfg.layer_kinds().count('rwkv')} rwkv layers")
+    for i, (finite, _, rel) in enumerate(layer_errs):
+        check(finite and rel <= RWKV6_RTOL, f"{arch} rwkv layer {i}: RWKV6 "
+              f"kernel vs plain on the layer's inputs: finite {finite}, "
+              f"relative error {rel} > {RWKV6_RTOL}")
+    if layer_errs:
+        log(f"{arch} prefill: each of {len(layer_errs)} RWKV6 passes held "
+            f"against its plain version on the layer's own inputs: finite, "
+            f"max_abs_err up to {max(e for _, e, _ in layer_errs):.4g}, "
+            f"relative up to {max(r for _, _, r in layer_errs):.3g} (tol "
+            f"{RWKV6_RTOL})")
     v = cfg.vocab_size
     got, want_l = got[..., :v].float(), want_l[..., :v].float()
     check(bool(torch.isfinite(got).all()) and got.shape == want_l.shape,
           "prefill logits not finite or of the wrong shape")
     err = (got - want_l).abs().max().item()
     scale = want_l.abs().max().item()
-    # 24 layers of bf16 activations: the two paths differ by bf16 steps
-    # (P rounded to bf16 inside the attention kernel, matmul sums in
-    # another order) that the residual stream carries; allow 5% of the
-    # largest logit
+    # 24-26 layers of bf16 activations: the two paths differ by bf16 steps
+    # (P rounded to bf16 inside the attention kernel, matmul and recurrence
+    # sums in another order) that the residual stream carries; allow 5% of
+    # the largest logit. Not for rwkv6 at random weights: two plain
+    # forwards whose RWKV6 sums in fp32 in other orders (chunk 32 and 16)
+    # are already 4.5 % apart there, so its per-layer check above decides
     tol = 0.05 * scale
     agree = (got.argmax(-1) == want_l.argmax(-1)).float().mean().item()
-    log(f"prefill logits kernels vs plain: max_abs_err {err:.4g} tol "
-        f"{tol:.4g} (max |logit| {scale:.4g}); argmax agreement "
-        f"{agree:.4f}")
-    check(err <= tol, f"prefill logits differ by {err} > {tol}")
+    log(f"prefill logits kernels vs plain: max_abs_err {err:.4g} "
+        f"({100 * err / scale:.2f}% of max |logit| {scale:.4g}); argmax "
+        f"agreement {agree:.4f}" + ("; rwkv: not held to 5%, see the "
+                                    "per-layer check" if layer_errs else
+                                    f"; tol {tol:.4g}"))
+    check(bool(layer_errs) or err <= tol,
+          f"prefill logits differ by {err} > {tol}")
     del got, want_l
 
     # where a step's time goes: eager wall time vs the device time of the
@@ -344,23 +407,23 @@ def serve_full_width(torch, np, mods) -> dict:
         for name, fn in steps.items():
             wall, dev = wall_ms(torch, fn), time_ms(torch, fn, (), reps=8)
             split[name] = (wall, dev)
-            log(f"{name}: wall {wall:.3f} ms, device {dev:.3f} ms, device "
-                f"idle {100 * (1 - dev / wall):.1f}% of the wall time")
+            log(f"{arch} {name}: wall {wall:.3f} ms, device {dev:.3f} ms, "
+                f"device idle {100 * (1 - dev / wall):.1f}% of the wall time")
     del engine, st
     torch.cuda.empty_cache()
     return {"launches": launches, "tok_s": n_new / warm_s, "split": split}
 
 
-def small_model_vs_cpu(torch, np, mods) -> None:
-    """A small model (head dim 64, as the kernel takes) served on the card
-    must agree with the same weights on the CPU's plain path."""
+def small_model_vs_cpu(torch, np, mods, arch: str = ARCH,
+                       seq: int = 37, **reduce) -> None:
+    """A small model served on the card must agree with the same weights
+    on the CPU's plain path."""
     c = mods["configs"]
     tfm = mods["tfm"]
-    cfg = c.reduced_config(c.get_config(ARCH), n_layers=2, d_model=256,
-                           n_heads=4, d_ff=512, vocab=250)
+    cfg = c.reduced_config(c.get_config(arch), **reduce)
     params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED))
     rng = np.random.default_rng(SEED)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, 37)))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, seq)))
     with torch.inference_mode():
         cpu, _ = tfm.forward(tfm.cast_params(params, "cpu"), cfg,
                              tokens=toks, mode="prefill")
@@ -370,8 +433,8 @@ def small_model_vs_cpu(torch, np, mods) -> None:
     gpu, cpu = gpu[..., :v].float().cpu(), cpu[..., :v].float()
     err = (gpu - cpu).abs().max().item()
     tol = 4e-2 * max(1.0, cpu.abs().max().item())
-    log(f"small model card vs CPU: prefill logits max_abs_err {err:.4g} "
-        f"tol {tol:.4g}")
+    log(f"small {cfg.name} card vs CPU: {seq} tokens, prefill logits "
+        f"max_abs_err {err:.4g} tol {tol:.4g}")
     check(bool(torch.isfinite(gpu).all()) and err <= tol,
           f"small model on the card differs from the CPU by {err}")
 
@@ -442,6 +505,106 @@ def compare_staircase(torch, sf, case) -> dict:
     return row
 
 
+def compare_rglru(torch, rg, case: tuple, gen) -> dict:
+    b, t, w = case
+    a = torch.rand(b, t, w, generator=gen, device="cuda") * 0.699 + 0.3
+    x = torch.randn(b, t, w, generator=gen, device="cuda")
+    h0 = torch.randn(b, w, generator=gen, device="cuda")
+    y, h = rg.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    ry, rh = rg.rglru_ref(a, x, h0)
+    err = max((y - ry).abs().max().item(), (h - rh).abs().max().item())
+    # the same fp32 FMA chain in both; the reference's kernel test holds
+    # its Pallas kernel to 1e-5 (tests/test_kernels.py:86)
+    tol = 1e-5 * max(1.0, ry.abs().max().item())
+    check(bool(torch.isfinite(y).all()) and err <= tol,
+          f"rglru_scan {case}: max_abs_err {err} > tol {tol}")
+    # a, b read and y written once (fp32), h0 read and h_last written; one
+    # FMA (2 operations) per element
+    b_ms, b_by = bound_ms(2.0 * b * t * w, 12.0 * b * t * w + 8.0 * b * w,
+                          peak=PEAK_FP32_FLOPS)
+    row = {"case": f"B={b} T={t} W={w}", "max_abs_err": err, "tol": tol,
+           "ms": time_ms(torch, rg.rglru_scan, (a, x, h0)),
+           "plain_ms": time_ms(torch, rg.rglru_ref, (a, x, h0), reps=4),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"rglru_scan {row['case']}: max_abs_err {err:.4g} tol {tol:.4g} ms "
+        f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} bound_ms "
+        f"{b_ms:.5f} ({b_by}); grid {rg.grid_programs(b, w)} programs on "
+        f"132 SMs; no library call computes it")
+    return row
+
+
+def rwkv6_work(b: int, t: int, h: int, dh: int, chunk: int,
+               in_bytes: int, s0: bool):
+    """(operations, bytes) of the chunked pairwise form on these shapes:
+    per (b, h) and chunk of n rows, an exponential counting as one
+    operation and a multiply-add as two: the strict-lower scores
+    (n(n-1)/2 x dh x 5), the bonus diagonal (n x dh x 3), the cumsum and
+    the decay scalings of r and k (n x dh x 6), the output's intra and
+    state products (n(n+1)/2 x dh x 2 + n x dh^2 x 2) and the state update
+    (dh^2 x 2 + n x dh^2 x 2). Bytes: r, k, v read, fp32 log_w read and o
+    written once, u, and the states read (s0) and written."""
+    ops = 0
+    for t0 in range(0, t, chunk):
+        n = min(chunk, t - t0)
+        ops += (n * (n - 1) // 2 * dh * 5 + n * dh * 3 + n * dh * 6
+                + n * (n + 1) // 2 * dh * 2 + n * dh * dh * 2
+                + dh * dh * 2 + n * dh * dh * 2)
+    state = 4.0 * b * h * dh * dh
+    nbytes = (b * t * h * dh * (3 * in_bytes + 8) + 4.0 * h * dh
+              + state * (2 if s0 else 1))
+    return float(ops * b * h), nbytes
+
+
+def rwkv6_errors(torch, o, s, ro, rs) -> tuple:
+    """(finite, max_abs_err, relative error) of the kernel's (o, S)
+    against the plain version's; the relative error is the larger of o's
+    and S's max_abs_err, each over its own largest value, and is held to
+    RWKV6_RTOL."""
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(s).all())
+    eo, es = (o - ro).abs().max().item(), (s - rs).abs().max().item()
+    rel = max(eo / ro.abs().max().item(), es / rs.abs().max().item())
+    return finite, max(eo, es), rel
+
+
+def compare_rwkv6(torch, rw, case: tuple, gen) -> dict:
+    b, t, h, dh, lw, s0, dtype = case
+    r, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    if lw is None:     # the model's range: -exp(clip(., -8, 4))
+        log_w = -torch.exp(torch.clamp(2.0 * torch.randn(
+            b, t, h, dh, generator=gen, device="cuda"), -8.0, 4.0))
+    else:
+        log_w = torch.full((b, t, h, dh), lw, device="cuda")
+    u = 0.1 * torch.randn(h, dh, generator=gen, device="cuda")
+    st = torch.randn(b, h, dh, dh, generator=gen, device="cuda") \
+        if s0 else None
+    args = (r, k, v, log_w, u, st)
+    o, s = rw.rwkv6(*args)
+    torch.cuda.synchronize()
+    finite, err, rel = rwkv6_errors(torch, o, s, *rw.rwkv6_ref(*args))
+    name = (f"B={b} T={t} H={h} dh={dh} {str(dtype).split('.')[-1]}"
+            + (" s0" if s0 else "")
+            + (f" log_w={lw}" if lw is not None else ""))
+    check(finite, f"rwkv6 {name}: non-finite output or state")
+    check(rel <= RWKV6_RTOL, f"rwkv6 {name}: max_abs_err / max |value| "
+                             f"{rel} > {RWKV6_RTOL}")
+    flops, nbytes = rwkv6_work(b, t, h, dh, min(rw.CHUNK, t),
+                               r.element_size(), s0)
+    b_ms, b_by = bound_ms(flops, nbytes, peak=PEAK_FP32_FLOPS)
+    row = {"case": name, "max_abs_err": err, "max_rel_err": rel,
+           "tol": f"{RWKV6_RTOL} of the largest |o| and |S|",
+           "ms": time_ms(torch, rw.rwkv6, args),
+           "plain_ms": time_ms(torch, rw.rwkv6_ref, args, reps=10),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"rwkv6 {name}: finite; max_abs_err {err:.4g} relative {rel:.3g} "
+        f"(tol {RWKV6_RTOL}) ms "
+        f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} bound_ms "
+        f"{b_ms:.5f} ({b_by}, {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} "
+        f"MB); grid {b * h} CTAs on 132 SMs; no library call computes it")
+    return row
+
+
 def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     """The planner path: plan on the card (one staircase launch per
     class), the same plans as on the CPU, then serve on the plans."""
@@ -462,7 +625,8 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     plan_s = time.perf_counter() - t0
     after_plan = dict(ops.LAUNCHES)
     check(after_plan == {"matmul_tiled": 0, "flash_attention": 0,
-                         "staircase_fused": len(traffic)},
+                         "staircase_fused": len(traffic), "rglru_scan": 0,
+                         "rwkv6": 0},
           f"planning launched {after_plan}, expected one staircase sweep "
           f"per class ({len(traffic)})")
     on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu")
@@ -500,9 +664,8 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
         outs.append(engine.generate(reqs))
         walls.append(time.perf_counter() - t0)
     launches = dict(ops.LAUNCHES)
-    want = {"matmul_tiled": 3 * cfg.n_layers * NEW_TOKENS * len(bursts),
-            "flash_attention": cfg.n_layers * len(bursts),
-            "staircase_fused": len(traffic)}
+    want = {k: n * len(bursts) for k, n in expected_launches(cfg).items()}
+    want["staircase_fused"] = len(traffic)
     check(launches == want, f"planner path launched {launches} != {want}")
     names = [p.traffic.name for p in engine.plan_log]
     check(names == ["long", "short", "long"],
@@ -645,16 +808,22 @@ def serve_batched_on_card(mods) -> None:
     log(f"launch.serve_batched on the card: {time.perf_counter() - t0:.1f}s")
 
 
-def cli_on_card(mods) -> None:
+def cli_on_card(mods, arch: str = ARCH) -> None:
+    """``launch.serve --arch arch`` on the card at full width; each kernel
+    of that arch's path must have launched."""
     ops = mods["ops"]
+    cfg = mods["configs"].get_config(arch)
     ops.reset_launches()
-    results = mods["serve_main"](["--requests", "4", "--prompt-len", "32",
-                                  "--new-tokens", "4"])
+    t0 = time.perf_counter()
+    results = mods["serve_main"](["--arch", arch, "--requests", "4",
+                                  "--prompt-len", "32", "--new-tokens", "4"])
     check(len(results) == 4 and all(len(r.tokens) == 4 for r in results),
           "the serving CLI returned the wrong results")
-    check(ops.LAUNCHES["matmul_tiled"] > 0
-          and ops.LAUNCHES["flash_attention"] > 0,
+    used = {k for k, n in expected_launches(cfg).items() if n}
+    check(all(ops.LAUNCHES[k] > 0 for k in used),
           f"the serving CLI skipped a kernel: {dict(ops.LAUNCHES)}")
+    log(f"launch.serve --arch {arch} on the card: "
+        f"{time.perf_counter() - t0:.1f}s, launches {dict(ops.LAUNCHES)}")
 
 
 def main() -> None:
@@ -670,6 +839,8 @@ def main() -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_tiled as mt
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6 as rw
     from repro_torch.kernels import staircase_fused as sf
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.serve_batched import main as serve_batched_main
@@ -689,9 +860,12 @@ def main() -> None:
     build_kernels(build)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # qwen1.5-0.5b's and recurrentgemma-2b's MLP products at prefill
+    # (M = 4 x 128) and decode (M = 4), and a ragged one
     mm = [compare_matmul(torch, mt, c, gen) for c in
           [(512, 1024, 2816), (512, 2816, 1024), (4, 1024, 2816),
-           (4, 2816, 1024), (100, 130, 70)]]
+           (4, 2816, 1024), (512, 2560, 7680), (512, 7680, 2560),
+           (4, 2560, 7680), (4, 7680, 2560), (100, 130, 70)]]
     fl = [compare_flash(torch, fa, c, gen) for c in
           [(4, 128, 128, 16, 16, 64, "causal", 0),
            (4, 100, 100, 16, 16, 64, "causal", 0),
@@ -703,24 +877,53 @@ def main() -> None:
           for c in staircase_cases(np, mods)]
     log(f"staircase_fused: 3 shapes checked and timed in "
         f"{time.time() - t0:.1f}s, Triton's first compile included")
+    # recurrentgemma-2b's prefill shape, a ragged W, one step
+    rgl = [compare_rglru(torch, rg, c, gen) for c in
+           [(4, 128, 2560), (4, 128, 2500), (4, 1, 2560)]]
+    # rwkv6-1.6b's prefill shape (bf16 r, k, v, as the model gives them), a
+    # ragged T from a non-zero state, and constant decays at the model's
+    # floor (-e^4), at -8 and at its ceiling (-e^-8): all finite
+    f32, b16 = torch.float32, torch.bfloat16
+    rwk = [compare_rwkv6(torch, rw, c, gen) for c in
+           [(4, 128, 32, 64, None, False, b16),
+            (4, 97, 32, 64, None, True, b16),
+            (4, 128, 32, 64, -54.6, True, f32),
+            (4, 128, 32, 64, -8.0, True, f32),
+            (4, 128, 32, 64, -3.4e-4, True, f32)]]
 
     served = serve_full_width(torch, np, mods)
-    small_model_vs_cpu(torch, np, mods)
+    small_model_vs_cpu(torch, np, mods, n_layers=2, d_model=256, n_heads=4,
+                       d_ff=512, vocab=250)
     cli_on_card(mods)
     planned = plan_and_serve(torch, np, mods, served["tok_s"])
     narrowed_plan(torch, np, mods, planned.pop("params"),
                   planned.pop("modules"))
     torch.cuda.empty_cache()
     serve_batched_on_card(mods)
+    # the recurrent families: each at full width, freed before the next;
+    # their small configs on the card against the CPU (70 tokens, past the
+    # reduced window of 64, so the ring cache rolls)
+    recurrent = {}
+    for arch in RECURRENT_ARCHS:
+        recurrent[arch] = serve_full_width(torch, np, mods, arch)
+        small_model_vs_cpu(torch, np, mods, arch, seq=70)
+    cli_on_card(mods, "rwkv6-1.6b")
 
     kernels = []
     # each kernel's launches are read from the main path that runs it: the
-    # full-width serve for the two CUDA kernels, the planner path (plan,
-    # then serve on the plans) for the staircase kernel
+    # full-width qwen serve for the matmul and attention kernels, the
+    # planner path (plan, then serve on the plans) for the staircase
+    # kernel, the recurrentgemma and rwkv6 serves for the recurrences
+    rec_g, rec_w = (recurrent[a] for a in RECURRENT_ARCHS)
+    check(all(planned["launches"][n] > 0 for n in (
+        "matmul_tiled", "flash_attention", "staircase_fused")),
+          f"the planner path skipped a kernel: {planned['launches']}")
     for name, row, path in (("matmul_tiled", mm[0], served),
                             ("flash_attention", fl[0], served),
-                            ("staircase_fused", st[0], planned)):
-        check(path["launches"][name] > 0 and planned["launches"][name] > 0,
+                            ("staircase_fused", st[0], planned),
+                            ("rglru_scan", rgl[0], rec_g),
+                            ("rwkv6", rwk[0], rec_w)):
+        check(path["launches"][name] > 0,
               f"{name} was not launched on the main path")
         kernels.append({
             "name": name, "route": ROUTES[name], "source": SOURCES[name],

@@ -8,8 +8,8 @@ hash of the source and the flags, so an edited source builds anew and an
 unchanged one is built once per checkout. Nothing is built when this module
 is imported: the CPU tests import every module and have no ``nvcc``.
 
-The Triton kernels (``TRITON_KERNELS``) are compiled by Triton at their
-first launch; :func:`import_triton` points Triton's cache at
+The Triton kernels (``TRITON_KERNELS``: kernel name -> the module under
+``kernels/`` that launches it) are compiled by Triton at their first launch; :func:`import_triton` points Triton's cache at
 ``build/triton`` under the repo root (unless ``$TRITON_CACHE_DIR`` is set)
 before it imports Triton, so the compiled kernel stays in the gitignored
 ``build/``.
@@ -34,9 +34,11 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-CUDA_SOURCES = ("matmul_tiled", "flash_attention")   # csrc/<name>.cu
-TRITON_KERNELS = ("staircase_fused",)                 # kernels/<name>.py
-LAUNCHES: Dict[str, int] = {k: 0 for k in CUDA_SOURCES + TRITON_KERNELS}
+CUDA_SOURCES = ("matmul_tiled", "flash_attention", "rwkv6")  # csrc/<name>.cu
+TRITON_KERNELS = {"staircase_fused": "staircase_fused",      # kernels/<v>.py
+                  "rglru_scan": "rglru"}
+LAUNCHES: Dict[str, int] = {k: 0 for k in CUDA_SOURCES
+                            + tuple(TRITON_KERNELS)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

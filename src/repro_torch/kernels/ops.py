@@ -18,6 +18,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention as flash_attention_kernel)
 from repro_torch.kernels.matmul_tiled import matmul_ref, matmul_tiled
+from repro_torch.kernels.rglru import rglru_ref, rglru_scan as rglru_kernel
+from repro_torch.kernels.rwkv6 import CHUNK, rwkv6 as rwkv6_kernel, rwkv6_ref
 from repro_torch.kernels.staircase_fused import staircase_fused, \
     staircase_ref
 
@@ -74,3 +76,22 @@ def staircase_latency(widths, shard_out, ca, mb, mc, *, lane: int,
         widths.to(i32).contiguous(), shard_out.to(i32).contiguous(),
         ca.to(f32).contiguous(), mb.to(f32).contiguous(),
         mc.to(f32).contiguous(), lane=lane)
+
+
+def rglru_scan(a, b, h0, *, force: Optional[str] = None):
+    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` from ``h0`` over
+    (B, T, W) fp32 ``a``, ``b`` -> (y (B, T, W) fp32, h_last (B, W))."""
+    if _use_plain(a, force):
+        return rglru_ref(a, b, h0)
+    return rglru_kernel(a.contiguous(), b.contiguous(), h0.contiguous())
+
+
+def rwkv6(r, k, v, log_w, u, s0=None, *, chunk: int = CHUNK,
+          force: Optional[str] = None):
+    """RWKV6 linear attention over (B, T, H, dh) from the state ``s0``
+    (zeros when None) -> (o fp32, final state (B, H, dh, dh) fp32)."""
+    if _use_plain(r, force):
+        return rwkv6_ref(r, k, v, log_w, u, s0, chunk=chunk)
+    return rwkv6_kernel(r.contiguous(), k.contiguous(), v.contiguous(),
+                        log_w.contiguous(), u.contiguous(),
+                        None if s0 is None else s0.contiguous(), chunk=chunk)

@@ -3,8 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --requests 8 --new-tokens 16
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+
 Runs on the card (``--device cuda``, the default) and fails if there is
-none; ``--device cpu`` runs the kernels' plain versions on the CPU.
+none; ``--device cpu`` runs the kernels' plain versions on the CPU (with
+``--reduced`` for the small configs). Serves qwen1.5-0.5b and the other
+global-attention archs, recurrentgemma-2b and rwkv6-1.6b.
 """
 
 from __future__ import annotations
@@ -39,9 +43,9 @@ def main(argv=None):
         cfg = reduced_config(cfg)
     why = unsupported(cfg)
     if why is not None:
-        raise SystemExit(f"{cfg.name}: this slice of the port serves "
-                         f"decoder-only global-attention archs; {why} are "
-                         f"not ported yet")
+        raise SystemExit(f"{cfg.name}: the port serves decoder-only "
+                         f"attention, local-attention, RG-LRU and RWKV6 "
+                         f"archs; {why} are not ported yet")
     device = require_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False

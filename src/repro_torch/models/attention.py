@@ -1,11 +1,11 @@
 """Attention: GQA projections, causal prefill through the flash-attention
-kernel, and single-token decode against a cache
-(``repro.models.attention``'s counterpart).
+kernel, sliding-window (local) prefill, and single-token decode against a
+cache (``repro.models.attention``'s counterpart).
 
 Layouts are ``repro``'s: ``wq`` (d, H, dh), ``wk``/``wv`` (d, KV, dh),
-``wo`` (H, dh, d); activations (B, S, H, dh). The projections and decode
-attention are torch products, as they are XLA einsums outside any Pallas
-kernel in ``repro``.
+``wo`` (H, dh, d); activations (B, S, H, dh). The projections, local
+prefill and decode attention are torch products, as they are XLA einsums
+outside any Pallas kernel in ``repro``.
 """
 
 from __future__ import annotations
@@ -61,6 +61,39 @@ def prefill_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
     q, k, v = (t.contiguous() for t in (q, k, v))
     return ops.flash_attention(q, k, v, mask_kind=mask_kind, window=window,
                                force=force)
+
+
+def local_attention_prefill(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, window: int,
+                            q_chunk: int = 1024) -> torch.Tensor:
+    """Sliding-window causal attention: query i sees keys j with
+    i - window < j <= i. Each chunk of ``q_chunk`` queries touches only
+    the keys its window reaches, so the work is O(S * window), not
+    O(S^2). Scores are fp32 from bf16 inputs and P is rounded to bf16
+    before P @ V, as in ``repro``. q: (B, S, H, dh); k, v: (B, S, KV,
+    dh)."""
+    b, sq, h, dh = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(dh)
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        qc = min(q_chunk, sq - q0)
+        k0 = max(0, q0 - window + 1)
+        k1 = min(skv, q0 + qc)
+        qblk = q[:, q0:q0 + qc].reshape(b, qc, kv, g, dh)
+        s = torch.einsum("bqkgd,bckd->bkgqc",
+                         qblk.to(COMPUTE_DTYPE).float(),
+                         k[:, k0:k1].to(COMPUTE_DTYPE).float()) * scale
+        qpos = q0 + torch.arange(qc, device=q.device)[:, None]
+        kpos = k0 + torch.arange(k1 - k0, device=q.device)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqc,bckd->bqkgd", p.to(COMPUTE_DTYPE).float(),
+                         v[:, k0:k1].to(COMPUTE_DTYPE).float())
+        outs.append(o.reshape(b, qc, h, dh).to(COMPUTE_DTYPE))
+    return torch.cat(outs, dim=1)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

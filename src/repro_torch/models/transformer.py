@@ -1,16 +1,20 @@
 """Config-driven decoder (``repro.models.transformer``'s counterpart).
 
-This slice covers decoder-only stacks of global-attention layers with a
-dense MLP (``attn`` blocks; ``parallel_block`` included) under standard or no
-rope. :func:`unsupported` names what a config needs beyond that (local,
-recurrent, MoE, encoder-decoder, M-RoPE).
+The port covers decoder-only stacks of global (``attn``) and sliding-window
+(``local``) attention layers and RG-LRU (``rglru``) layers, each with a dense
+MLP (``parallel_block`` included), and RWKV6 (``rwkv``) layers with their
+channel-mix, under standard or no rope. :func:`unsupported` names what a
+config needs beyond that (MoE, encoder-decoder, M-RoPE).
 
 The parameter tree is ``repro``'s, so converting weights is a copy: the
 layers of each pattern unit sit under ``params["decoder"]["stack"]["u{j}"]``
 with a leading unit axis, leftovers under ``["extra"]["x{j}"]``. Decode
 states use the same layout. Where ``repro`` scans over units, this module
-loops over them in Python. Decode writes each new K/V row into the caches in
-place and returns the same tensors, instead of copying the caches each step.
+loops over them in Python. Decode writes each new K/V row into the caches,
+and each new recurrent state into its tensors, in place and returns the same
+tensors, instead of copying the states each step. A ``local`` layer's cache
+is a ring of ``window`` rows (the next write at ``pos % window``); a global
+layer's grows to the decode capacity (``serving.engine``).
 """
 
 from __future__ import annotations
@@ -22,13 +26,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, apply_mlp, apply_norm, apply_rope, embed_tokens,
     init_embeddings, init_mlp, init_norm, unembed,
 )
 
 VOCAB_QUANTUM = 128   # embeddings padded to a multiple (no vocab tail)
-CONV_K = 4            # repro.models.recurrent.CONV_K, for param counts
+CONV_K = rec_lib.CONV_K
+KINDS = ("attn", "local", "rglru", "rwkv")
 
 Pos = Union[int, torch.Tensor]
 
@@ -41,8 +47,8 @@ def padded_vocab(cfg: ModelConfig) -> int:
 def unsupported(cfg: ModelConfig) -> Optional[str]:
     """Why this slice of the port cannot run ``cfg``, or None if it can."""
     kinds = set(cfg.layer_kinds())
-    if kinds - {"attn"}:
-        return f"layer kinds {sorted(kinds - {'attn'})}"
+    if kinds - set(KINDS):
+        return f"layer kinds {sorted(kinds - set(KINDS))}"
     if cfg.moe:
         return "MoE layers"
     if cfg.is_encdec:
@@ -123,15 +129,40 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+# The leaves ``repro`` reads in fp32, without a cast: every other leaf is
+# cast to bf16 at use (``layers.cast``), so casting it once is the same.
+# A key maps to None when its whole subtree is read in fp32, or to the set
+# of its children that are.
+FP32_READS = {
+    # apply_norm reads scale and bias in fp32 (src/repro/models/layers.py:51-63)
+    "norm1": None, "norm2": None, "final_norm": None,
+    # the RG-LRU gates (src/repro/models/recurrent.py:76-86)
+    "rglru": {"a_param", "in_gate_w", "in_gate_b", "rec_gate_w",
+              "rec_gate_b"},
+    # the RWKV6 decay and bonus (src/repro/models/recurrent.py:226-228, 315)
+    # and ln_x, a layernorm (recurrent.py:189, 322-323)
+    "rwkv": {"decay_w", "decay_lora_a", "decay_lora_b", "bonus_u", "ln_x"},
+}
+
+
 def cast_params(params: dict, device=None) -> dict:
-    """The tree on ``device`` with every weight in bf16 and every norm
-    parameter kept fp32: the values the layers compute with, cast once
-    instead of at every use."""
-    def walk(tree, in_norm: bool):
+    """The tree on ``device`` with every leaf that ``repro`` reads in fp32
+    (``FP32_READS``) kept fp32 and every other leaf in bf16: the values the
+    layers compute with, cast once instead of at every use."""
+    def walk(tree, keep: bool):
         if isinstance(tree, dict):
-            return {k: walk(v, in_norm or "norm" in k)
-                    for k, v in tree.items()}
-        if in_norm:
+            out = {}
+            for k, v in tree.items():
+                rule = FP32_READS.get(k, ())
+                if rule is None:
+                    out[k] = walk(v, True)
+                elif rule and isinstance(v, dict):
+                    out[k] = {c: walk(x, keep or c in rule)
+                              for c, x in v.items()}
+                else:
+                    out[k] = walk(v, keep)
+            return out
+        if keep:
             return tree.to(device)
         return tree.to(device=device, dtype=COMPUTE_DTYPE)
     return walk(params, False)
@@ -142,14 +173,23 @@ def cast_params(params: dict, device=None) -> dict:
 # ---------------------------------------------------------------------------
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
                mlp_kind: str, *, lead: tuple = ()) -> dict:
-    if kind != "attn" or mlp_kind != "dense":
+    if kind not in KINDS or mlp_kind != ("cmix" if kind == "rwkv"
+                                         else "dense"):
         raise NotImplementedError(f"layer ({kind}, {mlp_kind})")
     dev = gen.device
     p: dict = {"norm1": init_norm(cfg.norm, cfg.d_model, lead=lead,
-                                  device=dev),
-               "attn": attn_lib.init_attention(
-                   gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                   cfg.head_dim, bias=cfg.qkv_bias, lead=lead)}
+                                  device=dev)}
+    if kind == "rwkv":
+        p.update(rec_lib.init_rwkv(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.rwkv_head_dim, cfg.d_ff, lead=lead))
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, lead=lead, device=dev)
+        return p
+    if kind == "rglru":
+        p["rglru"] = rec_lib.init_rglru(gen, cfg.d_model, lead=lead)
+    else:
+        p["attn"] = attn_lib.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            bias=cfg.qkv_bias, lead=lead)
     if not cfg.parallel_block:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, lead=lead, device=dev)
     p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, lead=lead)
@@ -163,41 +203,97 @@ def _rope(cfg: ModelConfig, q, k, positions):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
-                    cache: Optional[dict], positions: torch.Tensor, pos: Pos,
-                    force: Optional[str]):
+def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                    mode: str, cache: Optional[dict],
+                    positions: torch.Tensor, pos: Pos, force: Optional[str]):
     """Self-attention for train / prefill / decode.  Returns (y, cache).
 
     In decode, ``pos`` is the write position: an int (every row at the same
-    position) or a (B,) tensor (ragged decode, each row at its own)."""
+    position) or a (B,) tensor (ragged decode, each row at its own). A
+    ``local`` layer writes slot ``pos % window`` of its ring and attends
+    ``min(pos + 1, window)`` slots."""
     q, k, v = attn_lib.qkv_proj(p, x)
     q, k = _rope(cfg, q, k, positions)
     if mode == "decode":
         kc, vc = cache["k"], cache["v"]
+        slot, valid = pos, pos + 1
+        if kind == "local":
+            w = cfg.window
+            slot = pos % w
+            valid = torch.clamp(pos + 1, max=w) if torch.is_tensor(pos) \
+                else min(pos + 1, w)
         if torch.is_tensor(pos) and pos.dim() == 1:
             rows = torch.arange(x.shape[0], device=x.device)
-            kc[rows, pos] = k[:, 0].to(kc.dtype)
-            vc[rows, pos] = v[:, 0].to(vc.dtype)
+            kc[rows, slot] = k[:, 0].to(kc.dtype)
+            vc[rows, slot] = v[:, 0].to(vc.dtype)
         else:
-            kc[:, pos] = k[:, 0].to(kc.dtype)
-            vc[:, pos] = v[:, 0].to(vc.dtype)
-        o = attn_lib.decode_attention(q[:, 0], kc, vc, pos + 1)
+            kc[:, slot] = k[:, 0].to(kc.dtype)
+            vc[:, slot] = v[:, 0].to(vc.dtype)
+        o = attn_lib.decode_attention(q[:, 0], kc, vc, valid)
         return attn_lib.out_proj(p, o[:, None]), {"k": kc, "v": vc}
-    o = attn_lib.prefill_attention(q, k, v, mask_kind="causal", force=force)
+    if kind == "local":
+        o = attn_lib.local_attention_prefill(q, k, v, window=cfg.window)
+    else:
+        o = attn_lib.prefill_attention(q, k, v, mask_kind="causal",
+                                       force=force)
     y = attn_lib.out_proj(p, o)
     new_cache = None
     if mode == "prefill":
-        new_cache = {"k": k.to(COMPUTE_DTYPE), "v": v.to(COMPUTE_DTYPE)}
+        k, v = k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE)
+        if kind == "local":
+            k, v = _ring(k, cfg.window), _ring(v, cfg.window)
+        new_cache = {"k": k, "v": v}
     return y, new_cache
 
 
-def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                state: Optional[dict], positions: torch.Tensor, pos: Pos,
-                force: Optional[str]):
-    """One attn + dense-MLP layer.  Returns (x, new_state)."""
+def _ring(t: torch.Tensor, w: int) -> torch.Tensor:
+    """A prefill's (B, S, KV, dh) rows as a ring of ``w`` slots whose next
+    write is slot ``S % w``: padded to ``w`` rows when S < w, else the last
+    ``w`` rows rolled by ``S % w``."""
+    s = t.shape[1]
+    if s < w:
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, w - s))
+    return torch.roll(t[:, -w:], s % w, dims=1).contiguous()
+
+
+def _write_back(state: dict, new: dict) -> dict:
+    """Decode updates a recurrent state in place (its tensors may be views
+    into the stacked states) and returns the same tensors."""
+    for name, t in new.items():
+        state[name].copy_(t)
+    return state
+
+
+def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+                mode: str, state: Optional[dict], positions: torch.Tensor,
+                pos: Pos, force: Optional[str]):
+    """One layer of ``kind`` with its MLP.  Returns (x, new_state)."""
+    decode = mode == "decode"
+    if kind == "rwkv":
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        tm_state = ({"shift": state["shift"], "s": state["s"]}
+                    if decode else None)
+        y, tm_new = rec_lib.apply_rwkv_timemix(p["rwkv"], h, state=tm_state,
+                                               decode=decode, force=force)
+        x = x + y
+        h = apply_norm(p["norm2"], x, cfg.norm)
+        y, cm_new = rec_lib.apply_rwkv_channelmix(
+            p["cmix"], h, state["cmix_shift"] if decode else None)
+        new_state = {"shift": tm_new["shift"], "s": tm_new["s"],
+                     "cmix_shift": cm_new}
+        if decode:
+            new_state = _write_back(state, new_state)
+        return x + y, new_state
     h = apply_norm(p["norm1"], x, cfg.norm)
-    y, new_state = _self_attention(p["attn"], h, cfg, mode, state,
-                                   positions, pos, force)
+    if kind == "rglru":
+        y, new_state = rec_lib.apply_rglru_block(
+            p["rglru"], h, state=state if decode else None, decode=decode,
+            force=force)
+        if decode:
+            new_state = _write_back(state, new_state)
+    else:
+        y, new_state = _self_attention(p["attn"], h, cfg, kind, mode, state,
+                                       positions, pos, force)
     if cfg.parallel_block:
         # cohere: out = x + attn(norm(x)) + mlp(norm(x))
         return x + y + apply_mlp(p["mlp"], h, cfg.mlp_gated,
@@ -233,9 +329,9 @@ def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     n_units = len(plan) // cycle
     new_states: dict = {}
 
-    def run(lp, st):
+    def run(lp, kind, st):
         nonlocal x
-        x, ns = apply_layer(lp, x, cfg, mode=mode, state=st,
+        x, ns = apply_layer(lp, x, cfg, kind, mode=mode, state=st,
                             positions=positions, pos=pos, force=force)
         return ns
 
@@ -244,13 +340,15 @@ def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         for u in range(n_units):
             units.append({
                 f"u{j}": run(_index(stack_p["stack"][f"u{j}"], u),
+                             plan[j][0],
                              _index(states["stack"][f"u{j}"], u)
                              if mode == "decode" else None)
                 for j in range(cycle)})
         if mode == "prefill":
             new_states["stack"] = _stack(units)
     if "extra" in stack_p:
-        extra = {k: run(lp, states["extra"][k] if mode == "decode" else None)
+        extra = {k: run(lp, plan[n_units * cycle + int(k[1:])][0],
+                        states["extra"][k] if mode == "decode" else None)
                  for k, lp in stack_p["extra"].items()}
         if mode == "prefill":
             new_states["extra"] = extra
@@ -296,7 +394,9 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
 def forward(params: dict, cfg: ModelConfig, *, tokens: torch.Tensor,
             mode: str = "train", force: Optional[str] = None):
     """Full-sequence forward over (B, S) tokens.  Returns (logits, states):
-    states are the (B, S) KV caches in prefill mode, None in train mode."""
+    in prefill mode each layer's decode state (a global layer's (B, S) KV
+    cache, a local layer's ring, a recurrent layer's state), None in train
+    mode."""
     _check(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward mode {mode!r}")
@@ -322,22 +422,36 @@ def _mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # decode state
 # ---------------------------------------------------------------------------
+def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 lead: tuple, device) -> dict:
+    """Zero decode state of one layer (of ``lead`` stacked layers)."""
+    if kind == "rglru":
+        return rec_lib.rglru_init_state(batch, cfg.d_model, lead=lead,
+                                        device=device)
+    if kind == "rwkv":
+        return rec_lib.rwkv_init_state(batch, cfg.d_model, cfg.n_heads,
+                                       cfg.rwkv_head_dim, lead=lead,
+                                       device=device)
+    s = min(cfg.window, max_len) if kind == "local" else max_len
+    shape = lead + (batch, s, cfg.n_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
+            for n in ("k", "v")}
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict:
     _check(cfg)
     plan = layer_plan(cfg)
     cycle = unit_cycle(cfg)
     n_units = len(plan) // cycle
-
-    def zeros(lead):
-        shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {n: torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
-                for n in ("k", "v")}
-
     out: dict = {}
     if n_units:
-        out["stack"] = {f"u{j}": zeros((n_units,)) for j in range(cycle)}
-    extra = {f"x{j}": zeros(()) for j in range(len(plan) - n_units * cycle)}
+        out["stack"] = {f"u{j}": _layer_state(cfg, plan[j][0], batch,
+                                              max_len, (n_units,), device)
+                        for j in range(cycle)}
+    extra = {f"x{j}": _layer_state(cfg, plan[n_units * cycle + j][0], batch,
+                                   max_len, (), device)
+             for j in range(len(plan) - n_units * cycle)}
     if extra:
         out["extra"] = extra
     return out

@@ -2,12 +2,14 @@
 (``repro.serving.engine``'s counterpart).
 
 ``ServeEngine.generate`` forms batches of ``batch_slots`` requests in order,
-left-pads each batch's prompts with token 0 (the pad rows are attended, as in
-``repro``), prefills with ``transformer.forward(mode="prefill")``, grows the
-caches to ``max_len`` and decodes all rows in lockstep with ``decode_step``.
-On a CUDA device the MLP projections and causal prefill attention run on the
-port's kernels. fp32 products (decode scores) assume TF32 is off, PyTorch's
-default; the entry points set it so.
+left-pads each batch's prompts with token 0 (the pad rows are attended, and
+run through the recurrences, as in ``repro``), prefills with
+``transformer.forward(mode="prefill")``, grows the global-attention caches
+to ``max_len`` and decodes all rows in lockstep with ``decode_step``. On a
+CUDA device the MLP projections, causal prefill attention and the prefill
+recurrences (RG-LRU, RWKV6) run on the port's kernels. fp32 products
+(decode scores, RWKV6's decays) assume TF32 is off, PyTorch's default; the
+entry points set it so.
 
 Width planning and live swapping, as in ``repro``: ``ServingWidthPlanner``
 runs the paper's Algorithm 2 once per traffic class (token-volume bucket)
@@ -459,11 +461,20 @@ class ServeEngine:
         return results
 
     def _ensure_states(self, states: dict) -> dict:
-        """Grow the prefill caches (sequence axis third from the end) to
-        ``max_len`` rows of decode capacity."""
-        def grow(tree):
-            if isinstance(tree, dict):
-                return {k: grow(v) for k, v in tree.items()}
-            pad = self.max_len - tree.shape[-3]
-            return F.pad(tree, (0, 0, 0, 0, 0, pad)) if pad > 0 else tree
-        return grow(states)
+        """Grow the prefill KV caches of the global-attention layers (their
+        sequence axis third from the end) to ``max_len`` rows of decode
+        capacity. The layer kind decides, not a shape: a local layer's ring
+        stays ``window`` rows, and recurrent states and shift or conv
+        carries stay as they are. The returned tree shares every other
+        tensor with ``states``."""
+        out = {g: dict(sub) for g, sub in states.items()}
+        for group, key in {(r["group"], r["key"])
+                           for r in tfm.decoder_layer_refs(self.cfg)
+                           if r["kind"] == "attn"}:
+            cache = dict(out[group][key])
+            for name in ("k", "v"):
+                pad = self.max_len - cache[name].shape[-3]
+                if pad > 0:
+                    cache[name] = F.pad(cache[name], (0, 0, 0, 0, 0, pad))
+            out[group][key] = cache
+        return out

@@ -14,6 +14,8 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul_tiled as mt
+from repro_torch.kernels import rglru as rg
+from repro_torch.kernels import rwkv6 as rw
 from repro_torch.kernels import staircase_fused as sf
 from repro_torch.models import transformer as tfm
 
@@ -108,7 +110,8 @@ def test_prefill_on_kernels_vs_plain(gen):
     got, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill")
     assert ops.LAUNCHES == {"matmul_tiled": 3 * cfg.n_layers,
                             "flash_attention": cfg.n_layers,
-                            "staircase_fused": 0}
+                            "staircase_fused": 0, "rglru_scan": 0,
+                            "rwkv6": 0}
     want, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill",
                           force="plain")
     v = cfg.vocab_size
@@ -201,3 +204,127 @@ def test_planner_on_the_card_equals_the_cpu(gen):
         assert card[name].satisfied == cpu[name].satisfied
         assert abs(card[name].latency_s - cpu[name].latency_s) <= \
             1e-6 * cpu[name].latency_s
+
+
+# ---------------------------------------------------------------------------
+# the recurrences: RG-LRU (Triton) and RWKV6 (CUDA), and both families
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,t,w", [(2, 64, 128), (1, 32, 256), (3, 16, 128),
+                                   (4, 128, 2560), (2, 37, 2500), (4, 1, 2560),
+                                   (1, 5, 1)])
+def test_rglru_kernel_vs_plain(gen, b, t, w):
+    """tests/test_kernels.py:73-75's sweep, the main path's shape, a ragged
+    W and T = 1. The same fp32 FMA chain in both: 1e-5 (the reference's)."""
+    a = torch.rand(b, t, w, generator=gen, device="cuda") * 0.699 + 0.3
+    x = torch.randn(b, t, w, generator=gen, device="cuda")
+    h0 = torch.randn(b, w, generator=gen, device="cuda")
+    before = ops.LAUNCHES["rglru_scan"]
+    y, h = rg.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rglru_scan"] == before + 1
+    ry, rh = rg.rglru_ref(a, x, h0)
+    torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, rh, rtol=1e-5, atol=1e-5)
+
+
+def test_rglru_kernel_refusals(gen):
+    x = torch.randn(2, 4, 8, generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        rg.rglru_scan(x.bfloat16(), x.bfloat16(), x[:, 0].bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.rglru_scan(x.transpose(1, 2), x.transpose(1, 2), x[:, :, 0])
+    y, h = rg.rglru_scan(x[:, :0].contiguous(), x[:, :0].contiguous(),
+                         x[:, 0].contiguous())
+    assert y.shape == (2, 0, 8) and torch.equal(h, x[:, 0])
+
+
+def rwkv_inputs(gen, b, t, h, dh, lw=None, s0=False, dtype=torch.float32):
+    r, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    if lw is None:
+        lw = -torch.exp(torch.clamp(torch.randn(
+            b, t, h, dh, generator=gen, device="cuda"), -8, 1))
+    else:
+        lw = torch.full((b, t, h, dh), lw, device="cuda")
+    u = 0.1 * torch.randn(h, dh, generator=gen, device="cuda")
+    st = torch.randn(b, h, dh, dh, generator=gen, device="cuda") \
+        if s0 else None
+    return r, k, v, lw, u, st
+
+
+@pytest.mark.parametrize("b,t,h,dh,lw,s0,dtype", [
+    (2, 64, 2, 64, None, False, torch.float32),
+    (1, 32, 4, 32, None, False, torch.float32),
+    (2, 128, 1, 64, None, False, torch.float32),
+    (4, 128, 32, 64, None, False, torch.bfloat16),   # the main path
+    (2, 97, 4, 64, None, True, torch.bfloat16),      # ragged last chunk
+    (1, 1, 2, 64, None, True, torch.float32),
+    (2, 40, 2, 16, -54.6, True, torch.float32),
+    (2, 40, 2, 16, -8.0, False, torch.float32),
+    (2, 40, 2, 16, -3.4e-4, True, torch.float32),
+    (1, 33, 2, 128, None, True, torch.float32),
+    (1, 70, 2, 128, None, True, torch.float32),
+])
+def test_rwkv6_kernel_vs_plain(gen, b, t, h, dh, lw, s0, dtype):
+    """The kernel against its plain version on the card: finite at the
+    decay extremes, within 2e-4 of the largest value (the reference's fp32
+    tolerance; both accumulate in fp32, in other orders)."""
+    args = rwkv_inputs(gen, b, t, h, dh, lw, s0, dtype)
+    before = ops.LAUNCHES["rwkv6"]
+    o, s = rw.rwkv6(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rwkv6"] == before + 1
+    ro, rs = rw.rwkv6_ref(*args)
+    for got, want in ((o, ro), (s, rs)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * max(
+            1.0, want.abs().max().item()))
+
+
+def test_rwkv6_kernel_chunks_and_refusals(gen):
+    # head dim 128 at chunk 64 takes the most shared memory a CTA may ask
+    for dh, chunks in ((128, (64,)), (64, (1, 16, 64))):
+        args = rwkv_inputs(gen, 1, 70, 2, dh, s0=True)
+        want = rw.rwkv6_ref(*args)
+        for chunk in chunks:
+            for got, w in zip(rw.rwkv6(*args, chunk=chunk), want):
+                torch.testing.assert_close(got, w, rtol=2e-4, atol=2e-4 * max(
+                    1.0, w.abs().max().item()))
+    with pytest.raises(ValueError, match="chunk"):
+        rw.rwkv6(*args, chunk=65)
+    r = torch.zeros(1, 4, 2, 256, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        rw.rwkv6(r, r, r, r, torch.zeros(2, 256, device="cuda"))
+    with pytest.raises(TypeError):
+        rw.rwkv6(args[0].bfloat16(), *args[1:])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-1.6b"])
+def test_recurrent_family_on_the_card_vs_cpu(gen, arch):
+    """A reduced config served on the card agrees with the CPU's plain
+    path; the prefill's launch counts are exact."""
+    from repro_torch.serving import Request, ServeEngine
+    cfg = reduced_config(get_config(arch))
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(3, 70)))
+    with torch.inference_mode():
+        cpu, _ = tfm.forward(tfm.cast_params(params, "cpu"), cfg,
+                             tokens=toks, mode="prefill")
+        ops.reset_launches()
+        card, _ = tfm.forward(tfm.cast_params(params, "cuda"), cfg,
+                              tokens=toks.cuda(), mode="prefill")
+    kinds = cfg.layer_kinds()
+    assert ops.LAUNCHES == {
+        "matmul_tiled": 3 * sum(k != "rwkv" for k in kinds),
+        "flash_attention": kinds.count("attn"), "staircase_fused": 0,
+        "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv")}
+    v = cfg.vocab_size
+    card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
+    assert (card - cpu).abs().max().item() <= 4e-2 * max(
+        1.0, cpu.abs().max().item())
+    reqs = [Request(prompt=p.numpy().astype(np.int32), max_new_tokens=4)
+            for p in toks[:, :9]]
+    on_card = ServeEngine(params, cfg, max_len=16, device="cuda").generate(
+        reqs)
+    assert all(len(r.tokens) == 4 for r in on_card)

@@ -20,6 +20,7 @@ from repro_torch.interop import params_from_jax
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
+from test_torch_recurrent import perturb_fp32_reads
 
 # jits the JAX model; the quick tier skips it with -m "not slow"
 pytestmark = pytest.mark.slow
@@ -39,6 +40,10 @@ VARIANTS = {
     "command-r-reduced": dict(arch="command-r-plus-104b"),
     # untied unembedding, no qkv bias
     "deepseek-reduced": dict(arch="deepseek-7b"),
+    # hybrid: (rglru, rglru, local) with a ring cache of 64 rows, MQA
+    "recurrentgemma-reduced": dict(arch="recurrentgemma-2b"),
+    # attention-free: RWKV6 time-mix and channel-mix, layernorm
+    "rwkv6-reduced": dict(arch="rwkv6-1.6b"),
 }
 
 
@@ -70,12 +75,17 @@ def close(t, j, tol=TOL):
                                atol=tol * max(1.0, float(np.abs(j).max())))
 
 
+def build(variant):
+    """Both configs and the reference's own init, converted; the leaves
+    the reference reads in fp32 are perturbed (they start as constants)."""
+    jc, tc = configs(**VARIANTS[variant])
+    host = perturb_fp32_reads(jax.device_get(jax_init(0, jc)))
+    return jc, tc, jax.tree.map(jnp.asarray, host), params_from_jax(host)
+
+
 @pytest.fixture(scope="module", params=list(VARIANTS))
 def model(request):
-    jc, tc = configs(**VARIANTS[request.param])
-    jparams = jax_init(0, jc)
-    tparams = params_from_jax(jax.device_get(jparams))
-    return jc, tc, jparams, tparams
+    return build(request.param)
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +137,21 @@ def test_qkv_proj_with_bias():
     for t, j in zip(tattn.qkv_proj(tp, tx), jattn.qkv_proj(jp, jx)):
         assert tuple(t.shape) == j.shape
         close(t, j)
+
+
+@pytest.mark.parametrize("q_chunk", [1024, 16])
+def test_local_attention_prefill(q_chunk):
+    """recurrentgemma's sliding window (MQA), in one query chunk and in
+    chunks whose key strips start past 0."""
+    rng = np.random.default_rng(11)
+    jq, tq = bf16_pair(rng.standard_normal((2, 70, 4, 16)).astype(np.float32))
+    jk, tk = bf16_pair(rng.standard_normal((2, 70, 1, 16)).astype(np.float32))
+    jv, tv = bf16_pair(rng.standard_normal((2, 70, 1, 16)).astype(np.float32))
+    got = tattn.local_attention_prefill(tq, tk, tv, window=24,
+                                        q_chunk=q_chunk)
+    assert got.dtype == torch.bfloat16
+    close(got, jattn.local_attention_prefill(jq, jk, jv, window=24,
+                                             q_chunk=q_chunk))
 
 
 @pytest.mark.parametrize("lengths", [13, [5, 20, 1]])
@@ -185,37 +210,66 @@ def test_forward_prefill_logits_and_states(model):
     assert tuple(tlog.shape) == jlog.shape
     close(tlog[..., :tc.vocab_size], jlog[..., :jc.vocab_size])
     jleaves = jax.tree_util.tree_leaves_with_path(jst)
-    assert len(jleaves) == 2
+    count = lambda t: (sum(count(v) for v in t.values())
+                       if isinstance(t, dict) else 1)
+    # per stacked slot: k, v (attn, local); h, conv; shift, s, cmix_shift
+    slots = {(r["group"], r["key"]): r["kind"]
+             for r in ttfm.decoder_layer_refs(tc)}
+    per_kind = {"attn": 2, "local": 2, "rglru": 2, "rwkv": 3}
+    assert len(jleaves) == count(tst) == sum(per_kind[k]
+                                             for k in slots.values())
     for path, jleaf in jleaves:
         node = tst
         for key in path:
             node = node[key.key]
         assert tuple(node.shape) == jleaf.shape
-        assert node.dtype == torch.bfloat16
+        assert node.dtype == {jnp.dtype(jnp.bfloat16): torch.bfloat16,
+                              jnp.dtype(jnp.float32): torch.float32}[
+                                  jleaf.dtype]
         close(node, jleaf)
 
 
-def _grow(tree, max_len, pad_fn):
-    if isinstance(tree, dict):
-        return {k: _grow(v, max_len, pad_fn) for k, v in tree.items()}
-    return pad_fn(tree, max_len - tree.shape[-3])
+def _grow(cfg, tree, max_len, pad_fn):
+    """The global-attention caches grown to ``max_len`` rows; rings and
+    recurrent states as they are (the port's engine does the same)."""
+    tree = {g: dict(sub) for g, sub in tree.items()}
+    for r in ttfm.decoder_layer_refs(cfg):
+        if r["kind"] == "attn":
+            cache = tree[r["group"]][r["key"]]
+            tree[r["group"]][r["key"]] = {
+                n: pad_fn(a, max_len - a.shape[-3]) if a.shape[-3] < max_len
+                else a for n, a in cache.items()}
+    return tree
 
 
 def test_teacher_forced_decode(model):
     """Five decode steps fed the same tokens in both packages."""
+    _teacher_forced(model, plen=9, steps=5, seed=7)
+
+
+def test_ring_cache_rolls_past_the_window():
+    """recurrentgemma's local layer with a 70-token prompt, past the
+    reduced window of 64: prefill rolls the ring by 70 % 64 and decode
+    writes slot pos % 64 over the oldest rows."""
+    m = build("recurrentgemma-reduced")
+    assert m[1].window == 64
+    _teacher_forced(m, plen=70, steps=4, seed=12)
+
+
+def _teacher_forced(model, *, plen, steps, seed):
     jc, tc, jparams, tparams = model
-    rng = np.random.default_rng(7)
-    toks = rng.integers(0, tc.vocab_size, size=(3, 9))
-    feed = rng.integers(0, tc.vocab_size, size=(5, 3))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, tc.vocab_size, size=(3, plen))
+    feed = rng.integers(0, tc.vocab_size, size=(steps, 3))
     _, jst, _, tst = _prefill(model, toks)
-    max_len = 9 + 5
-    jst = _grow(jst, max_len, lambda a, p: jnp.pad(
+    max_len = plen + steps
+    jst = _grow(tc, jst, max_len, lambda a, p: jnp.pad(
         a, [(0, 0)] * (a.ndim - 3) + [(0, p), (0, 0), (0, 0)]))
-    tst = _grow(tst, max_len, lambda a, p: torch.nn.functional.pad(
+    tst = _grow(tc, tst, max_len, lambda a, p: torch.nn.functional.pad(
         a, (0, 0, 0, 0, 0, p)))
     jdec = jax.jit(lambda p, t, pos, st: jtfm.decode_step(p, jc, t, pos, st))
-    for step in range(5):
-        pos = 9 + step
+    for step in range(steps):
+        pos = plen + step
         jlog, jst = jdec(jparams, jnp.asarray(feed[step], jnp.int32),
                          jnp.asarray(pos, jnp.int32), jst)
         tlog, tst = ttfm.decode_step(tparams, tc,

@@ -29,6 +29,7 @@ from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve_batched import main as serve_batched_main
 from repro_torch.models import transformer as ttfm
 from repro_torch.serving import Request, ServeEngine
+from test_torch_recurrent import perturb_fp32_reads
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 4e-2          # bf16 tolerance, relative to the largest logit
@@ -322,7 +323,8 @@ def test_cli_runs_on_cpu(capsys):
 
 def test_cli_refuses_archs_outside_the_slice():
     with pytest.raises(SystemExit, match="not ported"):
-        serve_main(["--device", "cpu", "--reduced", "--arch", "rwkv6-1.6b"])
+        serve_main(["--device", "cpu", "--reduced", "--arch",
+                    "granite-moe-1b-a400m"])
 
 
 def test_entry_points_default_to_the_card(model):
@@ -345,7 +347,9 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "new = {'repro_torch.models.recurrent', 'repro_torch.kernels.rglru',"
+        " 'repro_torch.kernels.rwkv6'}\n"
+        "sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
@@ -376,3 +380,150 @@ def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: recurrentgemma (rglru, rglru, local) and rwkv6
+# ---------------------------------------------------------------------------
+RECURRENT = ("recurrentgemma-2b", "rwkv6-1.6b")
+
+
+def recurrent_model(arch):
+    """Both reduced configs and the reference's own init, with the
+    fp32-read leaves perturbed."""
+    jc = jax_reduced(jax_get_config(arch))
+    tc = reduced_config(get_config(arch))
+    host = perturb_fp32_reads(jax.device_get(
+        jtfm.init_params(jax.random.PRNGKey(1), jc)))
+    return jc, tc, host
+
+
+@pytest.mark.slow     # jits the JAX engine
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_greedy_generate_matches_jax_engine(arch):
+    jc, tc, host = recurrent_model(arch)
+    ps = prompts(tc.vocab_size, seed=4)
+    jparams = jax.tree.map(jnp.asarray, host)
+    jres = JServeEngine(jparams, jc, max_len=32, batch_slots=4).generate(
+        [JRequest(prompt=p, max_new_tokens=NEW) for p in ps])
+    teng = ServeEngine(params_from_jax(host), tc, max_len=32,
+                       batch_slots=4, device="cpu")
+    tres = teng.generate([Request(prompt=p, max_new_tokens=NEW)
+                          for p in ps])
+    # JAX's logits along its own tokens, one forward over the left-padded
+    # prompts and generated tokens. A step is compared where both engines
+    # generated the same tokens before it (so they saw the same history)
+    # and JAX's top-2 margin is clear of twice the bf16 tolerance; these
+    # small models' logits are flat, so ties are common and a tie does not
+    # end the row's comparison.
+    plen = max(len(p) for p in ps)
+    seq = np.zeros((len(ps), plen + NEW - 1), np.int32)
+    for i, (p, r) in enumerate(zip(ps, jres)):
+        seq[i, plen - len(p):plen] = p
+        seq[i, plen:] = r.tokens[:-1]
+    logits, _, _ = jtfm.forward(jparams, jc, tokens=jnp.asarray(seq),
+                                mode="prefill")
+    logits = np.asarray(logits[:, plen - 1:, :jc.vocab_size], np.float32)
+    tol = TOL * np.abs(logits).max()
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    compared = 0
+    for i, (j, t) in enumerate(zip(jres, tres)):
+        assert len(t.tokens) == len(j.tokens) == NEW
+        for step in range(NEW):
+            if not np.array_equal(t.tokens[:step], j.tokens[:step]):
+                break
+            if top2[i, step, 1] - top2[i, step, 0] > 2 * tol:
+                assert t.tokens[step] == j.tokens[step], (i, step)
+                compared += 1
+    assert compared >= NEW * len(ps) // 4
+
+
+def test_rwkv_prompt_as_long_as_the_heads_serves():
+    """The longest prompt has n_heads tokens. ``repro``'s engine grows
+    every state leaf whose sequence-like axis equals the prompt length,
+    so it pads RWKV's (units, B, H, dh, dh) state along H and fails in
+    decode; the port grows only global-attention caches, by layer kind.
+    Its tokens follow ``repro``'s model-level prefill and decode_step."""
+    jc, tc, host = recurrent_model("rwkv6-1.6b")
+    assert tc.n_heads == 4
+    rng = np.random.default_rng(6)
+    ps = [rng.integers(0, tc.vocab_size, size=(n,)).astype(np.int32)
+          for n in (4, 2, 3)]
+    new = 8
+    tres = ServeEngine(params_from_jax(host), tc, max_len=16,
+                       batch_slots=4, device="cpu").generate(
+        [Request(prompt=p, max_new_tokens=new) for p in ps])
+    assert all(len(r.tokens) == new for r in tres)
+
+    jparams = jax.tree.map(jnp.asarray, host)
+    toks = np.zeros((3, 4), np.int32)
+    for i, p in enumerate(ps):
+        toks[i, 4 - len(p):] = p
+    logits, st, _ = jtfm.forward(jparams, jc, tokens=jnp.asarray(toks),
+                                 mode="prefill")
+    dec = jax.jit(lambda p, t, pos, s: jtfm.decode_step(p, jc, t, pos, s))
+    steps = [np.asarray(logits[:, -1, :jc.vocab_size], np.float32)]
+    for t in range(new - 1):
+        # teacher-forced on the port's tokens, so a near tie cannot make
+        # the two sequences part
+        cur = jnp.asarray([r.tokens[t] for r in tres], jnp.int32)
+        lg, st = dec(jparams, cur, jnp.asarray(4 + t, jnp.int32), st)
+        steps.append(np.asarray(lg[:, :jc.vocab_size], np.float32))
+    compared = 0
+    for t, lg in enumerate(steps):
+        tol = TOL * np.abs(lg).max()
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        for i, r in enumerate(tres):
+            if top2[i, 1] - top2[i, 0] > 2 * tol:
+                assert r.tokens[t] == int(np.argmax(lg[i])), (i, t)
+                compared += 1
+    assert compared >= new * len(ps) // 4      # flat logits: see above
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cast_params_keeps_the_fp32_reads(arch):
+    """Every leaf ``repro`` reads in fp32 stays fp32 with the reference's
+    (perturbed) value, bit for bit; every other leaf is its bf16 cast.
+    The rule is the reference's use (``FP32_READS``), not a key name:
+    ``ln_x`` is a norm whose key lacks "norm"."""
+    _, tc, host = recurrent_model(arch)
+    params = params_from_jax(host)
+    cast = ttfm.cast_params(params, "cpu")
+    kept = []
+
+    def walk(t, c, path):
+        for k in t:
+            if isinstance(t[k], dict):
+                walk(t[k], c[k], path + (k,))
+                continue
+            rule = [ttfm.FP32_READS.get(p, ()) for p in path]
+            fp32 = any(r is None for r in rule) or (
+                bool(path) and k in (ttfm.FP32_READS.get(path[-1]) or ())) \
+                or (len(path) >= 2 and path[-1] in (
+                    ttfm.FP32_READS.get(path[-2]) or ()))
+            if fp32:
+                kept.append(path + (k,))
+                assert c[k].dtype == torch.float32, path + (k,)
+                assert torch.equal(c[k], t[k]), path + (k,)
+            else:
+                assert c[k].dtype == torch.bfloat16, path + (k,)
+                assert torch.equal(c[k], t[k].to(torch.bfloat16))
+    walk(params, cast, ())
+    names = {p[-1] if p[-2] != "ln_x" else "ln_x" for p in kept}
+    want = ({"a_param", "in_gate_w", "in_gate_b", "rec_gate_w",
+             "rec_gate_b"} if arch.startswith("recurrentgemma") else
+            {"decay_w", "decay_lora_a", "decay_lora_b", "bonus_u", "ln_x"})
+    assert want <= names and names - want <= {"scale", "bias"}
+    # the perturbed values are off bf16's grid: a cast would move them
+    dw = cast["decoder"]["stack"]["u0"].get("rwkv", {}).get("decay_w")
+    if dw is not None:
+        assert not torch.equal(dw, dw.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cli_serves_the_recurrent_archs_on_cpu(arch, capsys):
+    res = serve_main(["--device", "cpu", "--reduced", "--arch", arch,
+                      "--requests", "3", "--prompt-len", "5",
+                      "--new-tokens", "3"])
+    assert len(res) == 3 and all(len(r.tokens) == 3 for r in res)
+    assert "on cpu" in capsys.readouterr().out
