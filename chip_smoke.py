@@ -27,7 +27,13 @@ the target) and ``nvcc``:
    and rwkv6-1.6b (RWKV6 prefill on its CUDA kernel, each pass of the
    prefill also held against its plain version on the layer's own inputs),
    each freed before the next, and ``launch.serve --arch rwkv6-1.6b`` on
-   the card;
+   the card; then the MoE family, full-width granite-moe-1b-a400m (every
+   expert product of the dense strategy, which ``repro`` serves, on the
+   grouped-matmul kernel, each of the prefill's products also held against
+   its plain version on its own inputs), one full-width prefill on the
+   capacity strategy (the same checks on its capacity buffers), a small
+   granite on the card against the CPU and ``launch.serve --arch
+   granite-moe-1b-a400m``;
 5. the planner path, with the counts set to 0 just before and read just
    after: plans two traffic classes for qwen1.5-0.5b on ``H100_SXM``
    (one staircase-kernel sweep each), checks that the plans equal the same
@@ -64,6 +70,7 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 L2_BYTES = 50e6
 ARCH = "qwen1.5-0.5b"
 RECURRENT_ARCHS = ("recurrentgemma-2b", "rwkv6-1.6b")
+MOE_ARCH = "granite-moe-1b-a400m"
 PROMPT_LENS = (128, 97, 64, 33)   # prefill M = 4 x 128 = 512
 NEW_TOKENS = 16
 SEED = 0
@@ -72,6 +79,11 @@ SEED = 0
 # at most chunk + dh products and a score dh, each rounding by an fp32 ulp
 # (6e-8), so the two differ by about 1e-7 of the largest value
 RWKV6_RTOL = 1e-5
+# the grouped expert matmul against its plain version, relative to the
+# largest |out|: both sum each output in fp32 (in other orders) and round
+# it once to bf16, so they land at most one bf16 step apart, 2^-7 of an
+# element (0.78 %) just above a power of two; a wrong tile is far larger
+MOE_RTOL = 1e-2
 
 REPLACES = {
     "matmul_tiled": "src/repro/kernels/matmul_tiled.py:40",
@@ -79,6 +91,7 @@ REPLACES = {
     "staircase_fused": "src/repro/kernels/staircase_fused.py:208",
     "rglru_scan": "src/repro/kernels/rglru.py:43",
     "rwkv6": "src/repro/kernels/rwkv6.py:66",
+    "moe_gmm": "src/repro/kernels/moe_gmm.py:39",
 }
 SOURCES = {
     "matmul_tiled": "src/repro_torch/csrc/matmul_tiled.cu",
@@ -86,10 +99,11 @@ SOURCES = {
     "staircase_fused": "src/repro_torch/kernels/staircase_fused.py",
     "rglru_scan": "src/repro_torch/kernels/rglru.py",
     "rwkv6": "src/repro_torch/csrc/rwkv6.cu",
+    "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
 }
 ROUTES = {"matmul_tiled": "cuda", "flash_attention": "cuda",
           "staircase_fused": "triton", "rglru_scan": "triton",
-          "rwkv6": "cuda"}
+          "rwkv6": "cuda", "moe_gmm": "cuda"}
 # the planner path's traffic classes: one served burst selects each
 # (batch x padded prompt tokens), "long" being the full-width burst's
 CLASSES = (("short", 4 * 32), ("long", 4 * max(PROMPT_LENS)))
@@ -276,17 +290,21 @@ def requests(cfg, Request, np):
             for n in PROMPT_LENS]
 
 
-def expected_launches(cfg) -> dict:
+def expected_launches(tfm, cfg) -> dict:
     """Launches of one served batch (a prefill and NEW_TOKENS - 1 decode
-    steps): 3 MLP products per attn, local or rglru layer in every forward;
-    one flash attention per global layer, one RG-LRU scan per rglru layer
-    and one RWKV6 pass per rwkv layer, in the prefill only (decode runs
-    the single-step forms, as ``repro`` does). Local attention is plain
-    torch, as ``repro`` computes it outside Pallas."""
+    steps): in every forward, 3 MLP products per layer with a dense MLP
+    and 3 grouped expert products per MoE layer (gate, up, down over every
+    expert: the dense strategy); one flash attention per global layer, one
+    RG-LRU scan per rglru layer and one RWKV6 pass per rwkv layer, in the
+    prefill only (decode runs the single-step forms, as ``repro`` does).
+    Local attention is plain torch, as ``repro`` computes it outside
+    Pallas."""
     kinds = cfg.layer_kinds()
-    return {"matmul_tiled": 3 * sum(k != "rwkv" for k in kinds) * NEW_TOKENS,
+    mlps = [m for _, m in tfm.layer_plan(cfg)]
+    return {"matmul_tiled": 3 * mlps.count("dense") * NEW_TOKENS,
             "flash_attention": kinds.count("attn"), "staircase_fused": 0,
-            "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv")}
+            "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
+            "moe_gmm": 3 * mlps.count("moe") * NEW_TOKENS}
 
 
 def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
@@ -308,7 +326,7 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
     first = engine.generate(requests(cfg, Request, np))
     cold_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    want = expected_launches(cfg)
+    want = expected_launches(tfm, cfg)
     log(f"serve {arch}: layers {cfg.n_layers} d_model {cfg.d_model} vocab "
         f"{cfg.vocab_size}; launches {launches} (expected {want}); first "
         f"run {cold_s:.3f}s")
@@ -330,8 +348,8 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
 
     # prefill logits on the kernels vs the same forward on the plain
     # versions, on the engine's left-padded batch; in the kernels' forward
-    # each RWKV6 pass is also held against its plain version on that
-    # layer's own inputs
+    # each RWKV6 pass and each grouped expert product is also held against
+    # its plain version on its own inputs
     plen = max(PROMPT_LENS)
     toks = np.zeros((len(PROMPT_LENS), plen), np.int64)
     for i, r in enumerate(requests(cfg, Request, np)):
@@ -349,13 +367,14 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
     ops.rwkv6 = rwkv6_held
     try:
         with torch.inference_mode():
-            got, _ = tfm.forward(engine.params, cfg, tokens=toks,
-                                 mode="prefill")
+            got, moe_errs = moe_held(torch, ops, lambda: tfm.forward(
+                engine.params, cfg, tokens=toks, mode="prefill")[0])
     finally:
         ops.rwkv6 = dispatch
     with torch.inference_mode():
         want_l, _ = tfm.forward(engine.params, cfg, tokens=toks,
                                 mode="prefill", force="plain")
+    check_moe_held(tfm, cfg, moe_errs, f"{arch} dense prefill")
     check(len(layer_errs) == cfg.layer_kinds().count("rwkv"),
           f"{len(layer_errs)} RWKV6 passes in a prefill of "
           f"{cfg.layer_kinds().count('rwkv')} rwkv layers")
@@ -380,10 +399,17 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
     # sums in another order) that the residual stream carries; allow 5% of
     # the largest logit. Not for rwkv6 at random weights: two plain
     # forwards whose RWKV6 sums in fp32 in other orders (chunk 32 and 16)
-    # are already 4.5 % apart there, so its per-layer check above decides
+    # are already 4.5 % apart there, so its per-layer check above decides.
+    # granite's dense experts hold to it; their floor (order_floor, logged)
+    # read 3.3 % on the H100, from flipped near-tied top-8 choices
     tol = 0.05 * scale
     agree = (got.argmax(-1) == want_l.argmax(-1)).float().mean().item()
-    log(f"prefill logits kernels vs plain: max_abs_err {err:.4g} "
+    if cfg.moe:
+        floor = order_floor(torch, mods, engine.params, cfg, toks, "auto")
+        log(f"{arch} dense prefill: two plain forwards differing only in "
+            f"summation order: {floor:.4g} ({100 * floor / scale:.2f}% of "
+            f"max |logit|)")
+    log(f"{arch} prefill logits kernels vs plain: max_abs_err {err:.4g} "
         f"({100 * err / scale:.2f}% of max |logit| {scale:.4g}); argmax "
         f"agreement {agree:.4f}" + ("; rwkv: not held to 5%, see the "
                                     "per-layer check" if layer_errs else
@@ -409,9 +435,118 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
             split[name] = (wall, dev)
             log(f"{arch} {name}: wall {wall:.3f} ms, device {dev:.3f} ms, "
                 f"device idle {100 * (1 - dev / wall):.1f}% of the wall time")
-    del engine, st
+    del st
+    if cfg.moe:
+        capacity_prefill(torch, mods, engine.params, cfg, toks)
+    del engine
     torch.cuda.empty_cache()
     return {"launches": launches, "tok_s": n_new / warm_s, "split": split}
+
+
+def moe_held(torch, ops, fn):
+    """Run ``fn`` with every ``ops.moe_gmm`` call also held against its
+    plain version on the same inputs; returns (fn's result, [(C, finite,
+    max_abs_err, relative error)] per kernel launch). The plain calls
+    count no launch."""
+    errs, dispatch = [], ops.moe_gmm
+
+    def held(x, w, **kw):
+        out = dispatch(x, w, **kw)
+        ref = dispatch(x, w, force="plain")
+        e = (out.float() - ref.float()).abs().max().item()
+        errs.append((x.shape[1], bool(torch.isfinite(out.float()).all()), e,
+                     e / max(ref.float().abs().max().item(), 1e-30)))
+        return out
+
+    ops.moe_gmm = held
+    try:
+        return fn(), errs
+    finally:
+        ops.moe_gmm = dispatch
+
+
+def check_moe_held(tfm, cfg, errs, what: str, rows=None) -> None:
+    """Three held products per MoE layer, each within MOE_RTOL (and on
+    ``rows``-row buffers, where given)."""
+    n = 3 * sum(m == "moe" for _, m in tfm.layer_plan(cfg))
+    check(len(errs) == n, f"{what}: {len(errs)} moe_gmm calls, expected {n}")
+    for i, (c, finite, _, rel) in enumerate(errs):
+        check(finite and rel <= MOE_RTOL and (rows is None or c == rows),
+              f"{what}: moe_gmm call {i} (C={c}) vs plain on its inputs: "
+              f"finite {finite}, relative error {rel} > {MOE_RTOL}")
+    if errs:
+        log(f"{what}: each of {len(errs)} moe_gmm launches (C = "
+            f"{sorted({c for c, *_ in errs})}) held against its plain "
+            f"version on its own inputs: finite, max_abs_err up to "
+            f"{max(e for _, _, e, _ in errs):.4g}, relative up to "
+            f"{max(r for *_, r in errs):.3g} (tol {MOE_RTOL})")
+
+
+def order_floor(torch, mods, params, cfg, toks, strategy: str) -> float:
+    """Largest logit difference between two plain forwards that differ only
+    in the order of each expert product's fp32 sum (over all of D, or over
+    its two halves, each rounded once to bf16): how far apart two right
+    implementations land on this model, routing flips included."""
+    tfm, ops = mods["tfm"], mods["ops"]
+    dispatch = ops.moe_gmm
+
+    def halves(x, w, **kw):
+        h = x.shape[-1] // 2
+        return (x[..., :h].float() @ w[:, :h].float()
+                + x[..., h:].float() @ w[:, h:].float()).to(x.dtype)
+
+    v = cfg.vocab_size
+    with torch.inference_mode():
+        a = tfm.forward(params, cfg, tokens=toks, mode="prefill",
+                        moe_strategy=strategy, force="plain")[0]
+        ops.moe_gmm = halves
+        try:
+            b = tfm.forward(params, cfg, tokens=toks, mode="prefill",
+                            moe_strategy=strategy, force="plain")[0]
+        finally:
+            ops.moe_gmm = dispatch
+    return (a[..., :v].float() - b[..., :v].float()).abs().max().item()
+
+
+def capacity_prefill(torch, mods, params, cfg, toks) -> None:
+    """One full-width prefill on the capacity strategy (``repro``'s
+    production dispatch, reached by ``moe_strategy="capacity"``): exact
+    launches and each grouped product on its (E, capacity, D) buffer held
+    against its plain version. The logits are reported against the plain
+    capacity forward's beside the noise floor (``order_floor``), not held
+    to 5 %: two plain forwards that differ only in summation order are
+    already 5.7 % of the largest logit apart here (a flipped near-tied
+    top-8 choice also moves which tokens overflow a buffer)."""
+    tfm, ops = mods["tfm"], mods["ops"]
+    n_moe = sum(m == "moe" for _, m in tfm.layer_plan(cfg))
+    cap = int(toks.numel() * cfg.experts_per_token * cfg.capacity_factor
+              / cfg.n_experts) + 1
+    ops.reset_launches()
+    with torch.inference_mode():
+        got, errs = moe_held(torch, ops, lambda: tfm.forward(
+            params, cfg, tokens=toks, mode="prefill",
+            moe_strategy="capacity")[0])
+        launches = dict(ops.LAUNCHES)
+        want = tfm.forward(params, cfg, tokens=toks, mode="prefill",
+                           moe_strategy="capacity", force="plain")[0]
+    check(launches["moe_gmm"] == 3 * n_moe and launches["flash_attention"]
+          == cfg.layer_kinds().count("attn"),
+          f"capacity prefill launched {launches}")
+    check_moe_held(tfm, cfg, errs, f"{cfg.name} capacity prefill", rows=cap)
+    v = cfg.vocab_size
+    got, want = got[..., :v].float(), want[..., :v].float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    floor = order_floor(torch, mods, params, cfg, toks, "capacity")
+    log(f"{cfg.name} capacity prefill (capacity {cap} rows per expert): "
+        f"launches {launches}; logits kernels vs plain max_abs_err "
+        f"{err:.4g} ({100 * err / scale:.2f}% of max |logit| {scale:.4g}), "
+        f"argmax agreement {agree:.4f}; two plain forwards differing only "
+        f"in summation order: {floor:.4g} ({100 * floor / scale:.2f}%); "
+        f"not held to 5 %, the per-launch check decides")
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+          "capacity prefill logits not finite or of the wrong shape")
 
 
 def small_model_vs_cpu(torch, np, mods, arch: str = ARCH,
@@ -605,6 +740,43 @@ def compare_rwkv6(torch, rw, case: tuple, gen) -> dict:
     return row
 
 
+def compare_moe_gmm(torch, mg, case: tuple, gen) -> dict:
+    """x (E, C, D) @ w (E, D, F); with ``broadcast`` x is one (C, D)
+    activation viewed with expert stride 0, as the dense strategy gives it,
+    and is read (and counted in the bound) once."""
+    e, c, d, f, broadcast = case
+    xb = torch.randn(*((c, d) if broadcast else (e, c, d)), generator=gen,
+                     device="cuda").bfloat16()
+    w = torch.randn(e, d, f, generator=gen, device="cuda").bfloat16()
+
+    def view(xb):
+        return xb.expand(e, c, d) if broadcast else xb
+
+    out = mg.moe_gmm(view(xb), w)
+    torch.cuda.synchronize()
+    ref = mg.moe_gmm_ref(view(xb), w)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = MOE_RTOL * ref.float().abs().max().item()
+    name = f"E={e} C={c} D={d} F={f}" + (" x broadcast" if broadcast else "")
+    check(bool(torch.isfinite(out.float()).all()) and err <= tol,
+          f"moe_gmm {name}: max_abs_err {err} > tol {tol}")
+    b_ms, b_by = bound_ms(2.0 * e * c * d * f,
+                          2.0 * (xb.numel() + w.numel() + e * c * f))
+    row = {"case": name, "max_abs_err": err, "tol": tol,
+           "ms": time_ms(torch, lambda a, b: mg.moe_gmm(view(a), b),
+                         (xb, w)),
+           "plain_ms": time_ms(torch, lambda a, b: mg.moe_gmm_ref(view(a), b),
+                               (xb, w)),
+           "library_ms": time_ms(torch, lambda a, b: torch.matmul(view(a), b),
+                                 (xb, w)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"moe_gmm {name}: max_abs_err {err:.4g} tol {tol:.4g} ms "
+        f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+        f"{row['library_ms']:.4f} (torch.matmul) bound_ms {b_ms:.4f} "
+        f"({b_by}); grid {mg.grid_blocks(e, c, f)} CTAs")
+    return row
+
+
 def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     """The planner path: plan on the card (one staircase launch per
     class), the same plans as on the CPU, then serve on the plans."""
@@ -626,7 +798,7 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     after_plan = dict(ops.LAUNCHES)
     check(after_plan == {"matmul_tiled": 0, "flash_attention": 0,
                          "staircase_fused": len(traffic), "rglru_scan": 0,
-                         "rwkv6": 0},
+                         "rwkv6": 0, "moe_gmm": 0},
           f"planning launched {after_plan}, expected one staircase sweep "
           f"per class ({len(traffic)})")
     on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu")
@@ -664,7 +836,8 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
         outs.append(engine.generate(reqs))
         walls.append(time.perf_counter() - t0)
     launches = dict(ops.LAUNCHES)
-    want = {k: n * len(bursts) for k, n in expected_launches(cfg).items()}
+    want = {k: n * len(bursts)
+            for k, n in expected_launches(tfm, cfg).items()}
     want["staircase_fused"] = len(traffic)
     check(launches == want, f"planner path launched {launches} != {want}")
     names = [p.traffic.name for p in engine.plan_log]
@@ -819,7 +992,7 @@ def cli_on_card(mods, arch: str = ARCH) -> None:
                                   "--prompt-len", "32", "--new-tokens", "4"])
     check(len(results) == 4 and all(len(r.tokens) == 4 for r in results),
           "the serving CLI returned the wrong results")
-    used = {k for k, n in expected_launches(cfg).items() if n}
+    used = {k for k, n in expected_launches(mods["tfm"], cfg).items() if n}
     check(all(ops.LAUNCHES[k] > 0 for k in used),
           f"the serving CLI skipped a kernel: {dict(ops.LAUNCHES)}")
     log(f"launch.serve --arch {arch} on the card: "
@@ -839,6 +1012,7 @@ def main() -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_tiled as mt
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rwkv6 as rw
     from repro_torch.kernels import staircase_fused as sf
@@ -890,6 +1064,14 @@ def main() -> None:
             (4, 128, 32, 64, -54.6, True, f32),
             (4, 128, 32, 64, -8.0, True, f32),
             (4, 128, 32, 64, -3.4e-4, True, f32)]]
+    # granite-moe-1b-a400m's expert products: dense prefill (4 x 128
+    # tokens, x broadcast over the 32 experts) gate/up and down, the same
+    # at decode (4 tokens), the capacity buffer at prefill, ragged edges
+    mo = [compare_moe_gmm(torch, mg, c, gen) for c in
+          [(32, 512, 1024, 512, True), (32, 512, 512, 1024, False),
+           (32, 4, 1024, 512, True), (32, 4, 512, 1024, False),
+           (32, 161, 1024, 512, False), (2, 33, 31, 32, False),
+           (2, 65, 64, 63, False)]]
 
     served = serve_full_width(torch, np, mods)
     small_model_vs_cpu(torch, np, mods, n_layers=2, d_model=256, n_heads=4,
@@ -908,12 +1090,18 @@ def main() -> None:
         recurrent[arch] = serve_full_width(torch, np, mods, arch)
         small_model_vs_cpu(torch, np, mods, arch, seq=70)
     cli_on_card(mods, "rwkv6-1.6b")
+    moe = serve_full_width(torch, np, mods, MOE_ARCH)
+    # head dim 64 (flash attention takes 64 and 128), top-8 of 16 experts
+    small_model_vs_cpu(torch, np, mods, MOE_ARCH, n_layers=2, d_model=256,
+                       n_heads=4, d_ff=512, vocab=250, n_experts=16)
+    cli_on_card(mods, MOE_ARCH)
 
     kernels = []
     # each kernel's launches are read from the main path that runs it: the
     # full-width qwen serve for the matmul and attention kernels, the
     # planner path (plan, then serve on the plans) for the staircase
-    # kernel, the recurrentgemma and rwkv6 serves for the recurrences
+    # kernel, the recurrentgemma and rwkv6 serves for the recurrences, the
+    # granite serve for the grouped expert products
     rec_g, rec_w = (recurrent[a] for a in RECURRENT_ARCHS)
     check(all(planned["launches"][n] > 0 for n in (
         "matmul_tiled", "flash_attention", "staircase_fused")),
@@ -922,7 +1110,8 @@ def main() -> None:
                             ("flash_attention", fl[0], served),
                             ("staircase_fused", st[0], planned),
                             ("rglru_scan", rgl[0], rec_g),
-                            ("rwkv6", rwk[0], rec_w)):
+                            ("rwkv6", rwk[0], rec_w),
+                            ("moe_gmm", mo[0], moe)):
         check(path["launches"][name] > 0,
               f"{name} was not launched on the main path")
         kernels.append({

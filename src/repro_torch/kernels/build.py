@@ -34,7 +34,8 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-CUDA_SOURCES = ("matmul_tiled", "flash_attention", "rwkv6")  # csrc/<name>.cu
+CUDA_SOURCES = ("matmul_tiled", "flash_attention", "rwkv6",  # csrc/<name>.cu
+                "moe_gmm")
 TRITON_KERNELS = {"staircase_fused": "staircase_fused",      # kernels/<v>.py
                   "rglru_scan": "rglru"}
 LAUNCHES: Dict[str, int] = {k: 0 for k in CUDA_SOURCES

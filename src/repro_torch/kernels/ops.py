@@ -18,6 +18,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention as flash_attention_kernel)
 from repro_torch.kernels.matmul_tiled import matmul_ref, matmul_tiled
+from repro_torch.kernels.moe_gmm import moe_gmm as moe_gmm_kernel, \
+    moe_gmm_ref
 from repro_torch.kernels.rglru import rglru_ref, rglru_scan as rglru_kernel
 from repro_torch.kernels.rwkv6 import CHUNK, rwkv6 as rwkv6_kernel, rwkv6_ref
 from repro_torch.kernels.staircase_fused import staircase_fused, \
@@ -45,6 +47,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     if _use_plain(x, force):
         return matmul_ref(x, w)
     return matmul_tiled(x, w)
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, *,
+            force: Optional[str] = None) -> torch.Tensor:
+    """Per expert (E, C, D) @ (E, D, F) with fp32 accumulation, in x.dtype.
+    x may be a broadcast view (expert stride 0): the kernel reads it as it
+    is."""
+    if _use_plain(x, force):
+        return moe_gmm_ref(x, w)
+    return moe_gmm_kernel(x, w)
 
 
 def flash_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,

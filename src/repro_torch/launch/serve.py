@@ -5,10 +5,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m
+
 Runs on the card (``--device cuda``, the default) and fails if there is
 none; ``--device cpu`` runs the kernels' plain versions on the CPU (with
 ``--reduced`` for the small configs). Serves qwen1.5-0.5b and the other
-global-attention archs, recurrentgemma-2b and rwkv6-1.6b.
+global-attention archs, recurrentgemma-2b, rwkv6-1.6b and the MoE archs
+(granite-moe-1b-a400m; dense expert products, as ``repro`` serves them).
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ def main(argv=None):
     why = unsupported(cfg)
     if why is not None:
         raise SystemExit(f"{cfg.name}: the port serves decoder-only "
-                         f"attention, local-attention, RG-LRU and RWKV6 "
-                         f"archs; {why} are not ported yet")
+                         f"attention, local-attention, RG-LRU, RWKV6 and "
+                         f"MoE archs; {why} are not ported yet")
     device = require_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False

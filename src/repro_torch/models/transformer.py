@@ -2,9 +2,11 @@
 
 The port covers decoder-only stacks of global (``attn``) and sliding-window
 (``local``) attention layers and RG-LRU (``rglru``) layers, each with a dense
-MLP (``parallel_block`` included), and RWKV6 (``rwkv``) layers with their
-channel-mix, under standard or no rope. :func:`unsupported` names what a
-config needs beyond that (MoE, encoder-decoder, M-RoPE).
+MLP (``parallel_block`` included) or a mixture of experts (``models.moe``,
+under ``moe_strategy`` as in ``repro``: ``auto`` is dense, since the port
+has no mesh), and RWKV6 (``rwkv``) layers with their channel-mix, under
+standard or no rope. :func:`unsupported` names what a config needs beyond
+that (encoder-decoder, M-RoPE).
 
 The parameter tree is ``repro``'s, so converting weights is a copy: the
 layers of each pattern unit sit under ``params["decoder"]["stack"]["u{j}"]``
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, apply_mlp, apply_norm, apply_rope, embed_tokens,
@@ -49,8 +52,6 @@ def unsupported(cfg: ModelConfig) -> Optional[str]:
     kinds = set(cfg.layer_kinds())
     if kinds - set(KINDS):
         return f"layer kinds {sorted(kinds - set(KINDS))}"
-    if cfg.moe:
-        return "MoE layers"
     if cfg.is_encdec:
         return "encoder-decoder"
     if cfg.rope_kind not in ("standard", "none"):
@@ -142,6 +143,8 @@ FP32_READS = {
     # the RWKV6 decay and bonus (src/repro/models/recurrent.py:226-228, 315)
     # and ln_x, a layernorm (recurrent.py:189, 322-323)
     "rwkv": {"decay_w", "decay_lora_a", "decay_lora_b", "bonus_u", "ln_x"},
+    # the MoE router (src/repro/models/moe.py:58)
+    "moe": {"router"},
 }
 
 
@@ -173,8 +176,8 @@ def cast_params(params: dict, device=None) -> dict:
 # ---------------------------------------------------------------------------
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
                mlp_kind: str, *, lead: tuple = ()) -> dict:
-    if kind not in KINDS or mlp_kind != ("cmix" if kind == "rwkv"
-                                         else "dense"):
+    if kind not in KINDS or mlp_kind not in (
+            ("cmix",) if kind == "rwkv" else ("dense", "moe")):
         raise NotImplementedError(f"layer ({kind}, {mlp_kind})")
     dev = gen.device
     p: dict = {"norm1": init_norm(cfg.norm, cfg.d_model, lead=lead,
@@ -192,7 +195,13 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
             bias=cfg.qkv_bias, lead=lead)
     if not cfg.parallel_block:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, lead=lead, device=dev)
-    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, lead=lead)
+    if mlp_kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg.d_model, cfg.n_experts,
+                                    cfg.moe_d_ff, cfg.shared_expert,
+                                    cfg.d_ff, lead=lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated,
+                            lead=lead)
     return p
 
 
@@ -264,10 +273,12 @@ def _write_back(state: dict, new: dict) -> dict:
     return state
 
 
-def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                mode: str, state: Optional[dict], positions: torch.Tensor,
-                pos: Pos, force: Optional[str]):
-    """One layer of ``kind`` with its MLP.  Returns (x, new_state)."""
+def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                mlp_kind: str, *, mode: str, state: Optional[dict],
+                positions: torch.Tensor, pos: Pos, force: Optional[str],
+                moe_strategy: str = "auto"):
+    """One layer of ``kind`` with its ``mlp_kind`` MLP.  Returns (x,
+    new_state)."""
     decode = mode == "decode"
     if kind == "rwkv":
         h = apply_norm(p["norm1"], x, cfg.norm)
@@ -294,13 +305,20 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     else:
         y, new_state = _self_attention(p["attn"], h, cfg, kind, mode, state,
                                        positions, pos, force)
-    if cfg.parallel_block:
+    if cfg.parallel_block and mlp_kind == "dense":
         # cohere: out = x + attn(norm(x)) + mlp(norm(x))
         return x + y + apply_mlp(p["mlp"], h, cfg.mlp_gated,
                                  force=force), new_state
     x = x + y
     h = apply_norm(p["norm2"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], h, cfg.mlp_gated, force=force), new_state
+    if mlp_kind == "moe":
+        # the aux losses are for training; the forward does not return them
+        y, _ = moe_lib.apply_moe(p["moe"], h, cfg.experts_per_token,
+                                 cfg.capacity_factor, strategy=moe_strategy,
+                                 force=force)
+    else:
+        y = apply_mlp(p["mlp"], h, cfg.mlp_gated, force=force)
+    return x + y, new_state
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -321,7 +339,7 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, states: Optional[dict], positions: torch.Tensor,
-                pos: Pos, force: Optional[str]):
+                pos: Pos, force: Optional[str], moe_strategy: str = "auto"):
     """Every decoder layer in order.  Returns (x, new_states); new_states
     is None in train mode and, in decode, the input states updated."""
     plan = layer_plan(cfg)
@@ -329,10 +347,11 @@ def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     n_units = len(plan) // cycle
     new_states: dict = {}
 
-    def run(lp, kind, st):
+    def run(lp, layer, st):
         nonlocal x
-        x, ns = apply_layer(lp, x, cfg, kind, mode=mode, state=st,
-                            positions=positions, pos=pos, force=force)
+        x, ns = apply_layer(lp, x, cfg, *layer, mode=mode, state=st,
+                            positions=positions, pos=pos, force=force,
+                            moe_strategy=moe_strategy)
         return ns
 
     if n_units:
@@ -340,14 +359,14 @@ def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         for u in range(n_units):
             units.append({
                 f"u{j}": run(_index(stack_p["stack"][f"u{j}"], u),
-                             plan[j][0],
+                             plan[j],
                              _index(states["stack"][f"u{j}"], u)
                              if mode == "decode" else None)
                 for j in range(cycle)})
         if mode == "prefill":
             new_states["stack"] = _stack(units)
     if "extra" in stack_p:
-        extra = {k: run(lp, plan[n_units * cycle + int(k[1:])][0],
+        extra = {k: run(lp, plan[n_units * cycle + int(k[1:])],
                         states["extra"][k] if mode == "decode" else None)
                  for k, lp in stack_p["extra"].items()}
         if mode == "prefill":
@@ -392,7 +411,8 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def forward(params: dict, cfg: ModelConfig, *, tokens: torch.Tensor,
-            mode: str = "train", force: Optional[str] = None):
+            mode: str = "train", force: Optional[str] = None,
+            moe_strategy: str = "auto"):
     """Full-sequence forward over (B, S) tokens.  Returns (logits, states):
     in prefill mode each layer's decode state (a global layer's (B, S) KV
     cache, a local layer's ring, a recurrent layer's state), None in train
@@ -405,7 +425,7 @@ def forward(params: dict, cfg: ModelConfig, *, tokens: torch.Tensor,
     x, states = apply_stack(params["decoder"], x, cfg, mode=mode,
                             states=None,
                             positions=_positions(b, s, 0, tokens.device),
-                            pos=None, force=force)
+                            pos=None, force=force, moe_strategy=moe_strategy)
     return _logits(params, x, cfg), states
 
 
@@ -458,7 +478,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                pos: Pos, states: dict, force: Optional[str] = None):
+                pos: Pos, states: dict, force: Optional[str] = None,
+                moe_strategy: str = "auto"):
     """One token per row: tokens (B,), written at ``pos`` (int, or (B,)
     tensor for ragged rows).  Returns (logits (B, V), states), the states
     updated in place."""
@@ -467,7 +488,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x, states = apply_stack(params["decoder"], x, cfg, mode="decode",
                             states=states,
                             positions=_positions(b, 1, pos, tokens.device),
-                            pos=pos, force=force)
+                            pos=pos, force=force, moe_strategy=moe_strategy)
     return _logits(params, x, cfg)[:, 0], states
 
 

@@ -6,7 +6,8 @@ left-pads each batch's prompts with token 0 (the pad rows are attended, and
 run through the recurrences, as in ``repro``), prefills with
 ``transformer.forward(mode="prefill")``, grows the global-attention caches
 to ``max_len`` and decodes all rows in lockstep with ``decode_step``. On a
-CUDA device the MLP projections, causal prefill attention and the prefill
+CUDA device the MLP projections, the MoE expert products (dense, as
+``repro`` serves them), causal prefill attention and the prefill
 recurrences (RG-LRU, RWKV6) run on the port's kernels. fp32 products
 (decode scores, RWKV6's decays) assume TF32 is off, PyTorch's default; the
 entry points set it so.

@@ -14,6 +14,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul_tiled as mt
+from repro_torch.kernels import moe_gmm as mg
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import rwkv6 as rw
 from repro_torch.kernels import staircase_fused as sf
@@ -111,7 +112,7 @@ def test_prefill_on_kernels_vs_plain(gen):
     assert ops.LAUNCHES == {"matmul_tiled": 3 * cfg.n_layers,
                             "flash_attention": cfg.n_layers,
                             "staircase_fused": 0, "rglru_scan": 0,
-                            "rwkv6": 0}
+                            "rwkv6": 0, "moe_gmm": 0}
     want, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill",
                           force="plain")
     v = cfg.vocab_size
@@ -318,7 +319,8 @@ def test_recurrent_family_on_the_card_vs_cpu(gen, arch):
     assert ops.LAUNCHES == {
         "matmul_tiled": 3 * sum(k != "rwkv" for k in kinds),
         "flash_attention": kinds.count("attn"), "staircase_fused": 0,
-        "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv")}
+        "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
+        "moe_gmm": 0}
     v = cfg.vocab_size
     card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
     assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -328,3 +330,109 @@ def test_recurrent_family_on_the_card_vs_cpu(gen, arch):
     on_card = ServeEngine(params, cfg, max_len=16, device="cuda").generate(
         reqs)
     assert all(len(r.tokens) == 4 for r in on_card)
+
+
+# ---------------------------------------------------------------------------
+# the grouped expert matmul (CUDA) and the MoE family
+# ---------------------------------------------------------------------------
+def moe_tol(want):
+    """Kernel and plain version both sum in fp32 and round once to bf16:
+    one bf16 step apart at most, 2^-7 of an element; 1e-2 of the largest
+    |out|."""
+    return 1e-2 * max(want.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("e,c,d,f,broadcast", [
+    (4, 128, 256, 128, False), (2, 256, 128, 256, False),
+    (8, 128, 128, 128, False),                    # test_kernels.py:107-117
+    (2, 33, 31, 32, False), (1, 31, 33, 33, False),
+    (2, 65, 64, 63, False),                       # test_kernels.py:157-165
+    (1, 1, 1, 1, False), (3, 7, 9, 5, True),
+    (32, 512, 1024, 512, True), (32, 512, 512, 1024, False),
+    (32, 4, 1024, 512, True), (32, 4, 512, 1024, False),
+    (32, 161, 1024, 512, False), (32, 2, 1024, 512, False),
+])
+def test_moe_gmm_kernel_vs_plain(gen, e, c, d, f, broadcast):
+    """bf16 sweeps, the ragged edges and granite-moe-1b-a400m's full-width
+    shapes (dense prefill and decode with x broadcast over the experts,
+    the capacity buffers of 161 and 2 rows)."""
+    x = randn(gen, c, d).expand(e, c, d) if broadcast else randn(gen, e, c, d)
+    w = randn(gen, e, d, f)
+    before = ops.LAUNCHES["moe_gmm"]
+    got = mg.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_gmm"] == before + 1
+    want = mg.moe_gmm_ref(x, w)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= moe_tol(want)
+    if broadcast:
+        assert torch.equal(got, mg.moe_gmm(x.contiguous(), w))
+
+
+def test_moe_gmm_kernel_strides_and_alignment(gen):
+    """A row stride past D (a slice of wider rows) and a 16-byte-misaligned
+    x take the kernel's element-wise loads."""
+    wide = randn(gen, 3, 20, 72)
+    w = randn(gen, 3, 64, 40)
+    for x in (wide[:, :, :64], randn(gen, 3 * 20 * 64 + 1)[1:]
+              .view(3, 20, 64)):
+        want = mg.moe_gmm_ref(x, w)
+        got = mg.moe_gmm(x, w)
+        assert (got.float() - want.float()).abs().max().item() <= \
+            moe_tol(want)
+
+
+def test_moe_gmm_kernel_refusals(gen):
+    x, w = randn(gen, 2, 8, 16), randn(gen, 2, 16, 8)
+    with pytest.raises(TypeError):
+        mg.moe_gmm(x.float(), w.float())
+    with pytest.raises(ValueError, match="CUDA"):
+        mg.moe_gmm(x.cpu(), w)
+    with pytest.raises(ValueError, match="multiply"):
+        mg.moe_gmm(x, randn(gen, 2, 15, 8))
+    with pytest.raises(ValueError, match="multiply"):
+        mg.moe_gmm(x, randn(gen, 3, 16, 8))
+    with pytest.raises(ValueError, match="unit stride"):
+        mg.moe_gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        mg.moe_gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+    assert mg.moe_gmm(x[:, :0], w).shape == (2, 0, 8)
+    assert torch.equal(mg.moe_gmm(x[:, :, :0], w[:, :0]),
+                       torch.zeros(2, 8, 8, dtype=torch.bfloat16,
+                                   device="cuda"))
+
+
+@pytest.mark.parametrize("strategy", ["auto", "capacity"])
+def test_moe_family_on_the_card_vs_cpu(gen, strategy):
+    """granite reduced with 16 experts (top-8) on the card against the
+    CPU's plain path, with exact launch counts for one prefill: 3
+    ``moe_gmm`` and one flash attention per layer, no MLP product."""
+    from repro_torch.serving import Request, ServeEngine
+    cfg = reduced_config(get_config("granite-moe-1b-a400m"), d_model=256,
+                         d_ff=512, n_experts=16)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(3, 37)))
+    with torch.inference_mode():
+        cpu, _ = tfm.forward(tfm.cast_params(params, "cpu"), cfg,
+                             tokens=toks, mode="prefill",
+                             moe_strategy=strategy)
+        ops.reset_launches()
+        card, _ = tfm.forward(tfm.cast_params(params, "cuda"), cfg,
+                              tokens=toks.cuda(), mode="prefill",
+                              moe_strategy=strategy)
+    assert ops.LAUNCHES == {"matmul_tiled": 0,
+                            "flash_attention": cfg.n_layers,
+                            "staircase_fused": 0, "rglru_scan": 0,
+                            "rwkv6": 0, "moe_gmm": 3 * cfg.n_layers}
+    v = cfg.vocab_size
+    card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
+    assert (card - cpu).abs().max().item() <= 4e-2 * max(
+        1.0, cpu.abs().max().item())
+    reqs = [Request(prompt=p.numpy().astype(np.int32), max_new_tokens=4)
+            for p in toks[:, :9]]
+    ops.reset_launches()
+    on_card = ServeEngine(params, cfg, max_len=16, device="cuda").generate(
+        reqs)
+    assert all(len(r.tokens) == 4 for r in on_card)
+    assert ops.LAUNCHES["moe_gmm"] == 3 * cfg.n_layers * 4

@@ -143,7 +143,7 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
     assert p == build.library_path("flash_attention")
     assert p != build.library_path("matmul_tiled")
     assert set(build.CUDA_SOURCES) == {"matmul_tiled", "flash_attention",
-                                       "rwkv6"}
+                                       "rwkv6", "moe_gmm"}
     assert set(build.TRITON_KERNELS) == {"staircase_fused", "rglru_scan"}
     assert set(build.LAUNCHES) == set(build.CUDA_SOURCES) \
         | set(build.TRITON_KERNELS)

@@ -14,11 +14,13 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.interop import params_from_jax
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
 from test_torch_recurrent import perturb_fp32_reads
 
@@ -31,6 +33,13 @@ pytestmark = pytest.mark.slow
 # flow through a layer wherever a sum's order or an fp32 op's last bit
 # differs, and a small output can carry the rounding of large inputs
 TOL = 4e-2
+# top-k routing: where an MoE router's k-th and (k+1)-th logits lie closer
+# than this, the two packages may pick different experts, for their bf16
+# roundings of the attention output move the router's logits by up to
+# half of it on these models wherever no earlier layer routed the token on
+# a near tie (test_moe_router_logits_follow_the_reference); a token routed
+# on a near tie in some layer is left out of the MoE tests' comparisons
+TIE_GAP = 0.1
 
 VARIANTS = {
     "qwen-reduced": dict(),
@@ -44,12 +53,19 @@ VARIANTS = {
     "recurrentgemma-reduced": dict(arch="recurrentgemma-2b"),
     # attention-free: RWKV6 time-mix and channel-mix, layernorm
     "rwkv6-reduced": dict(arch="rwkv6-1.6b"),
+    # every layer MoE, top-8 of 16 experts (the default 4 would select
+    # every expert and hide routing), tied embeddings
+    "granite-reduced": dict(arch="granite-moe-1b-a400m", n_experts=16),
+    # dense and MoE layers alternating, top-1 with a shared expert
+    "llama4-reduced": dict(arch="llama4-maverick-400b-a17b"),
 }
+MOE_VARIANTS = ("granite-reduced", "llama4-reduced")
 
 
-def configs(arch="qwen1.5-0.5b", n_layers=2, n_kv_heads=None, vocab=256):
+def configs(arch="qwen1.5-0.5b", n_layers=2, n_kv_heads=None, vocab=256,
+            n_experts=4):
     """The same reduced config in both packages."""
-    kw = dict(n_layers=n_layers, vocab=vocab)
+    kw = dict(n_layers=n_layers, vocab=vocab, n_experts=n_experts)
     jc = jax_reduced(jax_get_config(arch), **kw)
     tc = reduced_config(get_config(arch), **kw)
     if n_kv_heads is not None:
@@ -71,8 +87,36 @@ def bf16_pair(a):
 
 def close(t, j, tol=TOL):
     j = np.asarray(j.astype(jnp.float32))
-    np.testing.assert_allclose(t.float().numpy(), j, rtol=tol,
+    t = t.float().numpy() if torch.is_tensor(t) else t
+    np.testing.assert_allclose(t, j, rtol=tol,
                                atol=tol * max(1.0, float(np.abs(j).max())))
+
+
+def at(a, keep, axis=0):
+    """``a`` (torch or JAX) as fp32 numpy, at the tokens ``keep`` marks: a
+    bool mask over its axes from ``axis`` on ((B, S), or (B,) in decode)."""
+    a = a.float().numpy() if torch.is_tensor(a) else \
+        np.asarray(a.astype(jnp.float32))
+    return a[(slice(None),) * axis + (keep,)]
+
+
+def routing_ties(fn):
+    """Run ``fn`` (which runs the port's forward or decode step) and return
+    (ties, its result): ``ties`` marks the tokens that some MoE layer of
+    the port routed on a near tie (``TIE_GAP``); None without MoE layers."""
+    gaps, real = [], tmoe.route
+
+    def spy(p, x, k):
+        lg = (x.float() @ p["router"].float()).sort(-1, descending=True)[0]
+        if k < lg.shape[-1]:
+            gaps.append((lg[..., k - 1] - lg[..., k]).numpy())
+        return real(p, x, k)
+    tmoe.route = spy
+    try:
+        out = fn()
+    finally:
+        tmoe.route = real
+    return (np.min(gaps, axis=0) < TIE_GAP if gaps else None), out
 
 
 def build(variant):
@@ -206,9 +250,13 @@ def _prefill(model, toks):
 def test_forward_prefill_logits_and_states(model):
     jc, tc, _, _ = model
     toks = np.random.default_rng(6).integers(0, tc.vocab_size, size=(3, 12))
-    jlog, jst, tlog, tst = _prefill(model, toks)
+    ties, (jlog, jst, tlog, tst) = routing_ties(lambda: _prefill(model,
+                                                                 toks))
+    keep = np.ones(toks.shape, bool) if ties is None else ~ties
+    assert keep.mean() >= 0.25      # granite-reduced: top-8 of 16 experts
     assert tuple(tlog.shape) == jlog.shape
-    close(tlog[..., :tc.vocab_size], jlog[..., :jc.vocab_size])
+    close(at(tlog[..., :tc.vocab_size], keep),
+          at(jlog[..., :jc.vocab_size], keep))
     jleaves = jax.tree_util.tree_leaves_with_path(jst)
     count = lambda t: (sum(count(v) for v in t.values())
                        if isinstance(t, dict) else 1)
@@ -226,7 +274,11 @@ def test_forward_prefill_logits_and_states(model):
         assert node.dtype == {jnp.dtype(jnp.bfloat16): torch.bfloat16,
                               jnp.dtype(jnp.float32): torch.float32}[
                                   jleaf.dtype]
-        close(node, jleaf)
+        if keep.all():
+            close(node, jleaf)
+        else:           # MoE layers: global-attention caches (B, S, KV, dh)
+            close(at(node, keep, node.dim() - 4), at(jleaf, keep,
+                                                     jleaf.ndim - 4))
 
 
 def _grow(cfg, tree, max_len, pad_fn):
@@ -319,3 +371,97 @@ def test_init_params_layout_matches_jax(model):
     count = lambda t: (sum(count(v) for v in t.values())
                        if isinstance(t, dict) else 1)
     assert count(tparams) == n
+
+
+@pytest.mark.parametrize("strategy", ["dense", "capacity"])
+@pytest.mark.parametrize("variant", MOE_VARIANTS)
+def test_moe_strategies_prefill_and_ragged_decode(variant, strategy):
+    """The MoE families under an explicit ``moe_strategy`` (the tests above
+    run ``auto``, which is dense in both packages without a mesh): prefill
+    logits, then two ragged decode steps, each from ``repro``'s states
+    converted (so that a step's comparison rests on that step alone),
+    against ``repro``'s forward and decode_step; near-tie tokens aside."""
+    jc, tc, jparams, tparams = build(variant)
+    assert tc.moe and (tc.experts_per_token, tc.n_experts) == (
+        {"granite-reduced": (8, 16), "llama4-reduced": (1, 4)}[variant])
+    rng = np.random.default_rng(13)
+    plen, steps = 10, 2
+    toks = rng.integers(0, tc.vocab_size, size=(12, plen))
+    jlog, jst, _ = jax.jit(lambda p, t: jtfm.forward(
+        p, jc, tokens=t, mode="prefill", moe_strategy=strategy))(
+        jparams, jnp.asarray(toks))
+    ties, (tlog, _) = routing_ties(lambda: ttfm.forward(
+        tparams, tc, tokens=torch.from_numpy(toks), mode="prefill",
+        moe_strategy=strategy))
+    compared = [~ties]
+    close(at(tlog[..., :tc.vocab_size], ~ties),
+          at(jlog[..., :jc.vocab_size], ~ties))
+    jst = _grow(tc, jst, plen + steps, lambda a, p: jnp.pad(
+        a, [(0, 0)] * (a.ndim - 3) + [(0, p), (0, 0), (0, 0)]))
+    jdec = jax.jit(lambda p, t, q, st: jtfm.decode_step(
+        p, jc, t, q, st, moe_strategy=strategy))
+    for step in range(steps):
+        pos = np.array([plen - 3, plen - 1, plen - 2, plen - 1, plen - 5,
+                        plen - 4] * 2) + step
+        cur = rng.integers(0, tc.vocab_size, size=(12,))
+        tst = params_from_jax(jax.device_get(jst))
+        jlog, jst = jdec(jparams, jnp.asarray(cur, jnp.int32),
+                         jnp.asarray(pos, jnp.int32), jst)
+        ties, (tlog, _) = routing_ties(lambda: ttfm.decode_step(
+            tparams, tc, torch.from_numpy(cur), torch.from_numpy(pos), tst,
+            moe_strategy=strategy))
+        ties = ties[:, 0]
+        compared.append(~ties)
+        close(at(tlog[:, :tc.vocab_size], ~ties),
+              at(jlog[:, :jc.vocab_size], ~ties))
+    # top-8 of 16 experts puts most of granite's tokens on a near tie in
+    # one of its two layers: a few rows in every phase, a quarter in all
+    assert min(c.sum() for c in compared) >= 2
+    assert np.concatenate([c.ravel() for c in compared]).mean() >= 0.25
+
+
+@pytest.mark.parametrize("variant", MOE_VARIANTS)
+def test_moe_router_logits_follow_the_reference(variant):
+    """The premise of ``TIE_GAP``: in each MoE layer of the port's prefill,
+    the router logits of every token that no earlier layer routed on a
+    near tie lie within TIE_GAP / 2 of ``repro``'s (run eagerly, so that
+    its router inputs can be read), and where the port's k-th and (k+1)-th
+    logits are also TIE_GAP apart here both pick the same experts."""
+    jc, tc, jparams, tparams = build(variant)
+    toks = np.random.default_rng(6).integers(0, tc.vocab_size, size=(3, 12))
+    seen = {"j": [], "t": []}
+    jroute, troute = jmoe.route, tmoe.route
+
+    def jspy(p, x, k):
+        out = jroute(p, x, k)
+        seen["j"].append((np.asarray(jnp.einsum(
+            "...d,de->...e", x.astype(jnp.float32), p["router"])),
+            np.asarray(out[1])))
+        return out
+
+    def tspy(p, x, k):
+        out = troute(p, x, k)
+        seen["t"].append(((x.float() @ p["router"].float()).numpy(),
+                          out[1].numpy()))
+        return out
+    jmoe.route, tmoe.route = jspy, tspy
+    try:
+        with jax.disable_jit():
+            jtfm.forward(jparams, jc, tokens=jnp.asarray(toks),
+                         mode="prefill")
+        ttfm.forward(tparams, tc, tokens=torch.from_numpy(toks),
+                     mode="prefill")
+    finally:
+        jmoe.route, tmoe.route = jroute, troute
+    n_moe = sum(m == "moe" for _, m in ttfm.layer_plan(tc))
+    assert len(seen["j"]) == len(seen["t"]) == n_moe
+    k = tc.experts_per_token
+    clear = np.ones(toks.shape, bool)      # no near tie in a layer so far
+    for (jl, ji), (tl, ti) in zip(seen["j"], seen["t"]):
+        assert np.abs(jl - tl)[clear].max() <= TIE_GAP / 2
+        if k < tl.shape[-1]:
+            top = -np.sort(-tl, axis=-1)
+            clear &= top[..., k - 1] - top[..., k] >= TIE_GAP
+        np.testing.assert_array_equal(np.sort(ti, -1)[clear],
+                                      np.sort(ji, -1)[clear])
+    assert clear.mean() >= 0.25

@@ -322,9 +322,9 @@ def test_cli_runs_on_cpu(capsys):
 
 
 def test_cli_refuses_archs_outside_the_slice():
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="encoder-decoder.*not ported"):
         serve_main(["--device", "cpu", "--reduced", "--arch",
-                    "granite-moe-1b-a400m"])
+                    "seamless-m4t-medium"])
 
 
 def test_entry_points_default_to_the_card(model):
@@ -348,7 +348,8 @@ def test_port_imports_neither_jax_nor_repro():
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
         "new = {'repro_torch.models.recurrent', 'repro_torch.kernels.rglru',"
-        " 'repro_torch.kernels.rwkv6'}\n"
+        " 'repro_torch.kernels.rwkv6', 'repro_torch.models.moe',"
+        " 'repro_torch.kernels.moe_gmm'}\n"
         "sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
@@ -480,7 +481,7 @@ def test_rwkv_prompt_as_long_as_the_heads_serves():
     assert compared >= new * len(ps) // 4      # flat logits: see above
 
 
-@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("arch", RECURRENT + ("granite-moe-1b-a400m",))
 def test_cast_params_keeps_the_fp32_reads(arch):
     """Every leaf ``repro`` reads in fp32 stays fp32 with the reference's
     (perturbed) value, bit for bit; every other leaf is its bf16 cast.
@@ -510,9 +511,11 @@ def test_cast_params_keeps_the_fp32_reads(arch):
                 assert torch.equal(c[k], t[k].to(torch.bfloat16))
     walk(params, cast, ())
     names = {p[-1] if p[-2] != "ln_x" else "ln_x" for p in kept}
-    want = ({"a_param", "in_gate_w", "in_gate_b", "rec_gate_w",
-             "rec_gate_b"} if arch.startswith("recurrentgemma") else
-            {"decay_w", "decay_lora_a", "decay_lora_b", "bonus_u", "ln_x"})
+    want = {"recurrentgemma-2b": {"a_param", "in_gate_w", "in_gate_b",
+                                  "rec_gate_w", "rec_gate_b"},
+            "rwkv6-1.6b": {"decay_w", "decay_lora_a", "decay_lora_b",
+                           "bonus_u", "ln_x"},
+            "granite-moe-1b-a400m": {"router"}}[arch]
     assert want <= names and names - want <= {"scale", "bias"}
     # the perturbed values are off bf16's grid: a cast would move them
     dw = cast["decoder"]["stack"]["u0"].get("rwkv", {}).get("decay_w")
@@ -525,5 +528,65 @@ def test_cli_serves_the_recurrent_archs_on_cpu(arch, capsys):
     res = serve_main(["--device", "cpu", "--reduced", "--arch", arch,
                       "--requests", "3", "--prompt-len", "5",
                       "--new-tokens", "3"])
+    assert len(res) == 3 and all(len(r.tokens) == 3 for r in res)
+    assert "on cpu" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-1b-a400m (every layer top-8 of 32 experts)
+# ---------------------------------------------------------------------------
+def granite_model(seed=2):
+    """granite reduced with 16 experts (top-8: the default 4 would select
+    every expert) in both packages, the reference's own init, its router
+    perturbed like the other fp32 reads."""
+    arch = "granite-moe-1b-a400m"
+    jc = jax_reduced(jax_get_config(arch), n_experts=16)
+    tc = reduced_config(get_config(arch), n_experts=16)
+    host = perturb_fp32_reads(jax.device_get(
+        jtfm.init_params(jax.random.PRNGKey(seed), jc)))
+    return jc, tc, host
+
+
+@pytest.mark.slow     # jits the JAX engine
+def test_moe_greedy_generate_matches_jax_engine():
+    """Greedy tokens of the port's engine (dense experts, as ``repro``'s
+    engine serves them) against ``repro``'s ServeEngine, compared as the
+    recurrent families' are: where both generated the same tokens so far
+    and JAX's top-2 margin is clear of twice the bf16 tolerance."""
+    jc, tc, host = granite_model()
+    assert (tc.n_experts, tc.experts_per_token) == (16, 8)
+    ps = prompts(tc.vocab_size, seed=5)
+    jparams = jax.tree.map(jnp.asarray, host)
+    jres = JServeEngine(jparams, jc, max_len=32, batch_slots=4).generate(
+        [JRequest(prompt=p, max_new_tokens=NEW) for p in ps])
+    tres = ServeEngine(params_from_jax(host), tc, max_len=32, batch_slots=4,
+                       device="cpu").generate(
+        [Request(prompt=p, max_new_tokens=NEW) for p in ps])
+    plen = max(len(p) for p in ps)
+    seq = np.zeros((len(ps), plen + NEW - 1), np.int32)
+    for i, (p, r) in enumerate(zip(ps, jres)):
+        seq[i, plen - len(p):plen] = p
+        seq[i, plen:] = r.tokens[:-1]
+    logits, _, _ = jtfm.forward(jparams, jc, tokens=jnp.asarray(seq),
+                                mode="prefill")
+    logits = np.asarray(logits[:, plen - 1:, :jc.vocab_size], np.float32)
+    tol = TOL * np.abs(logits).max()
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    compared = 0
+    for i, (j, t) in enumerate(zip(jres, tres)):
+        assert len(t.tokens) == len(j.tokens) == NEW
+        for step in range(NEW):
+            if not np.array_equal(t.tokens[:step], j.tokens[:step]):
+                break
+            if top2[i, step, 1] - top2[i, step, 0] > 2 * tol:
+                assert t.tokens[step] == j.tokens[step], (i, step)
+                compared += 1
+    assert compared >= NEW * len(ps) // 4
+
+
+def test_cli_serves_moe_on_cpu(capsys):
+    res = serve_main(["--device", "cpu", "--reduced", "--arch",
+                      "granite-moe-1b-a400m", "--requests", "3",
+                      "--prompt-len", "5", "--new-tokens", "3"])
     assert len(res) == 3 and all(len(r.tokens) == 3 for r in res)
     assert "on cpu" in capsys.readouterr().out
