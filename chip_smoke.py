@@ -15,7 +15,12 @@ the target) and ``nvcc``:
    main paths' shapes and a few ragged, GQA and local cases, and times
    the kernel, the plain version, the one PyTorch call that computes the
    same function, where there is one (a yardstick only: the port never
-   calls it), and the least time the card could take for the work;
+   calls it), and the least time the card could take for the work; the
+   two GEMM kernels also at the edges of their schedule (K chunks, the
+   decode/prefill switch, element-wise loads), each case's form, CTAs
+   and chunks logged, with three repeats bit-equal and sliced K, N and D
+   bit-equal to their zero-padded shapes, and their wrappers' host us per
+   call;
 4. serves 4 mixed-length requests with full-width qwen1.5-0.5b (random
    weights from seed 0) through ``ServeEngine``, with the launch counts set
    to 0 just before and read just after; checks the counts, that a second
@@ -49,6 +54,12 @@ the target) and ``nvcc``:
 
 Any failed check exits non-zero. Without a card, or outside a checkout, it
 exits non-zero and prints no result. TF32 is off: fp32 products are fp32.
+
+    python3 chip_smoke.py --host-us [SRC]
+
+measures only the GEMM wrappers' host us per call, of the package under
+SRC (this checkout's ``src`` by default), and prints them as one JSON line:
+two trees compared on one card.
 """
 
 from __future__ import annotations
@@ -234,9 +245,126 @@ def compare_matmul(torch, mt, case: tuple, gen) -> dict:
            "bound_ms": b_ms, "bound_by": b_by}
     log(f"matmul_tiled {row['case']}: max_abs_err {err:.4g} tol {tol:.4g} "
         f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
-        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) "
-        f"grid {mt.grid_blocks(m, n)} CTAs")
+        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}); "
+        f"{gemm_form(mt.schedule(m, n, k), mt.grid_blocks(m, n, k), mt)}")
     return row
+
+
+def gemm_form(sched, ctas: int, mt) -> str:
+    """The GEMM kernels' schedule of one product, for the log."""
+    form, chunks = sched
+    return (f"form {form}, {ctas} CTAs, " + (
+        f"{len(chunks)} K chunks of SPLIT_K {mt.SPLIT_K}" if form == "decode"
+        else "all of K in each CTA") + f", loads {mt.LAST['loads']}")
+
+
+def gemm_edges(torch, mt, mg, gen) -> None:
+    """The redesigned GEMM kernels at the edges of their schedule: K below,
+    at and above SPLIT_K and a ragged last chunk, M (or C) across the
+    decode/prefill switch, element-wise loads, the stride-0 x in both
+    forms; each against its plain version, then three repeats bit-equal,
+    and a K or N cut from 2816 to 2752 (D from 1024 to 960) bit-equal to
+    the zero-padded full shape, as the planner's narrowed widths need."""
+    def held(name, out, ref, tol_rel):
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = tol_rel * max(ref.float().abs().max().item(), 1.0)
+        check(bool(torch.isfinite(out.float()).all()) and err <= tol,
+              f"{name}: max_abs_err {err} > tol {tol}")
+        return err
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    for m, k, n in ((4, 248, 64), (4, 255, 72), (4, 256, 64), (4, 257, 72),
+                    (4, 600, 200), (1, 2752, 1024), (64, 520, 136),
+                    (65, 520, 136), (128, 600, 200), (129, 600, 200)):
+        x, w = rn(m, k), rn(k, n)
+        out = mt.matmul_tiled(x, w)
+        form = gemm_form(mt.schedule(m, n, k), mt.grid_blocks(m, n, k), mt)
+        err = held(f"matmul_tiled M={m} K={k} N={n}", out,
+                   mt.matmul_ref(x, w), 2.0 ** -7)
+        same = all(torch.equal(out, mt.matmul_tiled(x, w)) for _ in range(3))
+        check(same, f"matmul_tiled M={m} K={k} N={n}: a repeat differs")
+        log(f"matmul_tiled edge M={m} K={k} N={n}: max_abs_err {err:.4g}, "
+            f"3 repeats bit-equal; {form}")
+    for e, c, d, f, bc in ((4, 4, 248, 64, True), (4, 4, 264, 72, True),
+                           (4, 64, 600, 64, True), (4, 65, 600, 64, True),
+                           (2, 33, 31, 32, False), (32, 161, 1024, 512,
+                                                    False),
+                           (32, 4, 1024, 512, True)):
+        x = rn(c, d).expand(e, c, d) if bc else rn(e, c, d)
+        w = rn(e, d, f)
+        out = mg.moe_gmm(x, w)
+        form = gemm_form(mt.schedule(c, f, d), mg.grid_blocks(e, c, f, d),
+                         mg)
+        err = held(f"moe_gmm E={e} C={c} D={d} F={f}", out,
+                   mg.moe_gmm_ref(x, w), MOE_RTOL)
+        same = all(torch.equal(out, mg.moe_gmm(x, w)) for _ in range(3))
+        check(same, f"moe_gmm E={e} C={c} D={d} F={f}: a repeat differs")
+        log(f"moe_gmm edge E={e} C={c} D={d} F={f}"
+            + (" x broadcast" if bc else "") + f": max_abs_err {err:.4g}, "
+            f"3 repeats bit-equal; {form}")
+    check(mt.schedule(161, 512, 1024)[0] == "prefill"
+          and mt.schedule(4, 512, 1024)[0] == "decode",
+          "C = 161 must take the prefill form, C = 4 the decode form")
+    full, cut = 2816, 2752
+    for m in (4, 512):
+        x, w = rn(m, cut), rn(cut, 1024)
+        xp = torch.zeros(m, full, dtype=x.dtype, device="cuda")
+        wp = torch.zeros(full, 1024, dtype=w.dtype, device="cuda")
+        xp[:, :cut], wp[:cut] = x, w
+        w2 = rn(1024, cut)
+        w2p = torch.zeros(1024, full, dtype=w2.dtype, device="cuda")
+        w2p[:, :cut] = w2
+        x2 = rn(m, 1024)
+        check(torch.equal(mt.matmul_tiled(x, w), mt.matmul_tiled(xp, wp))
+              and torch.equal(mt.matmul_tiled(x2, w2),
+                              mt.matmul_tiled(x2, w2p)[:, :cut]),
+              f"matmul_tiled M={m}: K or N cut to {cut} differs from the "
+              f"zero-padded {full}")
+    for c in (4, 512):
+        x, w = rn(c, 960).expand(32, c, 960), rn(32, 960, 512)
+        xp = torch.zeros(c, 1024, dtype=x.dtype, device="cuda")
+        wp = torch.zeros(32, 1024, 512, dtype=w.dtype, device="cuda")
+        xp[:, :960], wp[:, :960] = x[0], w
+        check(torch.equal(mg.moe_gmm(x, w), mg.moe_gmm(xp.expand(32, c, 1024),
+                                                      wp)),
+              f"moe_gmm C={c}: D cut to 960 differs from the zero-padded "
+              f"1024")
+    log(f"GEMM edges: sliced K and N (M = 4 and 512) and D (C = 4 and 512) "
+        f"bit-equal to their zero-padded full shapes")
+
+
+def host_us(torch, fn, args: tuple, n: int = 300) -> float:
+    """Host microseconds per eager call of ``fn``: the time to enqueue n
+    calls back to back, the device drained before and after."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e6 / n
+
+
+def wrapper_host_us(torch, mt, mg) -> dict:
+    """Host us per call of the two GEMM wrappers at the main path's decode
+    and prefill shapes (what a host-bound decode step pays per product)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").bfloat16()
+
+    out = {}
+    for m, k, n in ((4, 1024, 2816), (512, 1024, 2816)):
+        out[f"matmul_tiled M={m} K={k} N={n}"] = host_us(
+            torch, mt.matmul_tiled, (rn(m, k), rn(k, n)))
+    for c in (4, 512):
+        x, w = rn(c, 1024).expand(32, c, 1024), rn(32, 1024, 512)
+        out[f"moe_gmm E=32 C={c} D=1024 F=512 x broadcast"] = host_us(
+            torch, mg.moe_gmm, (x, w))
+    return out
 
 
 def compare_flash(torch, fa, case: tuple, gen) -> dict:
@@ -740,7 +868,7 @@ def compare_rwkv6(torch, rw, case: tuple, gen) -> dict:
     return row
 
 
-def compare_moe_gmm(torch, mg, case: tuple, gen) -> dict:
+def compare_moe_gmm(torch, mt, mg, case: tuple, gen) -> dict:
     """x (E, C, D) @ w (E, D, F); with ``broadcast`` x is one (C, D)
     activation viewed with expert stride 0, as the dense strategy gives it,
     and is read (and counted in the bound) once."""
@@ -773,7 +901,8 @@ def compare_moe_gmm(torch, mg, case: tuple, gen) -> dict:
     log(f"moe_gmm {name}: max_abs_err {err:.4g} tol {tol:.4g} ms "
         f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
         f"{row['library_ms']:.4f} (torch.matmul) bound_ms {b_ms:.4f} "
-        f"({b_by}); grid {mg.grid_blocks(e, c, f)} CTAs")
+        f"({b_by}); "
+        f"{gemm_form(mt.schedule(c, f, d), mg.grid_blocks(e, c, f, d), mg)}")
     return row
 
 
@@ -940,8 +1069,9 @@ def narrowed_plan(torch, np, mods, params, modules) -> None:
     """A hand-narrowed plan (MLP widths below d_ff, multiples of 64, ragged
     across the stacked layers): its sliced forward on the kernels equals
     the zero-masked full-shape forward on the kernels. Zero columns and
-    rows add exact zeros, and each CTA of the MLP kernel sums its K tiles
-    in order, so the two are expected bit for bit."""
+    rows add exact zeros, and the MLP kernel sums each output's K tiles
+    (and, at decode, its K chunks, which start at fixed offsets) in the
+    same order for both shapes, so the two are expected bit for bit."""
     cfg = mods["configs"].get_config(ARCH)
     tfm, sv = mods["tfm"], mods["serving"]
     widths = {name: cfg.d_ff - 64 * (1 + ref.layer % 4)
@@ -1003,9 +1133,22 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: no CUDA device")
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        fail(f"{SRC / 'repro_torch'} is missing: run from a checkout")
-    sys.path.insert(0, str(SRC))
+    argv = sys.argv[1:]
+    src = Path(argv[1]).resolve() if argv[:1] == ["--host-us"] \
+        and len(argv) > 1 else SRC
+    if not (src / "repro_torch" / "csrc").is_dir():
+        fail(f"{src / 'repro_torch'} is missing: run from a checkout")
+    sys.path.insert(0, str(src))
+    if argv[:1] == ["--host-us"]:
+        # only the GEMM wrappers' host us per call, of the package under
+        # the given src directory (default this checkout's): for comparing
+        # two trees on one card
+        from repro_torch.kernels import matmul_tiled as mt
+        from repro_torch.kernels import moe_gmm as mg
+        card_info(torch)
+        print(json.dumps({"host_us": wrapper_host_us(torch, mt, mg),
+                          "src": str(src)}), flush=True)
+        return
     import numpy as np
     from repro_torch import configs, serving
     from repro_torch.core import H100_SXM, LayerShape
@@ -1067,11 +1210,14 @@ def main() -> None:
     # granite-moe-1b-a400m's expert products: dense prefill (4 x 128
     # tokens, x broadcast over the 32 experts) gate/up and down, the same
     # at decode (4 tokens), the capacity buffer at prefill, ragged edges
-    mo = [compare_moe_gmm(torch, mg, c, gen) for c in
+    mo = [compare_moe_gmm(torch, mt, mg, c, gen) for c in
           [(32, 512, 1024, 512, True), (32, 512, 512, 1024, False),
            (32, 4, 1024, 512, True), (32, 4, 512, 1024, False),
            (32, 161, 1024, 512, False), (2, 33, 31, 32, False),
            (2, 65, 64, 63, False)]]
+    gemm_edges(torch, mt, mg, gen)
+    log(f"GEMM wrappers, host us per call: "
+        f"{json.dumps(wrapper_host_us(torch, mt, mg))}")
 
     served = serve_full_width(torch, np, mods)
     small_model_vs_cpu(torch, np, mods, n_layers=2, d_model=256, n_heads=4,

@@ -95,9 +95,12 @@ TPU_LITE = HardwareSpec(
 )
 
 # The card the port serves on. Its quanta are those of the port's own MLP
-# kernel, so the planner plans for the tiles that actually run: a width that
-# is a multiple of ``lane`` leaves no partly filled output tile in
-# ``csrc/matmul_tiled.cu``, and the token axis pads to ``BLOCK_M`` rows.
+# kernel's prefill tile (``csrc/gemm_sm90.cuh``: 128 token rows x 64 output
+# columns, one CTA each, one wgmma m64n128 per 16 of K with the tokens as
+# wgmma's N), so the planner plans for the tiles that actually run: a width
+# that is a multiple of ``lane`` leaves no partly filled output tile, and
+# the token axis pads to ``BLOCK_M`` rows. Decode (at most 64 rows) runs
+# 64 x 64 tiles over K chunks, whose column quantum is the same 64.
 H100_SXM = HardwareSpec(
     name="h100_sxm",
     peak_flops_bf16=989e12,        # dense bf16 tensor cores (data sheet)

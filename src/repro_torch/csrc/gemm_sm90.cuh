@@ -1,0 +1,521 @@
+// The Hopper GEMM mainloop shared by matmul_tiled.cu and moe_gmm.cu:
+//
+//   out[e] (M, N) = x[e] (M, K) @ w[e] (K, N),   e < E,  bf16 in, fp32 sum,
+//
+// x read through an expert stride and a row stride (unit K stride), w and
+// out contiguous. matmul_tiled is the case E = 1.
+//
+// One CTA per output tile (and, in the decode form, per K chunk); the grid
+// is not persistent, so its CTA count is the B of paper Eq. 3. Each CTA
+// has one producer warpgroup and one consumer warpgroup around a ring of
+// STAGES shared-memory stages:
+//
+// - the producer fills a stage with one (BM x 64) tile of x and one
+//   (64 x 64) tile of w. Where the shapes allow it (16-byte aligned base
+//   and strides) one thread issues two TMA loads (cp.async.bulk.tensor,
+//   128-byte swizzle) that complete on the stage's "full" mbarrier; a tile
+//   past the edge of M, N or K, or of an expert's D, is zero-filled by the
+//   TMA unit and never reads the next expert. Otherwise its 128 threads
+//   load element by element, masked, into the same swizzled layout, and
+//   arrive on the barrier after a proxy fence;
+// - the consumer computes the tile transposed, out^T = w^T x^T: the 64
+//   columns of w are wgmma's 64 rows (A, MN-major, read through the
+//   transpose bit) and the BM rows of x its N (B, K-major), so a 128-row
+//   tile is one m64n128k16 per 16 of K, which reads fewer shared-memory
+//   bytes per operation than two warpgroups' m64n64k16 (3-20 % faster at
+//   the main path's prefill shapes on the H100). Four per stage (bf16 in,
+//   fp32 accumulators in registers); it waits for them and frees the stage
+//   on its "empty" mbarrier. (Keeping a group in flight across stages
+//   measured no faster.)
+//
+// Two forms, chosen by the caller from M alone:
+// - prefill (M > DECODE_BLOCK_M): 128 x 64 tiles (m64n128k16), the whole
+//   of K in one CTA, two CTAs per SM;
+// - decode (M <= DECODE_BLOCK_M): 64 x 64 tiles (m64n64k16), K cut into
+//   chunks of the fixed length SPLIT_K, one CTA per chunk, three CTAs per
+//   SM. The 64 rows of x hold the few live ones; the weight bytes bound
+//   it, and the chunks put every weight byte of the main path's decode
+//   products in flight at once. Each CTA writes its fp32
+//   partial tile to a workspace; the last CTA of a tile to finish (an
+//   integer counter per tile says so, and that CTA resets it) sums the
+//   partials in chunk order over all its consumer threads and stores
+//   bf16. No float atomics: the sum order of every output is fixed by K
+//   alone, so a repeat is bit-equal, and cutting K or N (zero rows or
+//   columns, or their absence) changes no other output's bits.
+// The epilogue stores bf16 straight from the accumulators, masked at the
+// ragged M and N edges.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace gemm_sm90 {
+// Internal linkage for all of it: each kernel library that includes this
+// header keeps its own kernels and its own once-per-device state (a static
+// inside an inline or template function would otherwise be one symbol
+// shared by every library loaded into the process).
+namespace {
+
+constexpr int BK = 64;             // K per stage: one 128-byte swizzled row
+constexpr int BN = 64;             // output columns per CTA
+constexpr int STAGES = 4;
+constexpr int SPLIT_K = 256;       // the decode form's fixed K chunk
+constexpr int DECODE_BLOCK_M = 64; // M at or below this: the decode form
+constexpr int PREFILL_BLOCK_M = 128;
+constexpr int WG = 128;            // threads of a warpgroup
+static_assert(SPLIT_K % BK == 0, "a chunk is whole K tiles");
+
+// BM: the rows of x (tokens) a CTA covers, wgmma's N
+template <int BM>
+struct Tile {
+  static constexpr int THREADS = 2 * WG;                // consumer, producer
+  static constexpr int MIN_BLOCKS = BM == 128 ? 2 : 3;  // per SM
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BK * BN * 2;
+  // 1024 for aligning the swizzled tiles, the ring, 2 x STAGES barriers
+  // and the last-CTA flag
+  static constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) +
+                              2 * STAGES * 8 + 16;
+};
+
+struct Args {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;
+  __nv_bfloat16* out;
+  float* ws;           // splits x E x M x N fp32 partials (splits > 1)
+  int* counters;       // one per (e, m tile, n tile), zero between launches
+  int M, N, K;         // per expert
+  long long sx_e, sx_r;
+  int splits;          // K chunks (1: all of K in one CTA)
+  int tma;             // 1: loads through the tensor maps
+  int x_bcast;         // x's expert stride is 0: its map holds one expert
+};
+
+// ---------------------------------------------------------------------------
+// PTX
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile whose rows
+// are 128 bytes: start address, leading and stride byte offsets (16-byte
+// units), layout type 1 (B128).
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void acc_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, fp32) += A (64 x 16, MN-major) * B (16 x 64, K-major).
+__device__ __forceinline__ void wgmma_tn(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, MN-major) * B (16 x 128, K-major).
+__device__ __forceinline__ void wgmma_tn(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Byte offset of element (r, c) in a tile of 64-element (128-byte) rows
+// under the 128-byte swizzle: TMA's layout, and wgmma's B128.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+template <int BM>
+__global__ void __launch_bounds__(Tile<BM>::THREADS, Tile<BM>::MIN_BLOCKS)
+gemm_kernel(__grid_constant__ const CUtensorMap map_x,
+            __grid_constant__ const CUtensorMap map_w, const Args a) {
+  using T = Tile<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t sa = base;                           // STAGES x A tiles
+  const uint32_t sb = sa + STAGES * T::A_BYTES;       // STAGES x B tiles
+  const uint32_t bars = sb + STAGES * T::B_BYTES;     // full, then empty
+  int* flag = reinterpret_cast<int*>(smem + (bars - base) + 2 * STAGES * 8);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int n0 = blockIdx.x * BN;
+  const int mt = blockIdx.y / a.splits, split = blockIdx.y % a.splits;
+  const int m0 = mt * BM;
+  const int e = blockIdx.z;
+  const int kb = a.splits > 1 ? split * SPLIT_K : 0;
+  const int ke = a.splits > 1 ? min(a.K, kb + SPLIT_K) : a.K;
+  const int ktiles = (ke - kb + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, a.tma ? 1 : WG);
+      mbar_init(bars + 8 * (STAGES + s), WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 1) {
+    // ---- producer warpgroup ----
+    const int pt = tid - WG;
+    if (a.tma) {
+      if (pt == 0) {
+        for (int i = 0; i < ktiles; ++i) {
+          const int s = i % STAGES;
+          if (i >= STAGES) mbar_wait(bars + 8 * (STAGES + s),
+                                     ((i / STAGES) - 1) & 1);
+          const uint32_t full = bars + 8 * s;
+          mbar_expect_tx(full, T::A_BYTES + T::B_BYTES);
+          const int k0 = kb + i * BK;
+          tma_load_3d(sa + s * T::A_BYTES, &map_x, full, k0, m0,
+                      a.x_bcast ? 0 : e);
+          tma_load_3d(sb + s * T::B_BYTES, &map_w, full, n0, k0, e);
+        }
+      }
+    } else {
+      const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+      const __nv_bfloat16* xe = a.x + (long long)e * a.sx_e;
+      const __nv_bfloat16* we = a.w + (size_t)e * a.K * a.N;
+      for (int i = 0; i < ktiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(bars + 8 * (STAGES + s),
+                                   ((i / STAGES) - 1) & 1);
+        const int k0 = kb + i * BK;
+        uint8_t* ta = smem + (sa - base) + s * T::A_BYTES;
+        uint8_t* tb = smem + (sb - base) + s * T::B_BYTES;
+        for (int idx = pt; idx < BM * BK; idx += WG) {
+          const int r = idx >> 6, c = idx & 63;
+          const int gr = m0 + r, gk = k0 + c;
+          *reinterpret_cast<__nv_bfloat16*>(ta + swz(r, c)) =
+              (gr < a.M && gk < ke) ? xe[(long long)gr * a.sx_r + gk] : zero;
+        }
+        for (int idx = pt; idx < BK * BN; idx += WG) {
+          const int r = idx >> 6, c = idx & 63;
+          const int gk = k0 + r, gn = n0 + c;
+          *reinterpret_cast<__nv_bfloat16*>(tb + swz(r, c)) =
+              (gk < ke && gn < a.N) ? we[(size_t)gk * a.N + gn] : zero;
+        }
+        // generic-proxy writes, read next by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(bars + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: out^T (64 columns of w x BM rows of x) ----
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < ktiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(bars + 8 * s, (i / STAGES) & 1);
+    const uint32_t ta = sa + s * T::A_BYTES;   // x: BM rows of 64 K
+    const uint32_t tb = sb + s * T::B_BYTES;   // w: 64 K rows of 64 columns
+    acc_fence(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      // w (A): 16 K rows are two 8-row groups of 1024 bytes; the tile is
+      // one 64-column swizzle atom wide, so its MN stride is never used and
+      // both offsets carry the group stride. x (B): 16 K values are 32
+      // bytes along the swizzled row, 8-row groups 1024 bytes apart.
+      wgmma_tn(acc, desc_b128(tb + kk * 2048, 1024, 1024),
+               desc_b128(ta + kk * 32, 16, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    acc_fence(acc);
+    mbar_arrive(bars + 8 * (STAGES + s));
+  }
+
+  // accumulator fragment of out^T: acc[4j + q] is column n0 + n of out
+  // (n = warp*16 + lane/4, +8 for q >= 2) and row m0 + 8j + 2(lane%4) of
+  // out (+1 for odd q)
+  const int n_t = n0 + (tid >> 5) * 16 + ((tid & 31) >> 2);
+  const int m_t = m0 + 2 * (tid & 3);
+  const int M = a.M, N = a.N;
+
+  if (a.splits == 1) {
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = m_t + 8 * j + (q & 1), c = n_t + 8 * (q >> 1);
+        if (r < M && c < N)
+          a.out[((size_t)e * M + r) * N + c] =
+              __float2bfloat16(acc[4 * j + q]);
+      }
+    return;
+  }
+
+  // decode form: this chunk's fp32 partial, then the last CTA of the tile
+  // sums all chunks in order
+  const size_t slab = (size_t)M * N;
+  const size_t e_off = (size_t)e * slab;
+  const size_t chunk = (size_t)gridDim.z * slab;
+  float* part = a.ws + (size_t)split * chunk + e_off;
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = m_t + 8 * j + (q & 1), c = n_t + 8 * (q >> 1);
+      if (r < M && c < N) part[(size_t)r * N + c] = acc[4 * j + q];
+    }
+  __threadfence();
+  asm volatile("bar.sync 1, %0;" ::"r"(WG) : "memory");
+  if (tid == 0) {
+    const int m_tiles = gridDim.y / a.splits;
+    int* cnt = a.counters + ((size_t)e * m_tiles + mt) * gridDim.x +
+               blockIdx.x;
+    const int last = atomicAdd(cnt, 1) == a.splits - 1;
+    if (last) *cnt = 0;   // every chunk has arrived: ready for the next launch
+    *flag = last;
+  }
+  asm volatile("bar.sync 1, %0;" ::"r"(WG) : "memory");
+  if (!*flag) return;
+  __threadfence();
+  // every live output of the tile, spread over the consumer threads; the
+  // loads of 8 chunks are issued together, the adds stay in chunk order
+  const int rows = min(BM, M - m0);
+  for (int idx = tid; idx < rows * BN; idx += WG) {
+    const int r = m0 + idx / BN, c = n0 + idx % BN;
+    if (c >= N) continue;
+    const float* p = a.ws + e_off + (size_t)r * N + c;
+    float sum = __ldcg(p);
+    int s = 1;
+    for (; s + 8 <= a.splits; s += 8) {
+      float v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = __ldcg(p + (size_t)(s + q) * chunk);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sum += v[q];
+    }
+    for (; s < a.splits; ++s) sum += __ldcg(p + (size_t)s * chunk);
+    a.out[((size_t)e * M + r) * N + c] = __float2bfloat16(sum);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in the driver (libcuda); fetched through the
+// runtime so that the library links nothing beyond cudart.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D bf16 map (innermost dimension first), boxes of b0 x b1 x 1,
+// 128-byte swizzle, zero fill out of bounds. False if the driver refuses.
+inline bool encode_3d(EncodeTiled fn, CUtensorMap* map, const void* ptr,
+                      uint64_t d0, uint64_t d1, uint64_t d2, uint64_t s1,
+                      uint64_t s2, uint32_t b0, uint32_t b1) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};   // bytes, of dimensions 1 and 2
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM>
+cudaError_t launch_form(const CUtensorMap& mx, const CUtensorMap& mw,
+                        const Args& a, int E, int device, cudaStream_t s) {
+  using T = Tile<BM>;
+  // above 48 KB of dynamic shared memory needs the attribute, once per
+  // device (setting it twice from two threads is harmless)
+  static bool attr_set[64];
+  if (device < 0 || device >= 64 || !attr_set[device]) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        gemm_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        T::SMEM);
+    if (attr != cudaSuccess) return attr;
+    if (device >= 0 && device < 64) attr_set[device] = true;
+  }
+  const dim3 grid((a.N + BN - 1) / BN, ((a.M + BM - 1) / BM) * a.splits, E);
+  gemm_kernel<BM><<<grid, T::THREADS, T::SMEM, s>>>(mx, mw, a);
+  return cudaGetLastError();
+}
+
+// Launches one product on `device`'s `stream`. decode != 0 takes the
+// decode form with `splits` chunks of SPLIT_K (the caller's schedule); ws
+// holds splits x E x M x N floats when splits > 1, counters one zeroed int
+// per (e, n tile). vec != 0 promises 16-byte aligned x and w, K, N, sx_r
+// and sx_e multiples of 8: then the loads go through TMA, else element by
+// element. Returns the load path taken (1: TMA, 0: element-wise) or minus
+// a cudaError_t.
+inline int launch(const void* x, const void* w, void* out, void* ws,
+                  void* counters, int E, int M, int N, int K, long long sx_e,
+                  long long sx_r, int decode, int splits, int vec,
+                  int device, void* stream) {
+  int current = -1;
+  if (cudaGetDevice(&current) != cudaSuccess) current = -1;
+  if (current != device) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return -static_cast<int>(set);
+  }
+  Args a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.ws = static_cast<float*>(ws);
+  a.counters = static_cast<int*>(counters);
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.sx_e = sx_e;
+  a.sx_r = sx_r;
+  a.splits = decode ? splits : 1;
+  a.x_bcast = sx_e == 0 || E == 1;
+  a.tma = 0;
+  CUtensorMap mx, mw;
+  memset(&mx, 0, sizeof(mx));
+  memset(&mw, 0, sizeof(mw));
+  if (vec) {
+    const EncodeTiled fn = encode_tiled();
+    const uint32_t bm = decode ? DECODE_BLOCK_M : PREFILL_BLOCK_M;
+    const uint64_t row = (uint64_t)sx_r * 2;
+    a.tma = fn &&
+            encode_3d(fn, &mx, x, K, M, a.x_bcast ? 1 : E, row,
+                      a.x_bcast ? row * M : (uint64_t)sx_e * 2, BK, bm) &&
+            encode_3d(fn, &mw, w, N, K, E, (uint64_t)N * 2,
+                      (uint64_t)N * K * 2, BN, BK);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      decode ? launch_form<DECODE_BLOCK_M>(mx, mw, a, E, device, s)
+             : launch_form<PREFILL_BLOCK_M>(mx, mw, a, E, device, s);
+  if (current != device && current >= 0) cudaSetDevice(current);
+  return err == cudaSuccess ? a.tma : -static_cast<int>(err);
+}
+
+}  // namespace
+}  // namespace gemm_sm90

@@ -1,12 +1,15 @@
 """Build and load the port's kernels.
 
-Each ``csrc/<name>.cu`` holds one kernel behind a plain C interface. It is
-compiled with ``nvcc`` into ``<name>-<hash>.so`` under the build directory
-(``build/kernels`` at the repo root, or ``$REPRO_TORCH_BUILD_DIR``) the first
-time its wrapper runs, and loaded with ``ctypes``. The file name carries a
-hash of the source and the flags, so an edited source builds anew and an
-unchanged one is built once per checkout. Nothing is built when this module
-is imported: the CPU tests import every module and have no ``nvcc``.
+Each ``csrc/<name>.cu`` holds one kernel behind a plain C interface; the
+headers ``csrc/*.cuh`` hold what several share (``gemm_sm90.cuh``, the GEMM
+mainloop of ``matmul_tiled`` and ``moe_gmm``). It is compiled with ``nvcc``
+into ``<name>-<hash>.so`` under the build directory (``build/kernels`` at
+the repo root, or ``$REPRO_TORCH_BUILD_DIR``) the first time its wrapper
+runs, and loaded with ``ctypes``. The file name carries a hash of the
+source, of every header and of the flags, so an edited source or header
+builds anew and an unchanged one is built once per checkout. Nothing is
+built when this module is imported: the CPU tests import every module and
+have no ``nvcc``.
 
 The Triton kernels (``TRITON_KERNELS``: kernel name -> the module under
 ``kernels/`` that launches it) are compiled by Triton at their first launch; :func:`import_triton` points Triton's cache at
@@ -15,7 +18,9 @@ before it imports Triton, so the compiled kernel stays in the gitignored
 ``build/``.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
-one right after the launch returned without error, and nowhere else.
+one right after the launch returned without error, and nowhere else. Each
+counts one per call: a product in the decode form of ``matmul_tiled`` or
+``moe_gmm`` sums its K chunks inside the same launch.
 """
 
 from __future__ import annotations
@@ -64,9 +69,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return build_dir() / f"{name}-{digest[:16]}.so"
 
 

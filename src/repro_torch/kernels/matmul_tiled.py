@@ -1,11 +1,21 @@
 """Tile-quantized matmul: the CUDA kernel's wrapper and its plain version.
 
 Replaces ``matmul_pallas`` (``src/repro/kernels/matmul_tiled.py``, body
-``matmul_kernel``) with ``csrc/matmul_tiled.cu``: one CTA per (64, 64)
-output tile with the K loop inside the CTA, bf16 tiles in shared memory,
-WMMA on the tensor cores, fp32 accumulation, bf16 output. At the MLP's
-prefill shapes the product is bound by tensor-core operations, at decode by
-reading the weight; this first kernel is simple and right, not yet fast.
+``matmul_kernel``) with ``csrc/matmul_tiled.cu``, whose mainloop
+(``csrc/gemm_sm90.cuh``) it shares with ``moe_gmm``: a ring of four
+shared-memory stages filled by TMA and drained by ``wgmma`` on the tensor
+cores, fp32 accumulation, bf16 output. :func:`schedule` picks one of two
+forms from M alone:
+
+- prefill (M > ``DECODE_BLOCK_M``): one CTA per (128, 64) output tile,
+  the whole of K looped inside it;
+- decode (M <= ``DECODE_BLOCK_M``): one CTA per (64, 64) tile and K chunk
+  of the fixed length ``SPLIT_K``; each chunk's fp32 partial goes to a
+  workspace and the tile's last CTA sums them in chunk order. The chunks
+  start at multiples of ``SPLIT_K`` whatever K and N are, so every
+  output's sum order depends on K alone: a repeat is bit-equal, and a
+  product cut to fewer rows of w (or columns) equals its zero-padded form.
+
 Ragged M, N and K are masked in the kernel, so unlike ``repro``'s
 ``ops.matmul`` nothing is padded on the host. The grid is not persistent:
 its CTA count (:func:`grid_blocks`) is the B of paper Eq. 3, and the wave
@@ -15,14 +25,28 @@ tail over the card's SMs shows in the kernel's time.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 NAME = "matmul_tiled"
-BLOCK_M = 64      # the kernel's tile; csrc/matmul_tiled.cu checks it
+BLOCK_M = 128         # the prefill tile; csrc/matmul_tiled.cu checks it
 BLOCK_N = 64
+DECODE_BLOCK_M = 64   # M at or below this takes the decode form
+SPLIT_K = 256         # the decode form's K chunk
+
+# the loads the last launch took: "tma", or "elementwise" where the base or
+# the strides are not 16-byte aligned
+LAST = {"loads": None}
+# per device: the decode form's fp32 partials and its tile counters (zero
+# between launches: the last CTA of a tile resets its own), shared by the
+# launches of both GEMM wrappers in stream order; a buffer that grows keeps
+# its predecessor alive, since a captured CUDA graph may still use it
+_WS: Dict[int, torch.Tensor] = {}
+_COUNTERS: Dict[int, torch.Tensor] = {}
+_RETIRED: List[torch.Tensor] = []
 
 
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -30,29 +54,87 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def grid_blocks(m: int, n: int) -> int:
-    """CTAs the kernel launches for an (m, n) output: paper Eq. 3's B.
-    K does not count, since each CTA loops over it."""
-    return -(-m // BLOCK_M) * -(-n // BLOCK_N)
+def kernel_form(m: int, k: int) -> Tuple[bool, int]:
+    """(decode form?, number of K chunks) of an (m, k) @ (k, n) product."""
+    if m <= DECODE_BLOCK_M:
+        return True, -(-k // SPLIT_K)
+    return False, 1 if k else 0
+
+
+def schedule(m: int, n: int, k: int) -> Tuple[str, List[Tuple[int, int]]]:
+    """The kernel's form for an (m, k) @ (k, n) product and the K ranges
+    its CTAs sum, in the order their partials are added. N plays no part."""
+    decode, splits = kernel_form(m, k)
+    if decode:
+        return "decode", [(i * SPLIT_K, min(k, (i + 1) * SPLIT_K))
+                          for i in range(splits)]
+    return "prefill", [(0, k)] * splits
+
+
+def grid_blocks(m: int, n: int, k: int) -> int:
+    """CTAs the kernel launches for (m, k) @ (k, n): paper Eq. 3's B, the
+    decode form's K chunks included."""
+    form, chunks = schedule(m, n, k)
+    bm = DECODE_BLOCK_M if form == "decode" else BLOCK_M
+    return -(-m // bm) * -(-n // BLOCK_N) * len(chunks)
+
+
+def workspace(device: int, floats: int, tiles: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode form's scratch on CUDA device ``device``: at least
+    ``floats`` fp32 partials and ``tiles`` zeroed int32 tile counters,
+    cached per device. While a CUDA graph is being captured a buffer that
+    must grow is allocated for the graph alone (it keeps what it
+    allocates), and the cache is left as it is."""
+    ws, cnt = _WS.get(device), _COUNTERS.get(device)
+    if ws is not None and ws.numel() >= floats and cnt.numel() >= tiles:
+        return ws, cnt
+    dev = torch.device("cuda", device)
+    if torch.cuda.is_current_stream_capturing():
+        return (torch.empty(floats, dtype=torch.float32, device=dev),
+                torch.zeros(tiles, dtype=torch.int32, device=dev))
+    if ws is not None:
+        _RETIRED.extend((ws, cnt))
+    ws = torch.empty(max(floats, 1 << 20, 0 if ws is None else ws.numel()),
+                     dtype=torch.float32, device=dev)
+    cnt = torch.zeros(max(tiles, 1 << 16, 0 if cnt is None else cnt.numel()),
+                      dtype=torch.int32, device=dev)
+    _WS[device], _COUNTERS[device] = ws, cnt
+    return ws, cnt
+
+
+def raw_stream(device: int) -> int:
+    """The current stream of CUDA device ``device``, as a pointer: the
+    call that PyTorch's own Triton launches use, a few us cheaper than a
+    device guard around ``torch.cuda.current_stream()``."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return get(device)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.matmul_tiled_bf16.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.matmul_tiled_bf16.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                      ci, ci, vp]
     lib.matmul_tiled_bf16.restype = ci
     lib.matmul_tiled_error_string.argtypes = [ci]
     lib.matmul_tiled_error_string.restype = ctypes.c_char_p
-    for fn in (lib.matmul_tiled_block_m, lib.matmul_tiled_block_n):
+    got = []
+    for fn in (lib.matmul_tiled_block_m, lib.matmul_tiled_block_n,
+               lib.matmul_tiled_decode_block_m, lib.matmul_tiled_split_k):
         fn.argtypes = []
         fn.restype = ci
-    if (lib.matmul_tiled_block_m(), lib.matmul_tiled_block_n()) != (
-            BLOCK_M, BLOCK_N):
-        raise RuntimeError("matmul_tiled.cu tile differs from BLOCK_M/BLOCK_N")
+        got.append(fn())
+    if got != [BLOCK_M, BLOCK_N, DECODE_BLOCK_M, SPLIT_K]:
+        raise RuntimeError(f"matmul_tiled.cu tiles {got} differ from "
+                           f"BLOCK_M, BLOCK_N, DECODE_BLOCK_M, SPLIT_K")
 
 
 def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: x (M, K) bf16 @ w (K, N) bf16 -> (M, N) bf16,
-    on CUDA tensors, on the current stream."""
+    on CUDA tensors, on the current stream. Launches on one stream at a
+    time per device: the decode form's scratch is shared."""
     if not (x.is_cuda and w.is_cuda) or x.device != w.device:
         raise ValueError(f"matmul_tiled: x and w must lie on one CUDA "
                          f"device, got {x.device} and {w.device}")
@@ -66,22 +148,29 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("matmul_tiled: x and w must be contiguous")
     m, k = x.shape
     n = w.shape[1]
-    if -(-m // BLOCK_M) > 65535:
-        raise ValueError(f"matmul_tiled: M={m} exceeds the grid's y limit")
+    decode, splits = kernel_form(m, k)
+    if -(-m // (DECODE_BLOCK_M if decode else BLOCK_M)) * splits > 65535:
+        raise ValueError(f"matmul_tiled: M={m}, K={k} exceed the grid's y "
+                         f"limit")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     if k == 0:
         return out.zero_()
+    dev = x.get_device()
+    ws_p = cnt_p = 0
+    if splits > 1:
+        ws, cnt = workspace(dev, splits * m * n, -(-n // BLOCK_N))
+        ws_p, cnt_p = ws.data_ptr(), cnt.data_ptr()
     vec = int(k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0
               and w.data_ptr() % 16 == 0)
     lib = build.load(NAME, _bind)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.matmul_tiled_bf16(x.data_ptr(), w.data_ptr(),
-                                    out.data_ptr(), m, n, k, vec, stream)
-    if err:
+    r = lib.matmul_tiled_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                              ws_p, cnt_p, m, n, k, int(decode), splits, vec,
+                              dev, raw_stream(dev))
+    if r < 0:
         raise RuntimeError(f"matmul_tiled launch failed: "
-                           f"{lib.matmul_tiled_error_string(err).decode()}")
+                           f"{lib.matmul_tiled_error_string(-r).decode()}")
+    LAST["loads"] = "tma" if r else "elementwise"
     build.LAUNCHES[NAME] += 1
     return out

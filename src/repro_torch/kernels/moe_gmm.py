@@ -7,11 +7,15 @@ layer, where C is the tokens (the dense strategy, x the same for every
 expert) or an expert's capacity buffer (the capacity strategy).
 
 ``moe_gmm`` launches ``csrc/moe_gmm.cu``, which replaces ``moe_gmm_pallas``
-(``src/repro/kernels/moe_gmm.py``, body ``_gmm_kernel``): one CTA per
-(expert, 64-row C tile, 64-column F tile) with the D loop inside the CTA,
-bf16 tiles in shared memory, WMMA on the tensor cores, fp32 accumulation,
-bf16 output. It reads x through its expert and row strides, so a broadcast
-x (``x.expand(E, T, D)``, expert stride 0) costs no copy. Ragged C, D and F
+(``src/repro/kernels/moe_gmm.py``, body ``_gmm_kernel``). It runs
+``matmul_tiled``'s mainloop (``csrc/gemm_sm90.cuh``: a TMA ring drained by
+``wgmma``, fp32 accumulation, bf16 output) with an expert grid axis, and
+takes its schedule (``matmul_tiled.schedule``) with C as M and D as K: the
+prefill form, one CTA per (expert, 128-row C tile, 64-column F tile) over
+all of D, for C > 64; else the decode form, one CTA per (expert, 64 x 64
+tile, D chunk of ``SPLIT_K``), the chunks' fp32 partials summed in chunk
+order. It reads x through its expert and row strides, so a broadcast x
+(``x.expand(E, T, D)``, expert stride 0) costs no copy. Ragged C, D and F
 are masked in the kernel, so unlike ``repro``'s ``ops.moe_gmm`` nothing is
 padded on the host. The grid is not persistent: its CTA count
 (:func:`grid_blocks`) is the B of paper Eq. 3.
@@ -24,10 +28,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.matmul_tiled import (DECODE_BLOCK_M, SPLIT_K,
+                                              kernel_form, raw_stream,
+                                              schedule, workspace)
+from repro_torch.kernels.matmul_tiled import BLOCK_M as BLOCK_C
+from repro_torch.kernels.matmul_tiled import BLOCK_N as BLOCK_F
 
 NAME = "moe_gmm"
-BLOCK_C = 64      # the kernel's tile; csrc/moe_gmm.cu checks it
-BLOCK_F = 64
+DECODE_BLOCK_C = DECODE_BLOCK_M
+# the loads the last launch took: "tma" or "elementwise"
+LAST = {"loads": None}
 
 
 def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -36,29 +46,38 @@ def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def grid_blocks(e: int, c: int, f: int) -> int:
-    """CTAs the kernel launches for an (e, c, f) output: paper Eq. 3's B.
-    D does not count, since each CTA loops over it."""
-    return e * -(-c // BLOCK_C) * -(-f // BLOCK_F)
+def grid_blocks(e: int, c: int, f: int, d: int) -> int:
+    """CTAs the kernel launches for an (e, c, f) output over D = d: paper
+    Eq. 3's B, the decode form's D chunks included."""
+    form, chunks = schedule(c, f, d)
+    bc = DECODE_BLOCK_C if form == "decode" else BLOCK_C
+    return e * -(-c // bc) * -(-f // BLOCK_F) * len(chunks)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.moe_gmm_bf16.argtypes = [vp, vp, vp, ci, ci, ci, ci, ll, ll, ci, vp]
+    lib.moe_gmm_bf16.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ll, ll,
+                                 ci, ci, ci, ci, vp]
     lib.moe_gmm_bf16.restype = ci
     lib.moe_gmm_error_string.argtypes = [ci]
     lib.moe_gmm_error_string.restype = ctypes.c_char_p
-    for fn in (lib.moe_gmm_block_c, lib.moe_gmm_block_f):
+    got = []
+    for fn in (lib.moe_gmm_block_c, lib.moe_gmm_block_f,
+               lib.moe_gmm_decode_block_c, lib.moe_gmm_split_k):
         fn.argtypes = []
         fn.restype = ci
-    if (lib.moe_gmm_block_c(), lib.moe_gmm_block_f()) != (BLOCK_C, BLOCK_F):
-        raise RuntimeError("moe_gmm.cu tile differs from BLOCK_C/BLOCK_F")
+        got.append(fn())
+    if got != [BLOCK_C, BLOCK_F, DECODE_BLOCK_C, SPLIT_K]:
+        raise RuntimeError(f"moe_gmm.cu tiles {got} differ from BLOCK_C, "
+                           f"BLOCK_F, DECODE_BLOCK_C, SPLIT_K")
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: x (E, C, D) bf16 @ w (E, D, F) bf16 -> (E, C, F)
     bf16, on CUDA tensors, on the current stream. x may have any expert
-    and row strides (0 included) but a unit D stride; w is contiguous."""
+    and row strides (0 included) but a unit D stride; w is contiguous.
+    Launches on one stream at a time per device: the decode form's scratch
+    is shared with ``matmul_tiled``."""
     if not (x.is_cuda and w.is_cuda) or x.device != w.device:
         raise ValueError(f"moe_gmm: x and w must lie on one CUDA device, "
                          f"got {x.device} and {w.device}")
@@ -75,23 +94,31 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("moe_gmm: w must be contiguous")
     e, c, d = x.shape
     f = w.shape[2]
-    if e > 65535 or -(-c // BLOCK_C) > 65535:
-        raise ValueError(f"moe_gmm: E={e} or C={c} exceeds the grid's limit")
+    decode, splits = kernel_form(c, d)
+    if e > 65535 or -(-c // (DECODE_BLOCK_C if decode else BLOCK_C)) \
+            * splits > 65535:
+        raise ValueError(f"moe_gmm: E={e}, or C={c} and D={d}, exceed the "
+                         f"grid's limits")
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if e == 0 or c == 0 or f == 0:
         return out
     if d == 0:
         return out.zero_()
+    dev = x.get_device()
+    ws_p = cnt_p = 0
+    if splits > 1:
+        ws, cnt = workspace(dev, splits * e * c * f, e * -(-f // BLOCK_F))
+        ws_p, cnt_p = ws.data_ptr(), cnt.data_ptr()
     sx_e, sx_r = x.stride(0), x.stride(1)
     vec = int(d % 8 == 0 and f % 8 == 0 and sx_e % 8 == 0 and sx_r % 8 == 0
               and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     lib = build.load(NAME, _bind)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.moe_gmm_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                               e, c, d, f, sx_e, sx_r, vec, stream)
-    if err:
+    r = lib.moe_gmm_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_p,
+                         cnt_p, e, c, d, f, sx_e, sx_r, int(decode), splits,
+                         vec, dev, raw_stream(dev))
+    if r < 0:
         raise RuntimeError(f"moe_gmm launch failed: "
-                           f"{lib.moe_gmm_error_string(err).decode()}")
+                           f"{lib.moe_gmm_error_string(-r).decode()}")
+    LAST["loads"] = "tma" if r else "elementwise"
     build.LAUNCHES[NAME] += 1
     return out

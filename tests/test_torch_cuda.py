@@ -35,15 +35,24 @@ def randn(gen, *shape):
     return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (7, 33, 9), (63, 64, 65),
-                                   (64, 64, 64), (65, 129, 63),
-                                   (4, 1024, 2816), (512, 2816, 1024)])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 1, 1), (7, 33, 9), (63, 64, 65), (64, 64, 64), (65, 129, 63),
+    (4, 1024, 2816), (512, 2816, 1024),
+    # the decode form's chunks: K below, at and above SPLIT_K, a ragged
+    # last chunk (600, 2752), element-wise loads where K % 8 != 0 (255, 257)
+    (4, 248, 64), (4, 255, 72), (4, 256, 64), (4, 257, 72), (4, 264, 136),
+    (4, 600, 200), (1, 2752, 1024), (4, 7680, 2560),
+    # M across the decode/prefill switch (64 | 65) and the prefill tile (128)
+    (1, 520, 136), (64, 520, 136), (65, 520, 136), (128, 600, 200),
+    (129, 600, 200), (512, 1024, 2816)])
 def test_matmul_kernel_vs_plain(gen, m, k, n):
     x, w = randn(gen, m, k), randn(gen, k, n)
     before = ops.LAUNCHES["matmul_tiled"]
     got = mt.matmul_tiled(x, w)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["matmul_tiled"] == before + 1
+    assert mt.LAST["loads"] == ("tma" if k % 8 == 0 and n % 8 == 0
+                                else "elementwise")
     want = mt.matmul_ref(x, w).float()
     # one fp32 sum per output, rounded to bf16 in both: two bf16 steps
     tol = 2.0 ** -7 * max(want.abs().max().item(), 1.0)
@@ -51,14 +60,51 @@ def test_matmul_kernel_vs_plain(gen, m, k, n):
 
 
 def test_matmul_kernel_unaligned_input(gen):
-    """A 16-byte-misaligned x takes the kernel's element-wise loads."""
-    m, k, n = 33, 64, 72
-    buf = randn(gen, m * k + 1)
-    x = buf[1:].view(m, k)
-    w = randn(gen, k, n)
-    got = mt.matmul_tiled(x, w).float()
-    want = mt.matmul_ref(x, w).float()
-    assert (got - want).abs().max().item() <= 2.0 ** -7 * want.abs().max()
+    """A 16-byte-misaligned x takes the kernel's element-wise loads, in
+    both forms."""
+    for m, k, n in ((33, 64, 72), (100, 600, 72)):
+        buf = randn(gen, m * k + 1)
+        x = buf[1:].view(m, k)
+        w = randn(gen, k, n)
+        got = mt.matmul_tiled(x, w).float()
+        assert mt.LAST["loads"] == "elementwise"
+        want = mt.matmul_ref(x, w).float()
+        assert (got - want).abs().max().item() <= \
+            2.0 ** -7 * want.abs().max()
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2816, 1024), (4, 600, 72),
+                                   (512, 1024, 2816), (100, 130, 70)])
+def test_matmul_kernel_repeats_bit_equal(gen, m, k, n):
+    """No float atomics: the decode form's chunks are summed in a fixed
+    order by whichever CTA ends last, so two launches give the same bits;
+    the tile counters are left zeroed for the next launch."""
+    x, w = randn(gen, m, k), randn(gen, k, n)
+    first = mt.matmul_tiled(x, w)
+    for _ in range(3):
+        assert torch.equal(first, mt.matmul_tiled(x, w))
+    torch.cuda.synchronize()
+    if len(mt.schedule(m, n, k)[1]) > 1:
+        assert int(mt._COUNTERS[x.device.index].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("m", [4, 512])
+def test_matmul_kernel_sliced_equals_zero_padded(gen, m):
+    """The planner's narrowed widths on the card: a product whose K (w's
+    rows) or N (w's columns) is cut from 2816 to 2752 is bit-equal to the
+    full-shape product on zero-padded inputs, in both forms: the chunks
+    start at fixed offsets, so zeros add exact zeros in the same order."""
+    full, cut = 2816, 2752
+    x, w = randn(gen, m, cut), randn(gen, cut, 1024)
+    xp = torch.zeros(m, full, dtype=x.dtype, device="cuda")
+    wp = torch.zeros(full, 1024, dtype=w.dtype, device="cuda")
+    xp[:, :cut], wp[:cut] = x, w
+    assert torch.equal(mt.matmul_tiled(x, w), mt.matmul_tiled(xp, wp))
+    x2, w2 = randn(gen, m, 1024), randn(gen, 1024, cut)
+    w2p = torch.zeros(1024, full, dtype=w2.dtype, device="cuda")
+    w2p[:, :cut] = w2
+    assert torch.equal(mt.matmul_tiled(x2, w2),
+                       mt.matmul_tiled(x2, w2p)[:, :cut])
 
 
 @pytest.mark.parametrize("dh", [64, 128])
@@ -351,22 +397,43 @@ def moe_tol(want):
     (32, 512, 1024, 512, True), (32, 512, 512, 1024, False),
     (32, 4, 1024, 512, True), (32, 4, 512, 1024, False),
     (32, 161, 1024, 512, False), (32, 2, 1024, 512, False),
+    # the decode form's chunks over D (below, at, above SPLIT_K, ragged),
+    # C across the switch, and the stride-0 x in both forms
+    (4, 4, 248, 64, True), (4, 4, 256, 64, False), (4, 4, 264, 72, True),
+    (4, 64, 600, 64, True), (4, 65, 600, 64, True), (4, 129, 264, 72, False),
 ])
 def test_moe_gmm_kernel_vs_plain(gen, e, c, d, f, broadcast):
-    """bf16 sweeps, the ragged edges and granite-moe-1b-a400m's full-width
-    shapes (dense prefill and decode with x broadcast over the experts,
-    the capacity buffers of 161 and 2 rows)."""
+    """bf16 sweeps, the ragged edges, the split edges and
+    granite-moe-1b-a400m's full-width shapes (dense prefill and decode with
+    x broadcast over the experts, the capacity buffers of 161 and 2
+    rows)."""
     x = randn(gen, c, d).expand(e, c, d) if broadcast else randn(gen, e, c, d)
     w = randn(gen, e, d, f)
     before = ops.LAUNCHES["moe_gmm"]
     got = mg.moe_gmm(x, w)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["moe_gmm"] == before + 1
+    assert mg.LAST["loads"] == ("tma" if d % 8 == 0 and f % 8 == 0
+                                else "elementwise")
     want = mg.moe_gmm_ref(x, w)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert (got.float() - want.float()).abs().max().item() <= moe_tol(want)
     if broadcast:
         assert torch.equal(got, mg.moe_gmm(x.contiguous(), w))
+
+
+@pytest.mark.parametrize("c", [4, 161, 512])
+def test_moe_gmm_kernel_repeats_and_pads_bit_equal(gen, c):
+    """Two launches give the same bits, and D cut from 1024 to 960 equals
+    the zero-padded full D bit for bit (decode and prefill forms)."""
+    e, d, cut, f = 32, 1024, 960, 512
+    x, w = randn(gen, c, cut).expand(e, c, cut), randn(gen, e, cut, f)
+    got = mg.moe_gmm(x, w)
+    assert torch.equal(got, mg.moe_gmm(x, w))
+    xp = torch.zeros(c, d, dtype=x.dtype, device="cuda")
+    wp = torch.zeros(e, d, f, dtype=w.dtype, device="cuda")
+    xp[:, :cut], wp[:, :cut] = x[0], w
+    assert torch.equal(got, mg.moe_gmm(xp.expand(e, c, d), wp))
 
 
 def test_moe_gmm_kernel_strides_and_alignment(gen):

@@ -87,10 +87,87 @@ def test_flash_plain_bf16_vs_pallas():
 
 
 def test_grid_blocks_is_eq3_b():
-    # K is looped inside each CTA, so it is no grid axis (unlike Pallas)
-    assert mt.grid_blocks(100, 130) == 2 * 3
-    assert mt.grid_blocks(512, 2816) == 8 * 44
-    assert mt.grid_blocks(4, 2816) == 44
+    """The CTAs the kernel launches: prefill (M > 64) one per 128 x 64 tile
+    over all of K; decode one per 64 x 64 tile and K chunk of 256."""
+    assert (mt.BLOCK_M, mt.BLOCK_N, mt.DECODE_BLOCK_M, mt.SPLIT_K) == (
+        128, 64, 64, 256)
+    assert mt.grid_blocks(100, 130, 70) == 1 * 3
+    assert mt.grid_blocks(512, 2816, 1024) == 4 * 44
+    assert mt.grid_blocks(512, 1024, 2816) == 4 * 16
+    # qwen1.5-0.5b's and recurrentgemma-2b's decode products (M = 4): at
+    # least one full wave of 132 CTAs
+    assert mt.grid_blocks(4, 2816, 1024) == 44 * 4
+    assert mt.grid_blocks(4, 1024, 2816) == 16 * 11
+    assert mt.grid_blocks(4, 7680, 2560) == 120 * 10
+    assert mt.grid_blocks(4, 2560, 7680) == 40 * 30
+    assert mt.grid_blocks(64, 64, 257) == 2 and mt.grid_blocks(65, 64, 257) \
+        == 1
+    assert mt.grid_blocks(4, 64, 0) == 0
+
+
+@pytest.mark.parametrize("m", [1, 4, 64, 65, 129, 512])
+@pytest.mark.parametrize("k", [1, 63, 64, 255, 256, 257, 600, 2752, 2816,
+                               7680])
+def test_schedule_chunks_cover_k_once_and_ignore_n(m, k):
+    """The kernel's schedule: M <= 64 takes the decode form, whose chunks
+    start at multiples of SPLIT_K and cover [0, K) once, in order; more
+    rows take the prefill form, one range over all of K. N changes
+    nothing."""
+    form, chunks = mt.schedule(m, 64, k)
+    assert form == ("decode" if m <= mt.DECODE_BLOCK_M else "prefill")
+    assert chunks[0][0] == 0 and chunks[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(0 < k1 - k0 <= (mt.SPLIT_K if form == "decode" else k)
+               for k0, k1 in chunks)
+    if form == "decode":
+        assert [k0 for k0, _ in chunks] == list(range(0, k, mt.SPLIT_K))
+    else:
+        assert chunks == [(0, k)]
+    for n in (1, 63, 2752, 2816, 7680):
+        assert mt.schedule(m, n, k) == (form, chunks)
+
+
+def split_k_model(x, w):
+    """A pure-torch model of the kernel's sum order on ``mt.schedule``'s
+    chunks: per chunk, K tiles of 64 (the last zero-padded, as TMA fills
+    it) summed in fp32 in order; the chunks' partials summed in order;
+    cast to x.dtype."""
+    m, k = x.shape
+    n = w.shape[1]
+    total = None
+    for k0, k1 in mt.schedule(m, n, k)[1]:
+        part = torch.zeros(m, n)
+        for t in range(k0, k1, 64):
+            span = min(64, k1 - t)
+            xt, wt = torch.zeros(m, 64), torch.zeros(64, n)
+            xt[:, :span], wt[:span] = x[:, t:t + span], w[t:t + span]
+            part = part + xt @ wt
+        total = part if total is None else total + part
+    return total.to(x.dtype)
+
+
+@pytest.mark.parametrize("m,k,pad", [(4, 600, 40), (4, 500, 20),
+                                     (4, 2752, 64), (100, 300, 70)])
+def test_split_order_is_bit_identical_under_zero_padding(m, k, pad):
+    """The kernel's sum order (:func:`split_k_model`: fp32 K tiles in order
+    within a chunk, the chunks' partials in order) gives the same bits for
+    K and for K padded with zero rows of w (and zero columns of x), also
+    where the padding adds a K tile or a whole chunk (500 -> 520); the
+    columns that a narrower w keeps are bit-equal too."""
+    rng = np.random.default_rng(m + k + pad)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, 72)).astype(np.float32))
+    x, w = x.bfloat16(), w.bfloat16()
+    got = split_k_model(x, w)
+    xp = torch.cat([x, torch.zeros(m, pad, dtype=x.dtype)], 1)
+    wp = torch.cat([w, torch.zeros(pad, 72, dtype=w.dtype)], 0)
+    assert torch.equal(got, split_k_model(xp, wp))
+    wn = torch.cat([w, torch.zeros(k, pad, dtype=w.dtype)], 1)
+    assert torch.equal(got, split_k_model(x, wn)[:, :72])
+    assert torch.equal(split_k_model(x, w[:, :40]), got[:, :40])
+    torch.testing.assert_close(got.float(), mt.matmul_ref(x, w).float(),
+                               rtol=2.0 ** -7, atol=2.0 ** -7 * float(
+                                   mt.matmul_ref(x, w).float().abs().max()))
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -151,6 +228,20 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
                for n in build.CUDA_SOURCES)
     assert all((Path(build.__file__).parent / f"{m}.py").is_file()
                for m in build.TRITON_KERNELS.values())
+    # an edit to a shared header builds anew: the hash covers csrc/*.cuh
+    assert (build.CSRC / "gemm_sm90.cuh").is_file()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.library_path("moe_gmm")
+    assert before.name == build.library_path("moe_gmm").name
+    header = csrc / "gemm_sm90.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert build.library_path("moe_gmm") != before
+    assert build.library_path("matmul_tiled") != p
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import moe as jmoe
+from repro_torch.kernels import matmul_tiled as mt
 from repro_torch.kernels import moe_gmm as mg
 from repro_torch.kernels import ops
 from repro_torch.models import moe as tmoe
@@ -96,15 +97,24 @@ def test_moe_gmm_broadcast_x_equals_materialized(dtype):
 
 
 def test_moe_gmm_grid_is_eq3_b():
-    # D is looped inside each CTA, so it is no grid axis (unlike Pallas)
-    assert mg.grid_blocks(2, 33, 32) == 2 * 1 * 1
-    assert mg.grid_blocks(2, 65, 63) == 2 * 2 * 1
+    """matmul_tiled's schedule with C as M and D as K, times the experts:
+    prefill (C > 64) one CTA per (expert, 128 x 64 tile) over all of D,
+    decode one per (expert, 64 x 64 tile, D chunk of 256)."""
+    assert (mg.BLOCK_C, mg.BLOCK_F, mg.DECODE_BLOCK_C, mg.SPLIT_K) == (
+        128, 64, 64, 256)
+    assert mg.grid_blocks(2, 33, 32, 31) == 2 * 1 * 1 * 1
+    assert mg.grid_blocks(2, 65, 63, 64) == 2 * 1 * 1
     # granite-moe-1b-a400m at full width, prefill 4 x 128 and decode 4
-    assert mg.grid_blocks(32, 512, 512) == 2048
-    assert mg.grid_blocks(32, 512, 1024) == 4096
-    assert mg.grid_blocks(32, 4, 512) == 256
-    assert mg.grid_blocks(32, 4, 1024) == 512
-    assert mg.grid_blocks(32, 161, 512) == 32 * 3 * 8
+    assert mg.grid_blocks(32, 512, 512, 1024) == 1024
+    assert mg.grid_blocks(32, 512, 1024, 512) == 2048
+    assert mg.grid_blocks(32, 4, 512, 1024) == 32 * 8 * 4
+    assert mg.grid_blocks(32, 4, 1024, 512) == 32 * 16 * 2
+    assert mg.grid_blocks(32, 161, 512, 1024) == 32 * 2 * 8
+    # the capacity buffer takes the prefill form, the decode batch the
+    # decode form
+    assert mt.schedule(161, 512, 1024)[0] == "prefill"
+    assert mt.schedule(4, 512, 1024) == ("decode", [
+        (0, 256), (256, 512), (512, 768), (768, 1024)])
 
 
 def test_moe_gmm_wrapper_refuses_cpu_tensors():
