@@ -20,7 +20,9 @@ the target) and ``nvcc``:
    decode/prefill switch, element-wise loads), each case's form, CTAs
    and chunks logged, with three repeats bit-equal and sliced K, N and D
    bit-equal to their zero-padded shapes, and their wrappers' host us per
-   call;
+   call; the attention kernel at both main paths' prefill shapes, ragged,
+   GQA and local cases and two long sequences, two launches bit-equal,
+   each case's form (CTAs, K/V stages, registers) logged;
 4. serves 4 mixed-length requests with full-width qwen1.5-0.5b (random
    weights from seed 0) through ``ServeEngine``, with the launch counts set
    to 0 just before and read just after; checks the counts, that a second
@@ -51,6 +53,13 @@ the target) and ``nvcc``:
    kernels, and runs ``launch.serve_batched`` on the card;
 6. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --parent SRC
+
+does all of that, and also builds the attention kernel of the tree under
+SRC (e.g. the parent commit unpacked into ``build/parent/src``), holds it
+against the plain version and times it beside this tree's in every
+attention case.
 
 Any failed check exits non-zero. Without a card, or outside a checkout, it
 exits non-zero and prints no result. TF32 is off: fp32 products are fp32.
@@ -367,7 +376,45 @@ def wrapper_host_us(torch, mt, mg) -> dict:
     return out
 
 
-def compare_flash(torch, fa, case: tuple, gen) -> dict:
+def parent_flash(torch, build, src: Path):
+    """The flash attention kernel of another tree (``src``, e.g. the parent
+    commit unpacked into ``build/parent/src``), built from its own source
+    and called through the same C interface, for timing beside this
+    tree's: a function (q, k, v, mask, window) -> out, not counted in
+    ``LAUNCHES``."""
+    import ctypes
+    cu = src / "repro_torch" / "csrc" / "flash_attention.cu"
+    check(cu.is_file(), f"{cu} is missing")
+    out = build.build_dir() / "parent_flash_attention.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                           str(out), str(cu)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bf16.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                         ci, ci, ci, ctypes.c_float, vp]
+    lib.flash_attention_bf16.restype = ci
+    masks = {"none": 0, "causal": 1, "local": 2}
+
+    def call(q, k, v, mask, window):
+        b, sq, h, dh = q.shape
+        out = torch.empty_like(q)
+        err = lib.flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            k.shape[1], h, k.shape[2], dh, masks[mask], window,
+            1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's flash_attention failed: {err}")
+        return out
+
+    log(f"parent flash_attention built from {cu}")
+    return call
+
+
+def compare_flash(torch, fa, case: tuple, gen, parent=None) -> dict:
+    """One attention case: the kernel (and the parent tree's, if given)
+    against the plain version within 4e-2, two launches bit-equal, and the
+    times of the kernel, the parent's, the plain version and SDPA."""
     b, sq, skv, h, kv, dh, mask, window = case
     q = torch.randn(b, sq, h, dh, generator=gen, device="cuda").bfloat16()
     k = torch.randn(b, skv, kv, dh, generator=gen, device="cuda").bfloat16()
@@ -379,6 +426,15 @@ def compare_flash(torch, fa, case: tuple, gen) -> dict:
     tol = 4e-2       # bf16 tolerance of repro's kernel tests
     check(bool(torch.isfinite(out.float()).all()) and err <= tol,
           f"flash_attention {case}: max_abs_err {err} > tol {tol}")
+    check(torch.equal(out, fa.flash_attention(q, k, v, mask_kind=mask,
+                                              window=window)),
+          f"flash_attention {case}: a second launch differs")
+    if parent is not None:
+        p_err = (parent(q, k, v, mask, window).float()
+                 - ref.float()).abs().max().item()
+        check(p_err <= tol, f"parent flash_attention {case}: max_abs_err "
+              f"{p_err} > tol {tol}")
+    del ref
 
     import torch.nn.functional as F
     attn_mask = None
@@ -396,18 +452,32 @@ def compare_flash(torch, fa, case: tuple, gen) -> dict:
     pairs = visible_pairs(sq, skv, mask, window)
     b_ms, b_by = bound_ms(4.0 * b * h * pairs * dh,
                           2.0 * (2 * b * sq * h * dh + 2 * b * skv * kv * dh))
+    # the plain version holds (B, H, Sq, Skv) fp32 scores: few repeats at
+    # long sequences
+    plain_reps = 50 if sq * skv <= 256 * 256 else 4
     row = {"case": f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} dh={dh} "
                    f"{mask}" + (f" w={window}" if mask == "local" else ""),
            "max_abs_err": err, "tol": tol,
            "ms": time_ms(torch, lambda *a: fa.flash_attention(
                *a, mask_kind=mask, window=window), (q, k, v)),
+           "parent_ms": None if parent is None else time_ms(
+               torch, lambda *a: parent(*a, mask, window), (q, k, v)),
            "plain_ms": time_ms(torch, lambda *a: fa.attention_ref(
-               *a, mask_kind=mask, window=window), (q, k, v)),
+               *a, mask_kind=mask, window=window), (q, k, v),
+               reps=plain_reps),
            "library_ms": time_ms(torch, library, (q, k, v)),
            "bound_ms": b_ms, "bound_by": b_by}
+    f = fa.form(dh)
     log(f"flash_attention {row['case']}: max_abs_err {err:.4g} tol {tol} "
-        f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
-        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        f"ms {row['ms']:.4f} parent_ms "
+        + ("not timed" if parent is None else f"{row['parent_ms']:.4f}")
+        + f" plain_ms {row['plain_ms']:.4f} library_ms "
+        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+        f"{100 * b_ms / row['ms']:.1f}% of it); form: "
+        f"{fa.grid_blocks(b, sq, h)} CTAs of {f['threads']} threads, "
+        f"{f['stages']} K/V stages, {f['registers']} registers a thread, "
+        f"{f['smem_bytes']} B shared, {f['ctas_per_sm']} CTAs an SM, "
+        f"{f['spill_bytes']} B spilled")
     return row
 
 
@@ -1183,12 +1253,22 @@ def main() -> None:
           [(512, 1024, 2816), (512, 2816, 1024), (4, 1024, 2816),
            (4, 2816, 1024), (512, 2560, 7680), (512, 7680, 2560),
            (4, 2560, 7680), (4, 7680, 2560), (100, 130, 70)]]
-    fl = [compare_flash(torch, fa, c, gen) for c in
+    # attention: qwen1.5-0.5b's and granite-moe-1b-a400m's prefill (the
+    # main paths), ragged, GQA and local cases, and two long sequences
+    # (bound by operations); the parent tree's kernel beside each if given
+    parent = None
+    if "--parent" in argv:
+        parent = parent_flash(torch, build,
+                              Path(argv[argv.index("--parent") + 1]).resolve())
+    fl = [compare_flash(torch, fa, c, gen, parent) for c in
           [(4, 128, 128, 16, 16, 64, "causal", 0),
+           (4, 128, 128, 16, 8, 64, "causal", 0),
            (4, 100, 100, 16, 16, 64, "causal", 0),
            (2, 256, 256, 16, 4, 64, "causal", 0),
            (2, 256, 256, 8, 2, 128, "local", 96),
-           (1, 100, 130, 4, 4, 64, "none", 0)]]
+           (1, 100, 130, 4, 4, 64, "none", 0),
+           (4, 2048, 2048, 16, 16, 64, "causal", 0),
+           (1, 4096, 4096, 8, 2, 128, "causal", 0)]]
     t0 = time.time()
     st = [compare_staircase(torch, sf, c)
           for c in staircase_cases(np, mods)]

@@ -47,11 +47,9 @@
 
 #pragma once
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "sm90.cuh"
 
 namespace gemm_sm90 {
 // Internal linkage for all of it: each kernel library that includes this
@@ -59,6 +57,19 @@ namespace gemm_sm90 {
 // inside an inline or template function would otherwise be one symbol
 // shared by every library loaded into the process).
 namespace {
+// mbarriers, TMA, descriptors and tensor maps (no using-directive: nvcc's
+// generated stubs name the unnamed namespace, which it would make ambiguous)
+using sm90::acc_fence;
+using sm90::desc_b128;
+using sm90::encode_3d;
+using sm90::encode_tiled;
+using sm90::EncodeTiled;
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::smem_u32;
+using sm90::tma_load_3d;
 
 constexpr int BK = 64;             // K per stage: one 128-byte swizzled row
 constexpr int BN = 64;             // output columns per CTA
@@ -96,74 +107,8 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// PTX
+// PTX (the rest is in sm90.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile whose rows
-// are 128 bytes: start address, leading and stride byte offsets (16-byte
-// units), layout type 1 (B128).
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-template <int N>
-__device__ __forceinline__ void acc_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (64 x 64, fp32) += A (64 x 16, MN-major) * B (16 x 64, K-major).
 __device__ __forceinline__ void wgmma_tn(float (&d)[32], uint64_t da,
                                          uint64_t db) {
@@ -404,48 +349,6 @@ gemm_kernel(__grid_constant__ const CUtensorMap map_x,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in the driver (libcuda); fetched through the
-// runtime so that the library links nothing beyond cudart.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D bf16 map (innermost dimension first), boxes of b0 x b1 x 1,
-// 128-byte swizzle, zero fill out of bounds. False if the driver refuses.
-inline bool encode_3d(EncodeTiled fn, CUtensorMap* map, const void* ptr,
-                      uint64_t d0, uint64_t d1, uint64_t d2, uint64_t s1,
-                      uint64_t s2, uint32_t b0, uint32_t b1) {
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {s1, s2};   // bytes, of dimensions 1 and 2
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BM>
 cudaError_t launch_form(const CUtensorMap& mx, const CUtensorMap& mw,
                         const Args& a, int E, int device, cudaStream_t s) {

@@ -1,16 +1,19 @@
 """Flash attention: the CUDA kernel's wrapper and its plain version.
 
 Replaces ``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py``,
-body ``_flash_kernel``) with ``csrc/flash_attention.cu``: one CTA per
-(batch x head, 64-row query block), kv blocks looped inside the CTA with the
-online-softmax carry (m, l, acc in fp32) in registers, and scores and P @ V
-on the tensor cores through ``mma.sync``. Same mask kinds (causal, local with
-a window, none), the same GQA map (kv head ``h // (H / KV)``), the same
-``-1e30`` mask and ``1e-30`` floor on ``l``. Causal and local masks skip kv
-blocks that no row of the query block sees, which is exact. Ragged
-sequences are masked by position with no padding. At the prefill shape the
-kernel is small and bound by latency; at long sequences it is bound by
-tensor-core operations.
+body ``_flash_kernel``) with ``csrc/flash_attention.cu``, a Hopper kernel:
+one CTA per (batch x head, 64-row query block), one consumer warpgroup and
+one producer warp. The producer loads Q and a ring of K/V tiles through TMA
+tensor maps over the (B, S, heads, dh) layout, every stage's loads issued up
+front; the consumer computes Q K^T and P V on ``wgmma`` (P from registers),
+with the online-softmax carry (m, l, acc in fp32) in registers. Same mask
+kinds (causal, local with a window, none), the same GQA map (kv head
+``h // (H / KV)``), the same ``-1e30`` mask and ``1e-30`` floor on ``l``.
+Causal and local masks skip kv blocks that no row of the query block sees,
+which is exact. Ragged sequences are masked by position with no padding
+(TMA zero-fills rows past the end). At the prefill shape the kernel is
+small and bound by latency; at long sequences it is bound by tensor-core
+operations.
 """
 
 from __future__ import annotations
@@ -59,8 +62,29 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     lib.flash_attention_block_q.argtypes = []
     lib.flash_attention_block_q.restype = ci
+    lib.flash_attention_form.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.flash_attention_form.restype = ci
     if lib.flash_attention_block_q() != BLOCK_Q:
         raise RuntimeError("flash_attention.cu block differs from BLOCK_Q")
+
+
+def grid_blocks(b: int, sq: int, h: int) -> int:
+    """CTAs of one launch: one per (batch x head, 64-row query block)."""
+    return -(-sq // BLOCK_Q) * b * h
+
+
+def form(dh: int) -> dict:
+    """The kernel's form at head dim ``dh`` on the current CUDA device: K/V
+    ring stages, threads a CTA, registers a thread, dynamic shared memory
+    bytes, CTAs an SM holds, and bytes spilled a thread."""
+    lib = build.load(NAME, _bind)
+    out = (ctypes.c_int * 6)()
+    err = lib.flash_attention_form(dh, out)
+    if err:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_form({dh}) failed: {msg}")
+    return dict(zip(("stages", "threads", "registers", "smem_bytes",
+                     "ctas_per_sm", "spill_bytes"), out))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

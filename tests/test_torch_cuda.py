@@ -114,7 +114,13 @@ def test_matmul_kernel_sliced_equals_zero_padded(gen, m):
                                            (2, 63, 63, 4, 4),
                                            (2, 65, 65, 4, 2),
                                            (1, 100, 200, 8, 2),
-                                           (4, 128, 128, 16, 16)])
+                                           (4, 128, 128, 16, 16),
+                                           # granite's prefill (GQA 16 on
+                                           # 8); kv tails past a block that
+                                           # TMA zero-fills
+                                           (4, 128, 128, 16, 8),
+                                           (1, 64, 65, 4, 2),
+                                           (2, 200, 200, 4, 2)])
 def test_flash_kernel_vs_plain(gen, dh, mask, window, b, sq, skv, h, kv):
     q, k, v = randn(gen, b, sq, h, dh), randn(gen, b, skv, kv, dh), \
         randn(gen, b, skv, kv, dh)
@@ -124,13 +130,82 @@ def test_flash_kernel_vs_plain(gen, dh, mask, window, b, sq, skv, h, kv):
     assert (got.float() - want.float()).abs().max().item() <= 4e-2
 
 
-def test_flash_kernel_causal_longer_queries(gen):
-    """Rows past Skv see every key under a causal mask."""
-    q, k, v = randn(gen, 1, 130, 4, 64), randn(gen, 1, 100, 2, 64), \
-        randn(gen, 1, 100, 2, 64)
+@pytest.mark.parametrize("sq,dh", [(130, 64), (300, 64), (300, 128)])
+def test_flash_kernel_causal_longer_queries(gen, sq, dh):
+    """Rows past Skv see every key under a causal mask; at Sq = 300 query
+    blocks 2-4 start past the last key and the last one is ragged."""
+    q, k, v = randn(gen, 1, sq, 4, dh), randn(gen, 1, 100, 2, dh), \
+        randn(gen, 1, 100, 2, dh)
     got = fa.flash_attention(q, k, v)
     want = fa.attention_ref(q, k, v)
     assert (got.float() - want.float()).abs().max().item() <= 4e-2
+
+
+def one_hot_attention(dh: int, skv: int = 128, seed: int = 1):
+    """Inputs whose scores are one-hot: key j is +e_(j % 64) for j < 64 and
+    -e_(j % 64) after, query i is c * (+-e) of the key pi(i) it picks, with
+    c large enough that every other score is at least 30 nats lower. So
+    softmax(q k^T) v is v[pi] up to bf16 rounding: a check of the P @ V
+    operand's layout (keys, and dh's columns across swizzle atoms). CPU
+    tensors (q, k, v bf16; pi) from numpy."""
+    rng = np.random.default_rng(seed)
+    pi = rng.permutation(skv)
+    c = 32.0 * dh ** 0.5                # score c / sqrt(dh) = 32
+    k = np.zeros((1, skv, 1, dh), np.float32)
+    q = np.zeros((1, skv, 1, dh), np.float32)
+    for j in range(skv):
+        k[0, j, 0, j % 64] = 1.0 if j < 64 else -1.0
+    for i, j in enumerate(pi):
+        q[0, i, 0, j % 64] = c * (1.0 if j < 64 else -1.0)
+    v = rng.standard_normal((1, skv, 1, dh)).astype(np.float32)
+    return tuple(torch.from_numpy(a).bfloat16() for a in (q, k, v)) + \
+        (torch.from_numpy(pi),)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_kernel_pv_identity(gen, dh):
+    """One-hot scores return the chosen rows of V: the MN-major V operand
+    (its keys and, at dh 128, its second swizzle atom) is read right."""
+    q, k, v, pi = (t.cuda() for t in one_hot_attention(dh))
+    got = fa.flash_attention(q, k, v, mask_kind="none")
+    torch.cuda.synchronize()
+    assert (got[0, :, 0].float() - v[0, pi, 0].float()).abs().max() <= 1e-2
+
+
+@pytest.mark.parametrize("mask,window", [("causal", 0), ("local", 200),
+                                         ("none", 0)])
+def test_flash_kernel_long_sequence(gen, mask, window):
+    """S = 1024 at dh 128: 16 kv blocks through a 2-stage ring, so every
+    stage is refilled 7 times (the free barriers' parity), the products
+    overlap the softmax across 16 blocks, and whole blocks skip the
+    mask."""
+    q, k, v = randn(gen, 1, 1024, 4, 128), randn(gen, 1, 1024, 2, 128), \
+        randn(gen, 1, 1024, 2, 128)
+    got = fa.flash_attention(q, k, v, mask_kind=mask, window=window)
+    want = fa.attention_ref(q, k, v, mask_kind=mask, window=window)
+    assert (got.float() - want.float()).abs().max().item() <= 4e-2
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,dh,mask", [
+    (4, 128, 128, 16, 8, 64, "causal"), (1, 1024, 1024, 4, 2, 128, "none"),
+    (2, 200, 200, 4, 2, 64, "local")])
+def test_flash_kernel_repeats_bit_equal(gen, b, sq, skv, h, kv, dh, mask):
+    """No atomics and a fixed order of kv blocks: two launches on the same
+    inputs give the same bits."""
+    q, k, v = randn(gen, b, sq, h, dh), randn(gen, b, skv, kv, dh), \
+        randn(gen, b, skv, kv, dh)
+    first = fa.flash_attention(q, k, v, mask_kind=mask, window=48)
+    assert torch.equal(first, fa.flash_attention(q, k, v, mask_kind=mask,
+                                                 window=48))
+
+
+@pytest.mark.parametrize("dh,stages", [(64, 4), (128, 2)])
+def test_flash_kernel_form(gen, dh, stages):
+    """The form the source promises: one consumer warpgroup and one
+    producer warp, its K/V ring, at least 2 CTAs an SM, no spills."""
+    f = fa.form(dh)
+    assert f["threads"] == 160 and f["stages"] == stages
+    assert f["ctas_per_sm"] >= 2 and f["spill_bytes"] == 0
 
 
 def test_flash_kernel_refusals(gen):

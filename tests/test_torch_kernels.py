@@ -17,6 +17,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul_tiled as mt
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import rwkv6 as rw
+from test_torch_cuda import one_hot_attention
 
 # tests/test_kernels.py:23
 TOL = {"float32": 2e-4, "bfloat16": 4e-2}
@@ -84,6 +85,46 @@ def test_flash_plain_bf16_vs_pallas():
                                 force="pallas_interpret")
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=TOL["bfloat16"],
                                atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh", [(1, 128, 16, 8, 64),
+                                         (1, 65, 4, 2, 128),
+                                         (1, 200, 4, 2, 128)])
+def test_flash_plain_vs_pallas_kernel_shapes(b, s, h, kv, dh):
+    """The shapes the CUDA kernel's tests add, on the plain version against
+    repro's kernel (interpret mode, padded by its wrapper): granite's GQA
+    map (16 heads on 8 kv heads) and kv lengths past a 64-row block."""
+    rng = np.random.default_rng(b + s + h + dh)
+    jq, tq = pair(rng, (b, s, h, dh), "bfloat16")
+    jk, tk = pair(rng, (b, s, kv, dh), "bfloat16")
+    jv, tv = pair(rng, (b, s, kv, dh), "bfloat16")
+    got = ops.flash_attention(tq, tk, tv)
+    want = jops.flash_attention(jq, jk, jv, block_q=64, block_kv=64,
+                                force="pallas_interpret")
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_one_hot_inputs_pick_rows(dh):
+    """The inputs of the CUDA kernel's P @ V identity check: in the plain
+    version and in repro's kernel alike, attention returns v[pi]."""
+    q, k, v, pi = one_hot_attention(dh)
+    want = v[0, pi, 0].float().numpy()
+    got = ops.flash_attention(q, k, v, mask_kind="none")
+    assert np.abs(as_np(got)[0, :, 0] - want).max() <= 1e-2
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (q, k, v))
+    pallas = jops.flash_attention(jq, jk, jv, mask_kind="none",
+                                  block_q=64, block_kv=64,
+                                  force="pallas_interpret")
+    assert np.abs(as_np(pallas)[0, :, 0] - want).max() <= 1e-2
+
+
+def test_flash_grid_blocks():
+    """One CTA per (batch x head, 64-row query block)."""
+    assert fa.grid_blocks(4, 128, 16) == 128
+    assert fa.grid_blocks(1, 65, 8) == 16 and fa.grid_blocks(2, 1, 3) == 6
 
 
 def test_grid_blocks_is_eq3_b():
