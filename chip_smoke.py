@@ -22,7 +22,11 @@ the target) and ``nvcc``:
    bit-equal to their zero-padded shapes, and their wrappers' host us per
    call; the attention kernel at both main paths' prefill shapes, ragged,
    GQA and local cases and two long sequences, two launches bit-equal,
-   each case's form (CTAs, K/V stages, registers) logged;
+   each case's form (CTAs, K/V stages, registers) logged; the RWKV6
+   kernel at rwkv6-1.6b's prefill shape, a ragged one from a state, the
+   model's decay extremes and dh 128 at chunk 64 (fp32, the form with
+   the most shared memory), two launches bit-equal, each case's form
+   (CTAs, value columns, chunk buffers, registers) logged;
 4. serves 4 mixed-length requests with full-width qwen1.5-0.5b (random
    weights from seed 0) through ``ServeEngine``, with the launch counts set
    to 0 just before and read just after; checks the counts, that a second
@@ -56,10 +60,10 @@ the target) and ``nvcc``:
 
     python3 chip_smoke.py --parent SRC
 
-does all of that, and also builds the attention kernel of the tree under
-SRC (e.g. the parent commit unpacked into ``build/parent/src``), holds it
-against the plain version and times it beside this tree's in every
-attention case.
+does all of that, and also builds the attention and RWKV6 kernels of the
+tree under SRC (e.g. the parent commit unpacked into ``build/parent/src``),
+holds each against the plain version and times it beside this tree's in
+every attention and RWKV6 case.
 
 Any failed check exits non-zero. Without a card, or outside a checkout, it
 exits non-zero and prints no result. TF32 is off: fp32 products are fp32.
@@ -73,6 +77,7 @@ two trees compared on one card.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -408,6 +413,42 @@ def parent_flash(torch, build, src: Path):
         return out
 
     log(f"parent flash_attention built from {cu}")
+    return call
+
+
+def parent_rwkv6(torch, build, src: Path):
+    """The RWKV6 kernel of the tree under ``src`` (e.g. the parent commit),
+    built as its own library and called through the same C interface: a
+    function (r, k, v, log_w, u, s0, chunk=...) -> (o, S), not counted in
+    ``LAUNCHES``."""
+    import ctypes
+    cu = src / "repro_torch" / "csrc" / "rwkv6.cu"
+    check(cu.is_file(), f"{cu} is missing")
+    out = build.build_dir() / "parent_rwkv6.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
+                           "-o", str(out), str(cu)], capture_output=True,
+                          text=True)
+    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rwkv6_forward.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+    lib.rwkv6_forward.restype = ci
+
+    def call(r, k, v, log_w, u, s0=None, *, chunk: int):
+        b, t, h, dh = r.shape
+        o = torch.empty(b, t, h, dh, device="cuda")
+        s = torch.empty(b, h, dh, dh, device="cuda")
+        err = lib.rwkv6_forward(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            o.data_ptr(), s.data_ptr(), b, t, h, dh, min(chunk, t),
+            int(r.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"parent rwkv6 failed: {err}")
+        return o, s
+
+    log(f"parent rwkv6 built from {cu}")
     return call
 
 
@@ -900,11 +941,14 @@ def rwkv6_errors(torch, o, s, ro, rs) -> tuple:
     return finite, max(eo, es), rel
 
 
-def compare_rwkv6(torch, rw, case: tuple, gen) -> dict:
-    b, t, h, dh, lw, s0, dtype = case
+def rwkv6_inputs(torch, case: tuple, gen) -> tuple:
+    """(r, k, v, log_w, u, s0) of a case (B, T, H, dh, log_w, s0, dtype,
+    chunk): log_w constant, or None for the model's range
+    -exp(clip(., -8, 4))."""
+    b, t, h, dh, lw, s0, dtype, _ = case
     r, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
-    if lw is None:     # the model's range: -exp(clip(., -8, 4))
+    if lw is None:
         log_w = -torch.exp(torch.clamp(2.0 * torch.randn(
             b, t, h, dh, generator=gen, device="cuda"), -8.0, 4.0))
     else:
@@ -912,29 +956,61 @@ def compare_rwkv6(torch, rw, case: tuple, gen) -> dict:
     u = 0.1 * torch.randn(h, dh, generator=gen, device="cuda")
     st = torch.randn(b, h, dh, dh, generator=gen, device="cuda") \
         if s0 else None
-    args = (r, k, v, log_w, u, st)
-    o, s = rw.rwkv6(*args)
+    return r, k, v, log_w, u, st
+
+
+def compare_rwkv6(torch, rw, case: tuple, gen, parent=None) -> dict:
+    """One RWKV6 case: the kernel (and the parent tree's, if given) against
+    the plain version within RWKV6_RTOL, two launches bit-equal, the form
+    logged, and the times of the kernel, the parent's and the plain
+    version beside the bound."""
+    b, t, h, dh, lw, s0, dtype, chunk = case
+    chunk = min(chunk, t)
+    args = rwkv6_inputs(torch, case, gen)
+    kern = functools.partial(rw.rwkv6, chunk=chunk)
+    plain = functools.partial(rw.rwkv6_ref, chunk=chunk)
+    o, s = kern(*args)
     torch.cuda.synchronize()
-    finite, err, rel = rwkv6_errors(torch, o, s, *rw.rwkv6_ref(*args))
+    ro, rs = plain(*args)
+    finite, err, rel = rwkv6_errors(torch, o, s, ro, rs)
     name = (f"B={b} T={t} H={h} dh={dh} {str(dtype).split('.')[-1]}"
             + (" s0" if s0 else "")
-            + (f" log_w={lw}" if lw is not None else ""))
+            + (f" log_w={lw}" if lw is not None else "")
+            + (f" chunk {chunk}" if chunk != rw.CHUNK else ""))
     check(finite, f"rwkv6 {name}: non-finite output or state")
     check(rel <= RWKV6_RTOL, f"rwkv6 {name}: max_abs_err / max |value| "
                              f"{rel} > {RWKV6_RTOL}")
-    flops, nbytes = rwkv6_work(b, t, h, dh, min(rw.CHUNK, t),
-                               r.element_size(), s0)
+    o2, s2 = kern(*args)
+    check(torch.equal(o, o2) and torch.equal(s, s2),
+          f"rwkv6 {name}: a second launch differs")
+    if parent is not None:
+        parent = functools.partial(parent, chunk=chunk)
+        p_fin, _, p_rel = rwkv6_errors(torch, *parent(*args), ro, rs)
+        check(p_fin and p_rel <= RWKV6_RTOL, f"parent rwkv6 {name}: finite "
+              f"{p_fin}, relative error {p_rel} > {RWKV6_RTOL}")
+    del ro, rs, o2, s2
+    flops, nbytes = rwkv6_work(b, t, h, dh, chunk, args[0].element_size(),
+                               s0)
     b_ms, b_by = bound_ms(flops, nbytes, peak=PEAK_FP32_FLOPS)
     row = {"case": name, "max_abs_err": err, "max_rel_err": rel,
            "tol": f"{RWKV6_RTOL} of the largest |o| and |S|",
-           "ms": time_ms(torch, rw.rwkv6, args),
-           "plain_ms": time_ms(torch, rw.rwkv6_ref, args, reps=10),
+           "ms": time_ms(torch, kern, args),
+           "parent_ms": None if parent is None else time_ms(torch, parent,
+                                                            args),
+           "plain_ms": time_ms(torch, plain, args, reps=10),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    log(f"rwkv6 {name}: finite; max_abs_err {err:.4g} relative {rel:.3g} "
-        f"(tol {RWKV6_RTOL}) ms "
-        f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} bound_ms "
-        f"{b_ms:.5f} ({b_by}, {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} "
-        f"MB); grid {b * h} CTAs on 132 SMs; no library call computes it")
+    f = rw.form(dh, chunk, dtype)
+    log(f"rwkv6 {name}: finite, two launches bit-equal; max_abs_err "
+        f"{err:.4g} relative {rel:.3g} (tol {RWKV6_RTOL}) ms "
+        f"{row['ms']:.4f} parent_ms "
+        + ("not timed" if parent is None else f"{row['parent_ms']:.4f}")
+        + f" plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}, "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB); no library call "
+        f"computes it; form: {b * h * -(-dh // f['value_block'])} CTAs of "
+        f"{f['threads']} threads, {f['value_block']} value columns a CTA, "
+        f"{f['stages']} chunk buffers, {f['registers']} registers a thread, "
+        f"{f['smem_bytes']} B shared, {f['ctas_per_sm']} CTAs an SM, "
+        f"{f['spill_bytes']} B spilled")
     return row
 
 
@@ -1256,10 +1332,11 @@ def main() -> None:
     # attention: qwen1.5-0.5b's and granite-moe-1b-a400m's prefill (the
     # main paths), ragged, GQA and local cases, and two long sequences
     # (bound by operations); the parent tree's kernel beside each if given
-    parent = None
+    parent = parent_rw = None
     if "--parent" in argv:
-        parent = parent_flash(torch, build,
-                              Path(argv[argv.index("--parent") + 1]).resolve())
+        psrc = Path(argv[argv.index("--parent") + 1]).resolve()
+        parent = parent_flash(torch, build, psrc)
+        parent_rw = parent_rwkv6(torch, build, psrc)
     fl = [compare_flash(torch, fa, c, gen, parent) for c in
           [(4, 128, 128, 16, 16, 64, "causal", 0),
            (4, 128, 128, 16, 8, 64, "causal", 0),
@@ -1279,14 +1356,17 @@ def main() -> None:
            [(4, 128, 2560), (4, 128, 2500), (4, 1, 2560)]]
     # rwkv6-1.6b's prefill shape (bf16 r, k, v, as the model gives them), a
     # ragged T from a non-zero state, and constant decays at the model's
-    # floor (-e^4), at -8 and at its ceiling (-e^-8): all finite
-    f32, b16 = torch.float32, torch.bfloat16
-    rwk = [compare_rwkv6(torch, rw, c, gen) for c in
-           [(4, 128, 32, 64, None, False, b16),
-            (4, 97, 32, 64, None, True, b16),
-            (4, 128, 32, 64, -54.6, True, f32),
-            (4, 128, 32, 64, -8.0, True, f32),
-            (4, 128, 32, 64, -3.4e-4, True, f32)]]
+    # floor (-e^4), at -8 and at its ceiling (-e^-8): all finite; off the
+    # main path, dh 128 at chunk 64 with fp32 r, k, v, the form with the
+    # most shared memory (two CTAs a head, one chunk buffer, S in place)
+    f32, b16, ch = torch.float32, torch.bfloat16, rw.CHUNK
+    rwk = [compare_rwkv6(torch, rw, c, gen, parent_rw) for c in
+           [(4, 128, 32, 64, None, False, b16, ch),
+            (4, 97, 32, 64, None, True, b16, ch),
+            (4, 128, 32, 64, -54.6, True, f32, ch),
+            (4, 128, 32, 64, -8.0, True, f32, ch),
+            (4, 128, 32, 64, -3.4e-4, True, f32, ch),
+            (4, 128, 16, 128, None, True, f32, 64)]]
     # granite-moe-1b-a400m's expert products: dense prefill (4 x 128
     # tokens, x broadcast over the 32 experts) gate/up and down, the same
     # at decode (4 tokens), the capacity buffer at prefill, ragged edges

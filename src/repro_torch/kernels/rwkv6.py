@@ -12,13 +12,18 @@ over (B, T, H, dh) ``r``, ``k``, ``v`` and fp32 ``log_w`` and an (H, dh)
 (B, H, dh, dh) fp32, which the model's prefill hands to decode.
 
 ``rwkv6`` launches ``csrc/rwkv6.cu``, which replaces ``rwkv6_pallas``
-(``src/repro/kernels/rwkv6.py``, body ``_rwkv_kernel``): one CTA per
-(b, h) keeps S in shared memory and walks chunks of ``chunk`` steps in
-order, a ragged last chunk masked. Within a chunk it uses the pairwise form
-of ``repro``'s ``rwkv_chunked`` (every exponent <= 0), not the TPU kernel's
-factored product, which overflows fp32 for log decays <= -3 while the model
-reaches -e^4. It adds ``s0`` and the final state, which the TPU kernel
-lacks.
+(``src/repro/kernels/rwkv6.py``, body ``_rwkv_kernel``): a CTA per
+(b, h, block of ``VALUE_BLOCK`` value columns) keeps its columns of S in
+shared memory and walks chunks of ``chunk`` steps in order, the next chunk's
+rows streaming into shared memory meanwhile, a ragged last chunk
+zero-padded. Within a chunk, 16-row sub-chunks factor each off-diagonal
+block's decays through the row before the block (every exponent <= 0), so
+the scores, ``A v``, the state term and the state update are matrix
+products, run on the tensor cores in TF32 split into high and low parts
+(fp32 accuracy); only the 16 x 16 diagonal blocks stay pairwise. It never
+uses the TPU kernel's factor ``exp(-le)``, which overflows fp32 for log
+decays <= -3 while the model reaches -e^4. It adds ``s0`` and the final
+state, which the TPU kernel lacks.
 
 ``rwkv6_ref`` is the plain version: the same pairwise chunk step in torch
 (:func:`chunk_scan`), the sequence zero-padded to whole chunks (a padded
@@ -37,12 +42,13 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["chunk_scan", "rwkv6_ref", "rwkv6"]
+__all__ = ["chunk_scan", "rwkv6_ref", "rwkv6", "form"]
 
 NAME = "rwkv6"
 CHUNK = 32        # rwkv6_pallas's and rwkv_chunked's default
-MAX_HEAD_DIM = 128   # csrc/rwkv6.cu checks both
+MAX_HEAD_DIM = 128   # csrc/rwkv6.cu checks all three
 MAX_CHUNK = 64
+VALUE_BLOCK = 64     # value columns a CTA owns where they fit (else half)
 
 
 def chunk_scan(r, k, v, log_w, u, s0=None, *, chunk: int):
@@ -104,13 +110,35 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rwkv6_forward.restype = ci
     lib.rwkv6_error_string.argtypes = [ci]
     lib.rwkv6_error_string.restype = ctypes.c_char_p
-    for fn in (lib.rwkv6_max_head_dim, lib.rwkv6_max_chunk):
+    lib.rwkv6_form.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.rwkv6_form.restype = ci
+    for fn in (lib.rwkv6_max_head_dim, lib.rwkv6_max_chunk,
+               lib.rwkv6_value_block):
         fn.argtypes = []
         fn.restype = ci
-    if (lib.rwkv6_max_head_dim(), lib.rwkv6_max_chunk()) != (
-            MAX_HEAD_DIM, MAX_CHUNK):
+    if (lib.rwkv6_max_head_dim(), lib.rwkv6_max_chunk(),
+            lib.rwkv6_value_block()) != (MAX_HEAD_DIM, MAX_CHUNK,
+                                         VALUE_BLOCK):
         raise RuntimeError("rwkv6.cu limits differ from MAX_HEAD_DIM / "
-                           "MAX_CHUNK")
+                           "MAX_CHUNK / VALUE_BLOCK")
+
+
+def form(dh: int, chunk: int = CHUNK, dtype=torch.bfloat16) -> dict:
+    """The kernel's form at head dim ``dh`` and ``chunk`` for r, k, v of
+    ``dtype`` on the current CUDA device: threads a CTA, registers a
+    thread, dynamic shared memory bytes, CTAs an SM holds, chunk buffers
+    in the load ring, value columns a CTA (a launch takes B * H *
+    ceil(dh / value_block) CTAs), bytes spilled a thread, and buffers of S
+    (2: double-buffered; 1: updated in place)."""
+    lib = build.load(NAME, _bind)
+    out = (ctypes.c_int * 8)()
+    err = lib.rwkv6_form(dh, chunk, int(dtype == torch.bfloat16), out)
+    if err:
+        msg = lib.rwkv6_error_string(err).decode()
+        raise RuntimeError(f"rwkv6_form({dh}, {chunk}) failed: {msg}")
+    return dict(zip(("threads", "registers", "smem_bytes", "ctas_per_sm",
+                     "stages", "value_block", "spill_bytes", "s_buffers"),
+                    out))
 
 
 def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,8 +148,8 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 or all fp32; log_w (B, T, H, dh) fp32; u (H, dh) fp32; s0
     (B, H, dh, dh) fp32 or None; contiguous, on one CUDA device ->
     (o (B, T, H, dh) fp32, S (B, H, dh, dh) fp32). dh <= 128 and
-    1 <= chunk <= 64. Checks nothing that needs the host to wait, so it can be captured in a
-    CUDA graph."""
+    1 <= chunk <= 64. Checks nothing that needs the host to wait, so it
+    can be captured in a CUDA graph."""
     args = (r, k, v, log_w, u) + (() if s0 is None else (s0,))
     if not all(t.is_cuda and t.device == r.device for t in args):
         raise ValueError("rwkv6: every input must lie on one CUDA device")
@@ -145,7 +173,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"rwkv6: the kernel takes head dim 1-{MAX_HEAD_DIM}"
                          f" and chunk 1-{MAX_CHUNK}, got head dim {dh} and "
                          f"chunk {chunk}")
-    if b * h >= 2 ** 31 or t >= 2 ** 31:
+    if b * h * -(-dh // (VALUE_BLOCK // 2)) >= 2 ** 31 or t >= 2 ** 31:
         raise ValueError(f"rwkv6: shape {tuple(r.shape)} out of range")
     o = torch.empty((b, t, h, dh), dtype=torch.float32, device=r.device)
     s = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)

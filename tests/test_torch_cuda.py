@@ -386,6 +386,13 @@ def rwkv_inputs(gen, b, t, h, dh, lw=None, s0=False, dtype=torch.float32):
     (2, 40, 2, 16, -3.4e-4, True, torch.float32),
     (1, 33, 2, 128, None, True, torch.float32),
     (1, 70, 2, 128, None, True, torch.float32),
+    (2, 40, 3, 16, None, True, torch.bfloat16),     # dh 16: one 16-wide tile
+    (2, 33, 4, 64, None, True, torch.bfloat16),     # one row past a chunk
+    (2, 96, 4, 64, -54.6, True, torch.float32),     # fp32: not exact in TF32
+    (2, 96, 4, 64, -3.4e-4, True, torch.float32),
+    (2, 50, 2, 96, None, True, torch.bfloat16),     # 2 value blocks
+    (2, 45, 2, 20, None, True, torch.bfloat16),     # rows of 40 and 72 B:
+    (2, 45, 2, 18, None, False, torch.float32),     # element-wise loads
 ])
 def test_rwkv6_kernel_vs_plain(gen, b, t, h, dh, lw, s0, dtype):
     """The kernel against its plain version on the card: finite at the
@@ -401,6 +408,60 @@ def test_rwkv6_kernel_vs_plain(gen, b, t, h, dh, lw, s0, dtype):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * max(
             1.0, want.abs().max().item()))
+
+
+@pytest.mark.parametrize("dh,chunk,t", [
+    (64, 1, 20), (64, 15, 47), (64, 16, 49), (64, 17, 52), (64, 64, 129),
+    (32, 64, 70), (128, 64, 130), (128, 17, 40)])
+def test_rwkv6_kernel_chunks(gen, dh, chunk, t):
+    """Chunks around the 16-row sub-chunk edge, up to 64 rows (4 sub-chunks,
+    every off-diagonal factor), dh 128 at chunk 64 (the most shared memory:
+    one chunk buffer), T one row past a chunk; bf16 and fp32 inputs."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args = rwkv_inputs(gen, 2, t, 2, dh, s0=True, dtype=dtype)
+        want = rw.rwkv6_ref(*args, chunk=chunk)
+        for got, w in zip(rw.rwkv6(*args, chunk=chunk), want):
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got, w, rtol=2e-4, atol=2e-4 * max(
+                1.0, w.abs().max().item()))
+
+
+def test_rwkv6_kernel_unaligned_base(gen):
+    """A contiguous view 4 bytes past a 16-byte boundary: element-wise
+    loads, the same result as the aligned copy."""
+    args = rwkv_inputs(gen, 2, 40, 2, 64, s0=True)
+    store = torch.empty(args[0].numel() + 1, device="cuda")
+    r = store[1:].view_as(args[0])
+    r.copy_(args[0])
+    assert r.data_ptr() % 16 == 4 and r.is_contiguous()
+    want = rw.rwkv6(*args)
+    for got, w in zip(rw.rwkv6(r, *args[1:]), want):
+        torch.testing.assert_close(got, w, rtol=2e-4, atol=2e-4 * max(
+            1.0, w.abs().max().item()))
+
+
+@pytest.mark.parametrize("b,t,h,dh,dtype", [
+    (4, 128, 32, 64, torch.bfloat16), (2, 97, 4, 128, torch.float32)])
+def test_rwkv6_kernel_repeats_bit_equal(gen, b, t, h, dh, dtype):
+    """No atomics and a fixed order of sums: two launches on the same
+    inputs give the same bits."""
+    args = rwkv_inputs(gen, b, t, h, dh, s0=True, dtype=dtype)
+    first = rw.rwkv6(*args)
+    for got, want in zip(rw.rwkv6(*args), first):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dh,chunk,dtype,stages,value_block", [
+    (64, 32, torch.bfloat16, 2, 64), (128, 64, torch.float32, 1, 32)])
+def test_rwkv6_kernel_form(gen, dh, chunk, dtype, stages, value_block):
+    """The form the source promises: 16 warps; VALUE_BLOCK value columns
+    and two chunk buffers where they fit, half the columns and one buffer
+    at dh 128, chunk 64, fp32 (the most shared memory); no spills."""
+    f = rw.form(dh, chunk, dtype)
+    assert f["threads"] == 512 and f["spill_bytes"] == 0
+    assert f["value_block"] == value_block and f["stages"] == stages
+    assert f["smem_bytes"] <= 232448 and f["ctas_per_sm"] >= 1
+    assert rw.VALUE_BLOCK == 64
 
 
 def test_rwkv6_kernel_chunks_and_refusals(gen):

@@ -400,3 +400,84 @@ def test_recurrence_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rw.rwkv6(q, q, q, q, torch.zeros(2, 8))
     assert dict(ops.LAUNCHES) == before
+
+
+def factored_chunk(r, k, v, lw, u, s):
+    """One chunk of one (batch row, head) the way ``csrc/rwkv6.cu`` computes
+    it, in fp32 numpy: n rows zero-padded to 16-row sub-chunks; le summed
+    in row order; Rf_i = r_i exp(le_i - le_{B_I}) and Kf_j = k_j
+    exp(le_{q_J} - le_j), with B_I the row before sub-chunk I (le 0 before
+    the first) and q_J the last row of J; X[a][b] = exp(LB_a - LB_b) over
+    the boundaries LB (the last is the chunk's last row); off-diagonal
+    score blocks Rf_I (Kf_J X[I][J+1])^T, diagonal blocks by running
+    products of the steps' decays; o = A v + (Rf X[I][0]) S and S' =
+    X[ns][0] S + sum_J (Kf_J X[ns][J+1])^T v_J. Returns (o, S', every
+    exponent it formed)."""
+    n, dk = r.shape
+    np_ = -(-n // 16) * 16
+    ns = np_ // 16
+
+    def pad(a):
+        return np.concatenate([a, np.zeros((np_ - n, dk), np.float32)])
+
+    r, k, v, lw = (pad(a).astype(np.float32) for a in (r, k, v, lw))
+    le = np.zeros_like(lw)
+    acc = np.zeros(dk, np.float32)
+    for i in range(np_):
+        acc = acc + lw[i]
+        le[i] = acc
+    lb = np.stack([np.zeros(dk, np.float32)]
+                  + [le[16 * a - 1] for a in range(1, ns + 1)])
+    exps = []
+
+    def ex(z):
+        exps.append(z)
+        return np.exp(z).astype(np.float32)
+
+    x = {(a, b): ex(lb[a] - lb[b]) for a in range(ns + 1) for b in range(a)}
+    one = np.ones(dk, np.float32)
+    xv = lambda a, b: one if a == b else x[a, b]
+    sub = np.arange(np_) // 16
+    rf = r * ex(le - lb[sub])
+    kf = k * ex(lb[sub + 1] - le)
+    w = ex(le[1:] - le[:-1])                    # w[i - 1]: row i's step
+    amat = np.zeros((np_, np_), np.float32)
+    for bi in range(ns):
+        for bj in range(bi):
+            rows, cols = slice(16 * bi, 16 * bi + 16), slice(16 * bj,
+                                                             16 * bj + 16)
+            amat[rows, cols] = rf[rows] @ (kf[cols] * xv(bi, bj + 1)).T
+        for jl in range(16):
+            j = 16 * bi + jl
+            amat[j, j] = np.sum(r[j] * u * k[j])
+            kd = k[j].copy()
+            for i in range(j + 1, 16 * bi + 16):
+                kd = kd * w[i - 1]
+                amat[i, j] = np.sum(r[i] * kd)
+    o = amat @ v + (rf * np.stack([xv(b, 0) for b in sub])) @ s
+    ks = kf * np.stack([xv(ns, b + 1) for b in sub])
+    s_new = xv(ns, 0)[:, None] * s + ks.T @ v
+    return o[:n], s_new, np.concatenate([np.ravel(e) for e in exps])
+
+
+@pytest.mark.parametrize("n", [17, 32, 64])
+@pytest.mark.parametrize("lw", [-54.6, -8.0, -3.4e-4, None])
+def test_rwkv6_subchunk_factoring_vs_sequential_oracle(n, lw):
+    """The kernel's 16-row factoring of one chunk against ``repro``'s
+    sequential ``rwkv_ref`` (fp32 tolerance 2e-4): finite at the model's
+    decay floor (-e^4) and ceiling (-e^-8), and every exponent it forms is
+    <= 0 (a wrong reference row B_I or q_J makes some positive)."""
+    from repro.models.recurrent import rwkv_ref
+    r, k, v, lwa, u, s0 = rwkv_case(n + 7, 1, n, 1, 32, lw, s0=True)
+    if lw is None:      # the model's range: -exp(clip(., -8, 4))
+        rng = np.random.default_rng(n)
+        lwa = -np.exp(np.clip(2 * rng.standard_normal(lwa.shape), -8, 4)
+                      ).astype(np.float32)
+    o, s, exps = factored_chunk(r[0, :, 0], k[0, :, 0], v[0, :, 0],
+                                lwa[0, :, 0], u[0], s0[0, 0])
+    assert np.all(exps <= 0)
+    assert np.isfinite(o).all() and np.isfinite(s).all()
+    jo, js = rwkv_ref(*(jnp.asarray(a) for a in (r, k, v, lwa, u, s0)))
+    for got, want in ((o, as_np(jo)[0, :, 0]), (s, as_np(js)[0, 0])):
+        np.testing.assert_allclose(got, want, rtol=2e-4,
+                                   atol=2e-4 * max(1.0, np.abs(want).max()))
