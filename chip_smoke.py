@@ -9,8 +9,8 @@ the target) and ``nvcc``:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once) and prints the build time; Triton
-   compiles its kernels (staircase, RG-LRU) into ``build/triton`` at their
-   first launch;
+   compiles its kernel (the staircase) into ``build/triton`` at its first
+   launch;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and a few ragged, GQA and local cases, and times
    the kernel, the plain version, the one PyTorch call that computes the
@@ -26,7 +26,12 @@ the target) and ``nvcc``:
    kernel at rwkv6-1.6b's prefill shape, a ragged one from a state, the
    model's decay extremes and dh 128 at chunk 64 (fp32, the form with
    the most shared memory), two launches bit-equal, each case's form
-   (CTAs, value columns, chunk buffers, registers) logged;
+   (CTAs, value columns, chunk buffers, registers) logged; the RG-LRU
+   kernel at recurrentgemma-2b's prefill shape, a ragged W, one step, a
+   ragged T on the ``cp.async`` route, the same shape at shorter T and
+   half the width, and 2048 steps at batch 1, two launches bit-equal,
+   each case's form (CTAs, window steps, ring slots, copy route) logged,
+   and the plain gates before it timed once;
 4. serves 4 mixed-length requests with full-width qwen1.5-0.5b (random
    weights from seed 0) through ``ServeEngine``, with the launch counts set
    to 0 just before and read just after; checks the counts, that a second
@@ -34,7 +39,7 @@ the target) and ``nvcc``:
    forward on the plain versions, that a small model served on the card
    agrees with the CPU, and that the serving CLI runs on the card; then
    the same for the recurrent families, full-width recurrentgemma-2b
-   (RG-LRU prefill on the Triton kernel, its MLPs on the matmul kernel)
+   (RG-LRU prefill on its CUDA kernel, its MLPs on the matmul kernel)
    and rwkv6-1.6b (RWKV6 prefill on its CUDA kernel, each pass of the
    prefill also held against its plain version on the layer's own inputs),
    each freed before the next, and ``launch.serve --arch rwkv6-1.6b`` on
@@ -61,9 +66,9 @@ the target) and ``nvcc``:
     python3 chip_smoke.py --parent SRC
 
 does all of that, and also builds the attention and RWKV6 kernels of the
-tree under SRC (e.g. the parent commit unpacked into ``build/parent/src``),
-holds each against the plain version and times it beside this tree's in
-every attention and RWKV6 case.
+tree under SRC (e.g. the parent commit unpacked into ``build/parent/src``)
+and loads its RG-LRU wrapper, holds each against the plain version and
+times it beside this tree's in every attention, RWKV6 and RG-LRU case.
 
 Any failed check exits non-zero. Without a card, or outside a checkout, it
 exits non-zero and prints no result. TF32 is off: fp32 products are fp32.
@@ -122,12 +127,12 @@ SOURCES = {
     "matmul_tiled": "src/repro_torch/csrc/matmul_tiled.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "staircase_fused": "src/repro_torch/kernels/staircase_fused.py",
-    "rglru_scan": "src/repro_torch/kernels/rglru.py",
+    "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
     "rwkv6": "src/repro_torch/csrc/rwkv6.cu",
     "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
 }
 ROUTES = {"matmul_tiled": "cuda", "flash_attention": "cuda",
-          "staircase_fused": "triton", "rglru_scan": "triton",
+          "staircase_fused": "triton", "rglru_scan": "cuda",
           "rwkv6": "cuda", "moe_gmm": "cuda"}
 # the planner path's traffic classes: one served burst selects each
 # (batch x padded prompt tokens), "long" being the full-width burst's
@@ -234,7 +239,7 @@ def build_kernels(build) -> None:
     with ThreadPoolExecutor(len(build.CUDA_SOURCES)) as pool:
         paths = list(pool.map(build.compile_source, build.CUDA_SOURCES))
     log(f"build: {len(paths)} CUDA kernels in {time.time() - t0:.1f}s "
-        f"({', '.join(p.name for p in paths)}); Triton kernels "
+        f"({', '.join(p.name for p in paths)}); Triton kernel(s) "
         f"{', '.join(build.TRITON_KERNELS)} compile at first launch")
 
 
@@ -449,6 +454,30 @@ def parent_rwkv6(torch, build, src: Path):
         return o, s
 
     log(f"parent rwkv6 built from {cu}")
+    return call
+
+
+def parent_rglru(torch, build, src: Path):
+    """The RG-LRU wrapper of the tree under ``src`` (e.g. the parent
+    commit), its ``kernels/rglru.py`` loaded under a private module name: a
+    function (a, b, h0) -> (y, h_last). That module imports this tree's
+    ``build``, so its launches would add to ``LAUNCHES["rglru_scan"]``: the
+    function puts the count back after each call, so that it only ever
+    holds this tree's launches."""
+    import importlib.util
+    path = src / "repro_torch" / "kernels" / "rglru.py"
+    check(path.is_file(), f"{path} is missing")
+    spec = importlib.util.spec_from_file_location("_parent_rglru", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    log(f"parent rglru_scan loaded from {path}")
+
+    def call(a, b, h0):
+        count = build.LAUNCHES["rglru_scan"]
+        try:
+            return mod.rglru_scan(a, b, h0)
+        finally:
+            build.LAUNCHES["rglru_scan"] = count
     return call
 
 
@@ -879,33 +908,82 @@ def compare_staircase(torch, sf, case) -> dict:
     return row
 
 
-def compare_rglru(torch, rg, case: tuple, gen) -> dict:
+def rglru_inputs(torch, case: tuple, gen) -> tuple:
+    """(a, x, h0) of a case (B, T, W): decays in [0.3, 0.999), the
+    reference's kernel-test range (tests/test_kernels.py:80)."""
     b, t, w = case
     a = torch.rand(b, t, w, generator=gen, device="cuda") * 0.699 + 0.3
     x = torch.randn(b, t, w, generator=gen, device="cuda")
     h0 = torch.randn(b, w, generator=gen, device="cuda")
-    y, h = rg.rglru_scan(a, x, h0)
+    return a, x, h0
+
+
+def rglru_form(rg, case: tuple) -> str:
+    f = rg.form(*case)
+    return (f"{f['ctas']} CTAs of {f['warps']} warps x {f['channels']} "
+            f"channels, windows of {f['window']} steps, {f['stages']} ring "
+            f"slots, {f['smem_bytes']} B shared, {f['route']}")
+
+
+def compare_rglru(torch, rg, case: tuple, gen, parent=None) -> dict:
+    """One RG-LRU case: the kernel (and the parent tree's, if given)
+    against the plain version, two launches bit-equal, the form logged, and
+    the times of the kernel, the parent's and the plain version beside the
+    bound."""
+    b, t, w = case
+    args = rglru_inputs(torch, case, gen)
+    y, h = rg.rglru_scan(*args)
     torch.cuda.synchronize()
-    ry, rh = rg.rglru_ref(a, x, h0)
+    ry, rh = rg.rglru_ref(*args)
     err = max((y - ry).abs().max().item(), (h - rh).abs().max().item())
-    # the same fp32 FMA chain in both; the reference's kernel test holds
-    # its Pallas kernel to 1e-5 (tests/test_kernels.py:86)
+    # both are the same chain of one multiply-add a step in fp32, the kernel
+    # re-walking each quarter window from a carry folded through the earlier
+    # quarters' maps; the reference's kernel test holds its Pallas kernel
+    # to 1e-5 (tests/test_kernels.py:86)
     tol = 1e-5 * max(1.0, ry.abs().max().item())
     check(bool(torch.isfinite(y).all()) and err <= tol,
           f"rglru_scan {case}: max_abs_err {err} > tol {tol}")
+    y2, h2 = rg.rglru_scan(*args)
+    check(torch.equal(y, y2) and torch.equal(h, h2),
+          f"rglru_scan {case}: a second launch differs")
+    check(torch.equal(h, y[:, -1]), f"rglru_scan {case}: h_last != y[:, -1]")
+    if parent is not None:
+        py, ph = parent(*args)
+        p_err = max((py - ry).abs().max().item(),
+                    (ph - rh).abs().max().item())
+        check(p_err <= tol, f"parent rglru_scan {case}: max_abs_err {p_err}"
+                            f" > tol {tol}")
+        del py, ph
+    del ry, rh, y2, h2
     # a, b read and y written once (fp32), h0 read and h_last written; one
     # FMA (2 operations) per element
     b_ms, b_by = bound_ms(2.0 * b * t * w, 12.0 * b * t * w + 8.0 * b * w,
                           peak=PEAK_FP32_FLOPS)
     row = {"case": f"B={b} T={t} W={w}", "max_abs_err": err, "tol": tol,
-           "ms": time_ms(torch, rg.rglru_scan, (a, x, h0)),
-           "plain_ms": time_ms(torch, rg.rglru_ref, (a, x, h0), reps=4),
+           "ms": time_ms(torch, rg.rglru_scan, args),
+           "parent_ms": None if parent is None else time_ms(torch, parent,
+                                                            args),
+           "plain_ms": time_ms(torch, rg.rglru_ref, args, reps=4),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    log(f"rglru_scan {row['case']}: max_abs_err {err:.4g} tol {tol:.4g} ms "
-        f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} bound_ms "
-        f"{b_ms:.5f} ({b_by}); grid {rg.grid_programs(b, w)} programs on "
-        f"132 SMs; no library call computes it")
+    log(f"rglru_scan {row['case']}: two launches bit-equal; max_abs_err "
+        f"{err:.4g} tol {tol:.4g} ms {row['ms']:.4f} parent_ms "
+        + ("not timed" if parent is None else f"{row['parent_ms']:.4f}")
+        + f" plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}); "
+        f"no library call computes it; form: {rglru_form(rg, case)}")
     return row
+
+
+def rglru_gates_ms(torch, mods, gen) -> None:
+    """The plain gates before the scan (``models.recurrent._rglru_gates``:
+    the decay ``a`` and input ``b`` from the conv's output) at
+    recurrentgemma-2b's prefill shape, timed once: what fusing them into
+    the scan would take out."""
+    rec = mods["recurrent"]
+    p = rec.init_rglru(gen, 2560)
+    x = torch.randn(4, 128, 2560, generator=gen, device="cuda").bfloat16()
+    ms = time_ms(torch, rec._rglru_gates, (p, x))
+    log(f"rglru gates (plain torch) B=4 T=128 W=2560: ms {ms:.4f}; they "
+        f"read x (bf16) and write a and b (fp32) before the scan reads them")
 
 
 def rwkv6_work(b: int, t: int, h: int, dh: int, chunk: int,
@@ -1307,9 +1385,11 @@ def main() -> None:
     from repro_torch.kernels import staircase_fused as sf
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.serve_batched import main as serve_batched_main
+    from repro_torch.models import recurrent
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import Request, ServeEngine
     mods = {"configs": configs, "ops": ops, "tfm": tfm, "Request": Request,
+            "recurrent": recurrent,
             "ServeEngine": ServeEngine, "serve_main": serve_main,
             "serving": serving, "serving_templates": serving.serving_templates,
             "H100_SXM": H100_SXM, "LayerShape": LayerShape,
@@ -1323,6 +1403,24 @@ def main() -> None:
     build_kernels(build)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # the parent tree's attention, RWKV6 and RG-LRU kernels beside this
+    # tree's in each of their cases, if given
+    parent = parent_rw = parent_rg = None
+    if "--parent" in argv:
+        psrc = Path(argv[argv.index("--parent") + 1]).resolve()
+        parent = parent_flash(torch, build, psrc)
+        parent_rw = parent_rwkv6(torch, build, psrc)
+        parent_rg = parent_rglru(torch, build, psrc)
+    # recurrentgemma-2b's prefill shape, a ragged W (TMA), one step, a
+    # ragged T at a W whose rows are not 16-byte multiples (cp.async); off
+    # the main path, the same shape at T 64 and 32 and at half the width
+    # (how the time scales with T and W), and recurrentgemma's window of
+    # 2048 steps at batch 1 and 4 (many windows through the ring)
+    rgl = [compare_rglru(torch, rg, c, gen, parent_rg) for c in
+           [(4, 128, 2560), (4, 128, 2500), (4, 1, 2560), (2, 97, 2501),
+            (4, 64, 2560), (4, 32, 2560), (4, 128, 1280), (1, 2048, 2560),
+            (4, 2048, 2560)]]
+    rglru_gates_ms(torch, mods, gen)
     # qwen1.5-0.5b's and recurrentgemma-2b's MLP products at prefill
     # (M = 4 x 128) and decode (M = 4), and a ragged one
     mm = [compare_matmul(torch, mt, c, gen) for c in
@@ -1331,12 +1429,7 @@ def main() -> None:
            (4, 2560, 7680), (4, 7680, 2560), (100, 130, 70)]]
     # attention: qwen1.5-0.5b's and granite-moe-1b-a400m's prefill (the
     # main paths), ragged, GQA and local cases, and two long sequences
-    # (bound by operations); the parent tree's kernel beside each if given
-    parent = parent_rw = None
-    if "--parent" in argv:
-        psrc = Path(argv[argv.index("--parent") + 1]).resolve()
-        parent = parent_flash(torch, build, psrc)
-        parent_rw = parent_rwkv6(torch, build, psrc)
+    # (bound by operations)
     fl = [compare_flash(torch, fa, c, gen, parent) for c in
           [(4, 128, 128, 16, 16, 64, "causal", 0),
            (4, 128, 128, 16, 8, 64, "causal", 0),
@@ -1351,9 +1444,6 @@ def main() -> None:
           for c in staircase_cases(np, mods)]
     log(f"staircase_fused: 3 shapes checked and timed in "
         f"{time.time() - t0:.1f}s, Triton's first compile included")
-    # recurrentgemma-2b's prefill shape, a ragged W, one step
-    rgl = [compare_rglru(torch, rg, c, gen) for c in
-           [(4, 128, 2560), (4, 128, 2500), (4, 1, 2560)]]
     # rwkv6-1.6b's prefill shape (bf16 r, k, v, as the model gives them), a
     # ragged T from a non-zero state, and constant decays at the model's
     # floor (-e^4), at -8 and at its ceiling (-e^-8): all finite; off the

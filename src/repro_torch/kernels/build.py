@@ -40,9 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 CUDA_SOURCES = ("matmul_tiled", "flash_attention", "rwkv6",  # csrc/<name>.cu
-                "moe_gmm")
-TRITON_KERNELS = {"staircase_fused": "staircase_fused",      # kernels/<v>.py
-                  "rglru_scan": "rglru"}
+                "moe_gmm", "rglru_scan")
+TRITON_KERNELS = {"staircase_fused": "staircase_fused"}      # kernels/<v>.py
 LAUNCHES: Dict[str, int] = {k: 0 for k in CUDA_SOURCES
                             + tuple(TRITON_KERNELS)}
 

@@ -1,5 +1,5 @@
-"""RG-LRU linear recurrence: the Triton kernel's wrapper and its plain
-version (``repro.kernels.rglru``'s counterpart).
+"""RG-LRU linear recurrence: the CUDA kernel's wrapper and its plain version
+(``repro.kernels.rglru``'s counterpart).
 
 Both compute, per batch row and channel, in fp32::
 
@@ -8,37 +8,42 @@ Both compute, per batch row and channel, in fp32::
 over (B, T, W) ``a`` and ``b`` and a (B, W) ``h0``, and return
 ``(y, h_last)``, ``h_last`` being ``y[:, -1]`` (``h0`` when T is 0).
 
-``rglru_scan`` launches the Triton kernel that replaces ``rglru_pallas``
-(``src/repro/kernels/rglru.py``, body ``_rglru_kernel``). The TPU kernel
-walks a sequential (batch, width block, time chunk) grid and keeps ``h`` in
-VMEM scratch between time chunks; on the card blocks run in parallel and in
-no order, so one program owns a (batch row, ``BLOCK_W`` channels) strip and
-loops over all of T itself, ``h`` in registers. The work is elementwise and
-sequential in T, with no product and no reduction across channels: it is
-bound by bytes (each step reads ``a_t``, ``b_t`` and writes ``y_t``, 12 B
-per channel). A ragged W is masked, where the TPU wrapper asserts that W
-divides into blocks.
+``rglru_scan`` launches ``csrc/rglru_scan.cu``, which replaces
+``rglru_pallas`` (``src/repro/kernels/rglru.py:43``, body
+``_rglru_kernel``). The TPU kernel walks a sequential (batch, width block,
+time chunk) grid and keeps ``h`` in VMEM scratch between time chunks; on
+the card blocks run in parallel and in no order, so one CTA of 4 warps owns
+a (batch row, 32 channels) strip for all of T. The work is bound by bytes
+(each step reads ``a_t``, ``b_t`` and writes ``y_t``, 12 B a channel), and
+what bounds a sequential walk of T is the latency of its loads: the Triton
+kernel this replaced waited for each step's loads in turn, and its time grew
+with T, not with W (``PERF.md`` §6). So the kernel keeps
+windows of ``window`` steps in flight in a ring of ``stages`` shared-memory
+slots, loaded by TMA or by ``cp.async`` (a ragged W, or a base not 16-byte
+aligned); within a window each warp scans a quarter from zero, the warps'
+carries are folded in order, and each warp re-walks its quarter from its
+carry and writes ``y``. :func:`form` is the host's choice of those sizes.
+A ragged W and T are masked, where the TPU wrapper asserts that W divides
+into blocks.
 
-The grid is B x ceil(W / BLOCK_W) programs: at recurrentgemma-2b's prefill
-(B = 4, W = 2560) that is 80 programs on the H100's 132 SMs, less than one
-wave, the paper's tail effect; the T loop is sequential inside each.
-
-Triton is imported, and the kernel compiled, at the first launch
-(``build.import_triton``), never when this module is imported.
+``rglru_ref`` is the plain version: the sequential recurrence in torch.
 """
 
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["rglru_ref", "rglru_scan", "grid_programs"]
+__all__ = ["rglru_ref", "rglru_scan", "form"]
 
 NAME = "rglru_scan"
-BLOCK_W = 128     # channels per program (the TPU kernel's block_w)
+CHANNELS = 32      # channels a CTA (one lane each); csrc/rglru_scan.cu
+WARPS = 4          # checks these three
+MAX_STAGES = 2     # ring slots; more measured no faster (PERF.md §6)
+WINDOWS = (32, 64, 128)   # window steps the kernel is compiled for
 
 
 def rglru_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
@@ -55,40 +60,65 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     return torch.stack(ys, dim=1), h
 
 
-def grid_programs(batch: int, width: int) -> int:
-    """Programs the kernel launches: paper Eq. 3's B for this kernel."""
-    return batch * -(-width // BLOCK_W)
+def smem_bytes(window: int, stages: int) -> int:
+    """Dynamic shared memory of a CTA: 128 B of alignment slack, the ring
+    (stages x {a, b} x window x CHANNELS fp32), an mbarrier per slot, the
+    warps' carry maps and the hand-over of h between windows."""
+    return (128 + stages * 2 * window * CHANNELS * 4 + 8 * MAX_STAGES
+            + WARPS * CHANNELS * 8 + CHANNELS * 4)
 
 
-# triton.language, bound by ``_kernel`` before the kernel is compiled (see
-# ``staircase_fused``): importing it here would import triton with this
-# module.
-tl = None
+def form(b: int, t: int, w: int, *, aligned: bool = True) -> dict:
+    """The kernel's form for (B, T, W) inputs, chosen on the host: CTAs
+    (one per batch row and strip of ``CHANNELS`` channels), channels a CTA,
+    warps, window steps (the smallest of ``WINDOWS`` that holds T, else the
+    largest), ring slots (``MAX_STAGES``, or fewer where T takes fewer
+    windows), dynamic shared memory bytes, and the copy route: ``"tma"``
+    where W is a
+    multiple of 4 (16-byte rows) and the bases are 16-byte aligned
+    (``aligned``), else ``"cp.async"``."""
+    ctas = b * -(-w // CHANNELS)
+    window = next((s for s in WINDOWS if s >= t), WINDOWS[-1])
+    windows = max(1, -(-t // window))
+    stages = min(windows, MAX_STAGES)
+    return {"ctas": ctas, "channels": CHANNELS, "warps": WARPS,
+            "window": window, "stages": stages,
+            "smem_bytes": smem_bytes(window, stages),
+            "route": "tma" if aligned and w % 4 == 0 else "cp.async"}
 
 
-def _rglru_kernel(a_ptr, b_ptr, h0_ptr, y_ptr, h_ptr, T, W,
-                  BLOCK_W: tl.constexpr):
-    row = tl.program_id(0)
-    w = tl.program_id(1) * BLOCK_W + tl.arange(0, BLOCK_W)
-    mask = w < W
-    h = tl.load(h0_ptr + row * W + w, mask=mask, other=0.0)
-    base = row.to(tl.int64) * T * W + w
-    for t in range(T):
-        off = base + t * W
-        a = tl.load(a_ptr + off, mask=mask, other=0.0)
-        b = tl.load(b_ptr + off, mask=mask, other=0.0)
-        h = a * h + b
-        tl.store(y_ptr + off, h, mask=mask)
-    tl.store(h_ptr + row * W + w, h, mask=mask)
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan_forward.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+    lib.rglru_scan_forward.restype = ci
+    lib.rglru_scan_error_string.argtypes = [ci]
+    lib.rglru_scan_error_string.restype = ctypes.c_char_p
+    lib.rglru_scan_attrs.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.rglru_scan_attrs.restype = ci
+    for fn in (lib.rglru_scan_channels, lib.rglru_scan_warps,
+               lib.rglru_scan_max_stages):
+        fn.argtypes = []
+        fn.restype = ci
+    if (lib.rglru_scan_channels(), lib.rglru_scan_warps(),
+            lib.rglru_scan_max_stages()) != (CHANNELS, WARPS, MAX_STAGES):
+        raise RuntimeError("rglru_scan.cu limits differ from CHANNELS / "
+                           "WARPS / MAX_STAGES")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    global tl
-    triton = build.import_triton()
-    import triton.language
-    tl = triton.language
-    return triton.jit(_rglru_kernel)
+def attrs(window: int, stages: int) -> dict:
+    """The compiled kernel at this window and ring on the current CUDA
+    device (``cudaFuncGetAttributes`` and the occupancy API): threads a
+    CTA, registers a thread, dynamic shared memory bytes, CTAs an SM
+    holds, bytes spilled a thread."""
+    lib = build.load(NAME, _bind)
+    out = (ctypes.c_int * 5)()
+    err = lib.rglru_scan_attrs(window, stages, out)
+    if err:
+        msg = lib.rglru_scan_error_string(err).decode()
+        raise RuntimeError(f"rglru_scan_attrs({window}, {stages}) failed: "
+                           f"{msg}")
+    return dict(zip(("threads", "registers", "smem_bytes", "ctas_per_sm",
+                     "spill_bytes"), out))
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
@@ -119,10 +149,17 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
         return y, h_last
     if t == 0:
         return y, h_last.copy_(h0)
-    kernel = _kernel()
-    grid = (bsz, -(-w // BLOCK_W))
+    f = form(bsz, t, w, aligned=a.data_ptr() % 16 == 0
+             and b.data_ptr() % 16 == 0)
+    lib = build.load(NAME, _bind)
     with torch.cuda.device(a.device):
-        kernel[grid](a, b, h0, y, h_last, t, w, BLOCK_W=BLOCK_W,
-                     num_warps=4)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rglru_scan_forward(
+            a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), bsz, t, w, f["window"], f["stages"],
+            int(f["route"] == "tma"), stream)
+    if err:
+        raise RuntimeError(f"rglru_scan launch failed: "
+                           f"{lib.rglru_scan_error_string(err).decode()}")
     build.LAUNCHES[NAME] += 1
     return y, h_last

@@ -3,7 +3,7 @@
 
 Each has three forms, as in ``repro``:
   * parallel-in-time for prefill: the RG-LRU recurrence through
-    ``ops.rglru_scan`` (the Triton kernel on the card; ``repro`` uses an
+    ``ops.rglru_scan`` (the CUDA kernel on the card; ``repro`` uses an
     associative scan), RWKV6 through ``ops.rwkv6`` (the CUDA kernel on the
     card; ``repro`` uses ``rwkv_chunked``). Both kernels compute the same
     functions as ``repro``'s forms, from a carried state;

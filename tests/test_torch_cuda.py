@@ -329,17 +329,28 @@ def test_planner_on_the_card_equals_the_cpu(gen):
 
 
 # ---------------------------------------------------------------------------
-# the recurrences: RG-LRU (Triton) and RWKV6 (CUDA), and both families
+# the recurrences: RG-LRU and RWKV6 (CUDA), and both families
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("b,t,w", [(2, 64, 128), (1, 32, 256), (3, 16, 128),
-                                   (4, 128, 2560), (2, 37, 2500), (4, 1, 2560),
-                                   (1, 5, 1)])
-def test_rglru_kernel_vs_plain(gen, b, t, w):
-    """tests/test_kernels.py:73-75's sweep, the main path's shape, a ragged
-    W and T = 1. The same fp32 FMA chain in both: 1e-5 (the reference's)."""
+def rglru_inputs(gen, b, t, w):
     a = torch.rand(b, t, w, generator=gen, device="cuda") * 0.699 + 0.3
     x = torch.randn(b, t, w, generator=gen, device="cuda")
     h0 = torch.randn(b, w, generator=gen, device="cuda")
+    return a, x, h0
+
+
+@pytest.mark.parametrize("b,t,w", [(2, 64, 128), (1, 32, 256), (3, 16, 128),
+                                   (4, 128, 2560), (2, 37, 2500), (4, 1, 2560),
+                                   (1, 5, 1), (2, 97, 2501), (1, 2048, 2560),
+                                   (1, 300, 64), (4, 300, 2560),
+                                   (2, 300, 2501), (4, 2048, 2560)])
+def test_rglru_kernel_vs_plain(gen, b, t, w):
+    """tests/test_kernels.py:73-75's sweep, the main path's shape, ragged W
+    (TMA where rows are 16-byte multiples, cp.async where not), T = 1, a
+    ragged T, several windows at batch 1 and above it (by TMA and by
+    cp.async). The same fp32 FMA chain in both, the kernel
+    re-walking quarter windows from folded carries: 1e-5 (the
+    reference's)."""
+    a, x, h0 = rglru_inputs(gen, b, t, w)
     before = ops.LAUNCHES["rglru_scan"]
     y, h = rg.rglru_scan(a, x, h0)
     torch.cuda.synchronize()
@@ -347,6 +358,52 @@ def test_rglru_kernel_vs_plain(gen, b, t, w):
     ry, rh = rg.rglru_ref(a, x, h0)
     torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(h, rh, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,t,w", [(4, 128, 2560), (2, 97, 2501),
+                                   (1, 300, 64)])
+def test_rglru_kernel_repeats_bit_equal(gen, b, t, w):
+    """No atomics and a fixed order: two launches give the same bits, and
+    h_last is y's last step."""
+    args = rglru_inputs(gen, b, t, w)
+    y, h = rg.rglru_scan(*args)
+    y2, h2 = rg.rglru_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert torch.equal(h, y[:, -1])
+
+
+def test_rglru_kernel_unaligned_base(gen):
+    """A contiguous view 4 bytes past a 16-byte boundary takes the cp.async
+    route; the same result as TMA on the aligned copy and as the plain
+    version, within 1e-5."""
+    a, x, h0 = rglru_inputs(gen, 2, 150, 256)
+    store = torch.empty(a.numel() + 1, device="cuda")
+    au = store[1:].view_as(a)
+    au.copy_(a)
+    assert au.data_ptr() % 16 == 4 and au.is_contiguous()
+    assert rg.form(2, 150, 256)["route"] == "tma"
+    assert rg.form(2, 150, 256, aligned=False)["route"] == "cp.async"
+    want = rg.rglru_scan(a, x, h0)
+    for got, w, r in zip(rg.rglru_scan(au, x, h0), want,
+                         rg.rglru_ref(a, x, h0)):
+        torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,t,w", [(4, 128, 2560), (1, 2048, 2560),
+                                   (4, 1, 2560), (1, 64, 256)])
+def test_rglru_kernel_form(gen, b, t, w):
+    """The host's form against the compiled kernel: 4 warps, the shared
+    memory the host counts, no spills, and enough CTAs an SM for the form's
+    ring (all 320 of recurrentgemma-2b's prefill resident at once)."""
+    f = rg.form(b, t, w)
+    got = rg.attrs(f["window"], f["stages"])
+    assert got["threads"] == 32 * f["warps"] == 128
+    assert got["smem_bytes"] == f["smem_bytes"] and got["spill_bytes"] == 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert got["ctas_per_sm"] >= 1
+    if (b, t, w) == (4, 128, 2560):
+        assert f["ctas"] == 320 and got["ctas_per_sm"] * sms >= 320
 
 
 def test_rglru_kernel_refusals(gen):

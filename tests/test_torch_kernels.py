@@ -261,8 +261,8 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
     assert p == build.library_path("flash_attention")
     assert p != build.library_path("matmul_tiled")
     assert set(build.CUDA_SOURCES) == {"matmul_tiled", "flash_attention",
-                                       "rwkv6", "moe_gmm"}
-    assert set(build.TRITON_KERNELS) == {"staircase_fused", "rglru_scan"}
+                                       "rwkv6", "moe_gmm", "rglru_scan"}
+    assert set(build.TRITON_KERNELS) == {"staircase_fused"}
     assert set(build.LAUNCHES) == set(build.CUDA_SOURCES) \
         | set(build.TRITON_KERNELS)
     assert all((build.CSRC / f"{n}.cu").is_file()
@@ -286,7 +286,7 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the recurrences: RG-LRU (Triton kernel) and RWKV6 (CUDA kernel)
+# the recurrences: RG-LRU and RWKV6 (CUDA kernels)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("b,t,w,ct,bw", [(2, 64, 128, 8, 128),
                                          (1, 32, 256, 4, 128),
@@ -330,7 +330,114 @@ def test_rglru_plain_edges():
         if t:
             np.testing.assert_allclose(as_np(y), as_np(want_y), rtol=1e-5,
                                        atol=1e-5)
-    assert rg.grid_programs(4, 2560) == 80 and rg.grid_programs(4, 2500) == 80
+    assert rg.form(4, 128, 2560)["ctas"] == 320 \
+        and rg.form(4, 128, 2500)["ctas"] == 316
+
+
+def largest_divisor(n: int, cap: int) -> int:
+    return max(d for d in range(1, min(n, cap) + 1) if n % d == 0)
+
+
+def rglru_windows_np(a, b, h0, *, window: int, warps: int = rg.WARPS):
+    """numpy mirror of ``csrc/rglru_scan.cu``'s arithmetic, over all batch
+    rows and channels at once: T in windows of ``window`` steps; in each,
+    warp w's quarter walked from zero into its map h -> P h + Y (steps past
+    T the identity), the carry into each quarter folded in order through
+    the earlier quarters' maps from the window's carry, each quarter
+    re-walked from its carry writing y, and the next window's carry the y
+    of this window's last step."""
+    bsz, t, w = a.shape
+    seg = window // warps
+    y = np.empty_like(a)
+    h = h0.astype(np.float32)
+    for t0 in range(0, t, window):
+        n = min(window, t - t0)
+        maps = []
+        for wp in range(warps):
+            p_, y_ = np.ones((bsz, w), np.float32), np.zeros((bsz, w),
+                                                             np.float32)
+            for k in range(wp * seg, (wp + 1) * seg):
+                at = a[:, t0 + k] if k < n else np.float32(1)
+                bt = b[:, t0 + k] if k < n else np.float32(0)
+                y_ = at * y_ + bt
+                p_ = p_ * at
+            maps.append((p_, y_))
+        for wp in range(warps):
+            carry = h
+            for p_, y_ in maps[:wp]:
+                carry = p_ * carry + y_
+            for k in range(wp * seg, min((wp + 1) * seg, n)):
+                carry = a[:, t0 + k] * carry + b[:, t0 + k]
+                y[:, t0 + k] = carry
+            if wp == (n - 1) // seg:
+                hand = carry
+        h = hand
+    return y, h
+
+
+def model_decays(rng, shape, lo: float, hi: float):
+    """``a = exp(-8 softplus(L) r)`` (the model's gate, r in (0, 1)) with
+    softplus(L) drawn so that a spans [lo, hi]."""
+    r = rng.uniform(0.0, 1.0, shape)
+    c = rng.uniform(-np.log(hi), -np.log(lo), shape) / 8.0
+    return np.exp(-8.0 * c * r).clip(lo, hi).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,t,w,decays,window", [
+    (2, 1, 64, (0.3, 0.999), None),
+    (2, 31, 33, (0.3, 0.999), None),      # ragged T and W
+    (1, 33, 100, (1e-6, 0.05), None),     # a near 0
+    (2, 129, 64, (0.99, 0.99999), None),  # a near 1, two windows
+    (1, 300, 40, (1e-6, 0.99999), None),  # three windows, a ragged last
+    (3, 300, 44, (0.3, 0.999), None),     # the same at batch 3
+    (1, 300, 36, (0.3, 0.999), 32),       # ten windows of 32
+    (2, 97, 20, (0.5, 0.9999), 64),
+])
+def test_rglru_window_decomposition_vs_pallas_and_oracle(b, t, w, decays,
+                                                         window):
+    """The kernel's decomposition (mirrored in numpy), from a non-zero h0,
+    against ``rglru_pallas`` (interpret mode) and the reference's oracle,
+    at the reference's 1e-5; the plain version too. h_last is the mirror's
+    last y, bit for bit."""
+    from repro.kernels.rglru import rglru_pallas
+    rng = np.random.default_rng(t * 1000 + w)
+    a = model_decays(rng, (b, t, w), *decays)
+    x = rng.standard_normal((b, t, w)).astype(np.float32)
+    h0 = rng.standard_normal((b, w)).astype(np.float32)
+    window = window or rg.form(b, t, w)["window"]
+    y, h = rglru_windows_np(a, x, h0, window=window)
+    assert np.array_equal(h, y[:, -1])
+    ty, th = rg.rglru_ref(*(torch.from_numpy(v) for v in (a, x, h0)))
+    pallas = rglru_pallas(jnp.asarray(a), jnp.asarray(x), jnp.asarray(h0),
+                          chunk_t=largest_divisor(t, 64),
+                          block_w=largest_divisor(w, 128), interpret=True)
+    oracle = jref.rglru_ref(jnp.asarray(a), jnp.asarray(x), jnp.asarray(h0))
+    for want_y, want_h in (pallas, oracle, (ty, th)):
+        np.testing.assert_allclose(y, as_np(want_y), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(h, as_np(want_h), rtol=1e-5, atol=1e-5)
+
+
+def test_rglru_form():
+    """The host's form: a CTA per batch row and 32 channels (320 at
+    recurrentgemma-2b's prefill), the window that holds T (else 128 steps),
+    ring slots no more than the windows, at most 227 KB of shared memory,
+    TMA only for 16-byte rows on 16-byte aligned bases."""
+    f = rg.form(4, 128, 2560)
+    assert (f["ctas"], f["channels"], f["warps"]) == (320, 32, 4)
+    assert (f["window"], f["stages"], f["route"]) == (128, 1, "tma")
+    assert rg.form(4, 1, 2560)["window"] == 32
+    assert rg.form(1, 64, 2560)["window"] == 64
+    assert rg.form(2, 97, 2501)["route"] == "cp.async"
+    assert rg.form(4, 128, 2500)["route"] == "tma"
+    assert rg.form(4, 128, 2560, aligned=False)["route"] == "cp.async"
+    for b, t, w in ((1, 2048, 2560), (4, 2048, 2560), (1, 300, 64),
+                    (2, 97, 2501), (1, 5, 1), (64, 4096, 4096)):
+        f = rg.form(b, t, w)
+        assert f["ctas"] == b * -(-w // 32)
+        assert 1 <= f["stages"] <= min(rg.MAX_STAGES, -(-t // f["window"]))
+        assert f["smem_bytes"] == rg.smem_bytes(f["window"], f["stages"])
+        assert f["smem_bytes"] <= 232448
+    assert rg.smem_bytes(128, rg.MAX_STAGES) <= 232448
 
 
 def rwkv_case(seed, b, t, h, dh, lw=None, s0=False):
