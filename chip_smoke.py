@@ -31,7 +31,8 @@ the target) and ``nvcc``:
    ragged T on the ``cp.async`` route, the same shape at shorter T and
    half the width, and 2048 steps at batch 1, two launches bit-equal,
    each case's form (CTAs, window steps, ring slots, copy route) logged,
-   and the plain gates before it timed once;
+   and the plain gates before it timed once; an empty Triton kernel timed
+   the same way, the launch floor, beside the planner's staircase sweep;
 4. serves 4 mixed-length requests with full-width qwen1.5-0.5b (random
    weights from seed 0) through ``ServeEngine``, with the launch counts set
    to 0 just before and read just after; checks the counts, that a second
@@ -49,15 +50,27 @@ the target) and ``nvcc``:
    its plain version on its own inputs), one full-width prefill on the
    capacity strategy (the same checks on its capacity buffers), a small
    granite on the card against the CPU and ``launch.serve --arch
-   granite-moe-1b-a400m``;
+   granite-moe-1b-a400m``; each of the four families also through the
+   step cache (``WidthVariantCompileCache``: the (4, 128) prefill and the
+   decode step captured as CUDA graphs by ``warm_compile``), with the
+   counts set to 0 just before and read just after: the eager engine's
+   tokens, exact counts, one decode step's logits bit-equal, no miss,
+   fallback or capture while serving, and the port's kernels that one
+   replay of each step runs on the device (``torch.profiler``) equal to
+   the launches the cache adds for it; then the cached and eager steps'
+   wall and device ms, tokens/s of both in alternating bursts, capture
+   seconds and peak memory, the graphs freed before the next family;
 5. the planner path, with the counts set to 0 just before and read just
    after: plans two traffic classes for qwen1.5-0.5b on ``H100_SXM``
    (one staircase-kernel sweep each), checks that the plans equal the same
    planner's on the CPU, then serves bursts that select each class on the
    plans' sliced weights (a cold swap, then warm ones), with exact launch
-   counts and the same tokens on a repeat; holds tokens/s and a decode
-   step's device time on the plans against full width, in alternating
-   bursts; checks that a hand-narrowed
+   counts and the same tokens on a repeat; serves the same bursts through
+   the step cache, both classes' plans captured first, with the same
+   tokens and counts and no capture after the warm-up, and times them
+   against the eager path in alternating rounds; holds tokens/s and
+   a decode step's device time on the plans against full width, in
+   alternating bursts; checks that a hand-narrowed
    plan's sliced forward equals its zero-masked full-shape forward on the
    kernels, and runs ``launch.serve_batched`` on the card;
 6. prints one JSON line with every kernel's numbers, then, last,
@@ -140,6 +153,9 @@ CLASSES = (("short", 4 * 32), ("long", 4 * max(PROMPT_LENS)))
 # bursts per side when tokens/s on the planned widths is held against full
 # width, alternating which side goes first
 AB_ROUNDS = 6
+# bursts per side when the cached path's tokens/s is held against the
+# eager engine's, alternating which side goes first
+CACHED_ROUNDS = 5
 
 
 def fail(msg: str) -> None:
@@ -204,6 +220,81 @@ def wall_ms(torch, fn, reps: int = 10) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def stream_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per call of ``reps`` back-to-back calls, between CUDA
+    events: for a call whose host cost is far below its device time (a
+    graph replay), the device never waits between calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_kernels(torch, fn) -> "tuple[str, dict]":
+    """The kernels (memcpy and memset included) one call of ``fn`` runs
+    on the device, read from ``torch.profiler``: a summary (their number
+    and summed device ms, or the profiler's error where it reads
+    nothing) and {name: (count, device us)}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = {e.key: (e.count, e.device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+    except Exception as e:  # noqa: BLE001 — a reading, not a check
+        return f"not measured ({type(e).__name__}: {e})", {}
+    n = sum(c for c, _ in by_name.values())
+    if not n:
+        return "not measured (the profiler saw no device activity)", {}
+    us = sum(t for _, t in by_name.values())
+    return f"{n} kernels, {us / 1e3:.3f} device ms summed", by_name
+
+
+# each port kernel's name in a device trace: the two GEMM wrappers launch
+# the one kernel of csrc/gemm_sm90.cuh, the staircase is not on a served
+# step
+TRACE_NAMES = {"matmul_tiled": "gemm_sm90", "moe_gmm": "gemm_sm90",
+               "flash_attention": "flash_attention_kernel",
+               "rglru_scan": "rglru_scan_kernel", "rwkv6": "rwkv6_kernel"}
+
+
+def traced_launches(by_name: dict) -> dict:
+    """{trace name: kernels of that name} in ``device_kernels``' table."""
+    return {n: sum(c for k, (c, _) in by_name.items() if n in k)
+            for n in sorted(set(TRACE_NAMES.values()))}
+
+
+def traced_expected(launches: dict) -> dict:
+    """The same table from counted launches."""
+    out = dict.fromkeys(sorted(set(TRACE_NAMES.values())), 0)
+    for k, n in launches.items():
+        out[TRACE_NAMES[k]] += n
+    return out
+
+
+def launch_floor_ms(torch) -> float:
+    """Device ms of an empty Triton kernel, timed as every kernel here is
+    (``time_ms``): the fixed cost of one launch inside a CUDA graph."""
+    import triton
+
+    @triton.jit
+    def empty(x):
+        pass
+
+    buf = torch.zeros(1, device="cuda")
+    return time_ms(torch, lambda b: empty[(1,)](b), (buf,), reps=200)
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -704,11 +795,130 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
             log(f"{arch} {name}: wall {wall:.3f} ms, device {dev:.3f} ms, "
                 f"device idle {100 * (1 - dev / wall):.1f}% of the wall time")
     del st
+    cached = serve_cached(torch, np, mods, engine, arch, second, toks, split)
+    torch.cuda.empty_cache()
     if cfg.moe:
         capacity_prefill(torch, mods, engine.params, cfg, toks)
     del engine
     torch.cuda.empty_cache()
-    return {"launches": launches, "tok_s": n_new / warm_s, "split": split}
+    return {"launches": launches, "tok_s": n_new / warm_s, "split": split,
+            "cached": cached}
+
+
+def serve_cached(torch, np, mods, engine, arch: str, eager_out, toks,
+                 split) -> dict:
+    """The cached path: the same burst through a ServeEngine whose
+    WidthVariantCompileCache captured the (4, 128) prefill and the decode
+    step as CUDA graphs, with the launch counts set to 0 just before and
+    read just after. Its tokens, launches and one decode step's logits
+    must equal the eager engine's, with no miss, fallback or capture while
+    serving; then the wall and device ms of a cached step, tokens/s of
+    cached and eager bursts in turns, capture seconds and peak memory.
+    The cache's graphs are freed on return."""
+    cfg = engine.cfg
+    tfm, ops, sv = mods["tfm"], mods["ops"], mods["serving"]
+    params = engine.params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = sv.WidthVariantCompileCache(cfg, hw=mods["H100_SXM"])
+    cached = sv.ServeEngine(params, cfg, max_len=engine.max_len,
+                            batch_slots=engine.slots, rng_seed=SEED,
+                            device="cuda", compile_cache=cache)
+    b, plen = len(PROMPT_LENS), max(PROMPT_LENS)
+    n = cached.warm_compile([], [(b, plen)])
+    capture_s = {e.kind: e.wall_s for e in cache.events
+                 if e.outcome == "compiled"}
+    check(n == 2 and sorted(capture_s) == ["decode", "prefill"],
+          f"{arch}: warm_compile captured {n} steps, events "
+          f"{cache.events}")
+    count = cache.tracer.count
+
+    ops.reset_launches()
+    out = cached.generate(requests(cfg, mods["Request"], np))
+    launches = dict(ops.LAUNCHES)
+    want = expected_launches(tfm, cfg)
+    check(launches == want, f"{arch} cached: launch counts {launches} != "
+          f"{want}")
+    for a, r in zip(eager_out, out):
+        check(np.array_equal(a.tokens, r.tokens),
+              f"{arch} cached: other tokens than the eager engine's")
+    check(cache.stats["misses"] == 0 and cache.stats["fallbacks"] == 0
+          and cache.stats["hits"] == NEW_TOKENS
+          and cache.tracer.count == count,
+          f"{arch} cached: stats {cache.stats}, captures "
+          f"{cache.tracer.count - count} while serving")
+
+    # one decode step: the replay against the eager step on the same inputs
+    cur = torch.zeros(b, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        _, st = tfm.forward(params, cfg, tokens=toks, mode="prefill")
+        st = engine._ensure_states(st)
+        st_c = {g: {k: {x: t.clone() for x, t in d.items()}
+                    for k, d in sub.items()} for g, sub in st.items()}
+        e_logits, _ = tfm.decode_step(params, cfg, cur, plen, st)
+    c_logits, st_c = cache.decode(params, cur, plen, st_c)
+    check(torch.equal(c_logits, e_logits),
+          f"{arch} cached: a replayed decode step's logits differ from the "
+          f"eager step's by "
+          f"{(c_logits.float() - e_logits.float()).abs().max().item()}")
+    del st, e_logits
+
+    # timings: the static states need no copy, so a decode call is a fill
+    # of pos, a copy of the tokens and one replay
+    steps = {"prefill": lambda: cache.prefill(params, toks),
+             "decode step": lambda: cache.decode(params, cur, plen, st_c)}
+    timed = {}
+    for name, fn in steps.items():
+        wall, dev = wall_ms(torch, fn, reps=20), stream_ms(torch, fn)
+        e_wall, e_dev = split[name]
+        timed[name] = (wall, dev)
+        log(f"{arch} cached {name}: wall {wall:.3f} ms, device {dev:.3f} "
+            f"ms, device idle {100 * (1 - dev / wall):.1f}% of the wall "
+            f"time; eager: wall {e_wall:.3f} ms, device {e_dev:.3f} ms "
+            f"(cached device {100 * (dev / e_dev - 1):+.2f}%)")
+    # the launches a replay adds, held against the kernels the device ran
+    # in one replay of each entry (torch.profiler)
+    entries = {k[1]: e for k, e in cache._exec.items()}
+    with torch.inference_mode():
+        for kind, fn in (("prefill", steps["prefill"]),
+                         ("decode", steps["decode step"])):
+            summary, by_name = device_kernels(torch, fn)
+            traced = traced_launches(by_name)
+            recorded = traced_expected(entries[kind].launches)
+            check(traced == recorded, f"{arch} cached {kind}: one replay "
+                  f"ran {traced} port kernels on the device ({summary}), "
+                  f"the entry adds {recorded}")
+            log(f"{arch} cached {kind}: one replay ran {traced} port "
+                f"kernels on the device, as the entry counts ({summary})")
+    reqs = requests(cfg, mods["Request"], np)
+    tok_s = {"eager": [], "cached": []}
+    engines = {"eager": engine, "cached": cached}
+    for r in range(CACHED_ROUNDS):
+        for side in (("eager", "cached") if r % 2 == 0 else
+                     ("cached", "eager")):
+            t0 = time.perf_counter()
+            res = engines[side].generate(reqs)
+            tok_s[side].append(sum(len(x.tokens) for x in res)
+                               / (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in tok_s.items()}
+    check(cache.stats["misses"] == 0 and cache.stats["fallbacks"] == 0
+          and cache.tracer.count == count,
+          f"{arch} cached: stats {cache.stats} after the timed runs")
+    peak = torch.cuda.max_memory_allocated()
+    for side in ("eager", "cached"):
+        log(f"{arch} {side} bursts: tok/s {[round(x, 2) for x in tok_s[side]]}"
+            f"; median {med[side]:.2f}")
+    log(f"{arch} cached path: launches {launches} (expected {want}); tokens "
+        f"and a decode step's logits bit-equal to eager; hits "
+        f"{cache.stats['hits']}, misses 0, fallbacks 0; capture s prefill "
+        f"{capture_s['prefill']:.3f}, decode {capture_s['decode']:.3f}; "
+        f"median tok/s cached {med['cached']:.2f} vs eager "
+        f"{med['eager']:.2f} ({med['cached'] / med['eager']:.2f}x, "
+        f"{CACHED_ROUNDS} bursts each, alternating); peak memory "
+        f"{peak / 2**30:.3f} GiB with the cache warm")
+    del steps, cache, cached, st_c, c_logits
+    return {"launches": launches, "tok_s": tok_s, "steps": timed,
+            "capture_s": capture_s, "peak_bytes": peak}
 
 
 def moe_held(torch, ops, fn):
@@ -1143,8 +1353,9 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     torch.cuda.synchronize()
 
     ops.reset_launches()
+    cache = sv.WidthVariantCompileCache(cfg, hw=hw)
     planner = sv.ServingWidthPlanner(hw, tpl, modules=modules,
-                                     device="cuda")
+                                     device="cuda", compile_cache=cache)
     t0 = time.perf_counter()
     plans = planner.plan(traffic)
     plan_s = time.perf_counter() - t0
@@ -1220,11 +1431,86 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
         f"({tok_s:.1f} tok/s, repeat burst) vs full width "
         f"{full_tok_s:.1f} tok/s in this run; launches {launches}")
     del sliced
+    cached_planned(torch, np, mods, engine, bursts, outs, want)
     ab = planned_vs_full(torch, np, mods, engine, plans["long"], swapper)
     del engine, swapper
     torch.cuda.empty_cache()
     return {"launches": launches, "tok_s": tok_s, "plan_s": times,
             "ab": ab, "params": params, "modules": modules}
+
+
+def cached_planned(torch, np, mods, eager, bursts, eager_outs,
+                   eager_launches) -> None:
+    """The planner path through the step cache: both classes' plans
+    captured at their burst shapes (or, where ``decide`` masks a plan, the
+    full-width steps it replays), then the bursts that cross the class
+    boundary (long, short, long) served with the counts set to 0 just
+    before and read just after: the eager planner path's tokens and
+    launches (its planning aside), every step a replay, no capture after
+    the warm-up; then tokens/s of the three bursts through the cache
+    against the eager engine ``eager`` (its plans sliced), in turns. The
+    graphs are freed on return."""
+    planner, swapper = eager.planner, eager.swapper
+    cfg, ops, sv = swapper.cfg, mods["ops"], mods["serving"]
+    cache = planner.compile_cache
+    engine = sv.ServeEngine(swapper.full_params, cfg,
+                            max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                            batch_slots=4, rng_seed=SEED, device="cuda",
+                            planner=planner, swapper=swapper,
+                            compile_cache=cache)
+    shapes = sorted({(len(b), max(len(r.prompt) for r in b))
+                     for b in bursts})
+    t0 = time.perf_counter()
+    n = engine.warm_compile(list(planner.plans.values()), shapes)
+    warm_s = time.perf_counter() - t0
+    check(all(planner.plan_is_warm(p) for p in planner.plans.values()),
+          "a planned class is not warm after warm_compile")
+    check(cache.stats["fallbacks"] == 0, f"capture faults: {cache.events}")
+    count = cache.tracer.count
+    ops.reset_launches()
+    outs = [engine.generate(reqs) for reqs in bursts]
+    launches = dict(ops.LAUNCHES)
+    want = dict(eager_launches, staircase_fused=0)
+    check(launches == want, f"cached planner path launched {launches} != "
+          f"{want}")
+    for eo, co in zip(eager_outs, outs):
+        for a, b in zip(eo, co):
+            check(np.array_equal(a.tokens, b.tokens),
+                  "the cached planner path gave other tokens than the "
+                  "eager one")
+    check(cache.stats["misses"] == 0 and cache.stats["fallbacks"] == 0
+          and cache.stats["hits"] == NEW_TOKENS * len(bursts)
+          and cache.tracer.count == count,
+          f"cached planner path: stats {cache.stats}, "
+          f"{cache.tracer.count - count} captures after the warm-up")
+    decided = {name: cache.decide(p) for name, p in planner.plans.items()}
+    log(f"cached planner path: {n} warm entries ({cache.stats['aot_compiles']}"
+        f" captures in {warm_s:.2f}s) for plans {decided} at shapes "
+        f"{shapes}; bursts {[p.traffic.name for p in engine.plan_log]} "
+        f"served with the eager path's tokens and launches {launches}; "
+        f"hits {cache.stats['hits']}, misses 0, no capture after warm-up")
+    tok_s = {"eager": [], "cached": []}
+    engines = {"eager": eager, "cached": engine}
+    for r in range(CACHED_ROUNDS):
+        for side in (("eager", "cached") if r % 2 == 0 else
+                     ("cached", "eager")):
+            t0 = time.perf_counter()
+            res = [x for reqs in bursts for x in engines[side].generate(reqs)]
+            tok_s[side].append(sum(len(x.tokens) for x in res)
+                               / (time.perf_counter() - t0))
+    check(cache.stats["misses"] == 0 and cache.stats["fallbacks"] == 0
+          and cache.tracer.count == count,
+          f"cached planner path: stats {cache.stats} after the timed runs")
+    med = {k: float(np.median(v)) for k, v in tok_s.items()}
+    log(f"planner path tok/s over bursts long, short, long (4 requests x "
+        f"{NEW_TOKENS} new tokens each): cached (plans {decided}) "
+        f"{[round(x, 2) for x in tok_s['cached']]}, median "
+        f"{med['cached']:.2f}; eager (plans sliced) "
+        f"{[round(x, 2) for x in tok_s['eager']]}, median "
+        f"{med['eager']:.2f} ({med['cached'] / med['eager']:.2f}x, "
+        f"{CACHED_ROUNDS} rounds each, alternating)")
+    planner.compile_cache = None
+    del engine, cache
 
 
 def planned_vs_full(torch, np, mods, planned, plan, swapper) -> dict:
@@ -1444,6 +1730,9 @@ def main() -> None:
           for c in staircase_cases(np, mods)]
     log(f"staircase_fused: 3 shapes checked and timed in "
         f"{time.time() - t0:.1f}s, Triton's first compile included")
+    log(f"launch floor: an empty Triton kernel {launch_floor_ms(torch):.4f} "
+        f"ms (time_ms, in a CUDA graph) beside staircase_fused "
+        f"{st[0]['case']} {st[0]['ms']:.4f} ms")
     # rwkv6-1.6b's prefill shape (bf16 r, k, v, as the model gives them), a
     # ragged T from a non-zero state, and constant decays at the model's
     # floor (-e^4), at -8 and at its ceiling (-e^-8): all finite; off the

@@ -1,3 +1,7 @@
+from repro_torch.serving.compile_cache import (
+    COMPILE_STEPS, CompileEvent, TraceCounter, WidthVariantCompileCache,
+    pow2_bucket, realized_exec_key,
+)
 from repro_torch.serving.engine import (
     AdmissionControl, BatchStats, Request, Result, ServeEngine,
     ServingWidthPlanner, TrafficClass, WidthPlan,
@@ -9,5 +13,7 @@ from repro_torch.serving.width_swap import (
 __all__ = [
     "AdmissionControl", "BatchStats", "Request", "Result", "ServeEngine",
     "ServingWidthPlanner", "TrafficClass", "WidthPlan", "SWAP_STEPS",
-    "SwapEvent", "WidthSwapper", "serving_templates",
+    "SwapEvent", "WidthSwapper", "serving_templates", "COMPILE_STEPS",
+    "CompileEvent", "TraceCounter", "WidthVariantCompileCache",
+    "pow2_bucket", "realized_exec_key",
 ]

@@ -24,8 +24,15 @@ their deadline; ``clock`` and ``batch_cost_fn`` let a run advance a
 virtual clock by modeled batch costs, so shed sets and deadline misses
 are reproducible.
 
-The degrader, the compile cache and the planner's kernel-grid tie-break
-(``tile_hw``) of ``repro``'s engine are later slices of the port.
+With a ``compile_cache.WidthVariantCompileCache`` attached
+(``compile_cache=``), every prefill and decode step goes through it: a
+warm step is one CUDA-graph replay, a cold one runs eagerly as without a
+cache. ``warm_compile`` captures the steps of given plans and batch shapes
+ahead of serving, and each boundary points the cache at the realized
+plan, as in ``repro``.
+
+The degrader and the planner's kernel-grid tie-break (``tile_hw``) of
+``repro``'s engine are later slices of the port.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan_address import ModuleRef
 from repro_torch.models import transformer as tfm
+from repro_torch.serving.compile_cache import (
+    decode_state_struct, leaves, realized_exec_key)
 
 
 @dataclasses.dataclass
@@ -195,12 +204,17 @@ class ServingWidthPlanner:
     staircase kernel on ``device`` (its plain version on the CPU) — and,
     when a ``table_cache.ProfileTableCache`` is supplied, tables persist
     across planner restarts (a warm planner performs zero model sweeps).
+
+    ``compile_cache``, when given, answers :meth:`plan_is_warm`. ``repro``
+    also breaks ``select``'s ties toward warm, tail-free plans when given
+    a ``tile_hw``; that tie-break waits for the port's tile autotuner
+    (``ROADMAP.md`` §1 item 4), so ``select`` keeps the first-planned one.
     """
 
     def __init__(self, hw, layers: Sequence, *, cache=None,
                  tau_frac: float = 0.02,
                  modules: "dict[str, ModuleRef] | None" = None,
-                 device="cuda"):
+                 device="cuda", compile_cache=None):
         from repro_torch.core.tail_model import WaveQuantizationModel
         from repro_torch.core.tail_optimizer import TailEffectOptimizer
 
@@ -210,6 +224,7 @@ class ServingWidthPlanner:
                                            device=require_device(device))
         self.opt = TailEffectOptimizer(self.model, cache=cache)
         self.tau_frac = tau_frac
+        self.compile_cache = compile_cache
         # name -> pytree address; stamped on every WidthPlan so a
         # WidthSwapper can materialize it (width_swap.serving_templates
         # builds layers and modules as a matched pair).
@@ -247,6 +262,12 @@ class ServingWidthPlanner:
                 modules=self.modules)
         return self.plans
 
+    def plan_is_warm(self, plan: WidthPlan) -> bool:
+        """True when a compile cache is attached and holds captured steps
+        for the plan's widths."""
+        return self.compile_cache is not None \
+            and self.compile_cache.plan_is_warm(plan)
+
     def select(self, tokens: int) -> WidthPlan:
         """The planned class nearest (log-scale) to a batch's token
         volume — the boundary-time lookup ``ServeEngine`` performs.
@@ -275,15 +296,9 @@ def require_device(device) -> torch.device:
     return dev
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [tree]
-
-
 def _same_leaves(a: dict, b: dict) -> bool:
     """True when two trees hold the very same tensors, leaf for leaf."""
-    la, lb = _leaves(a), _leaves(b)
+    la, lb = leaves(a), leaves(b)
     return len(la) == len(lb) and all(x is y for x, y in zip(la, lb))
 
 
@@ -295,14 +310,19 @@ class ServeEngine:
     A ``swapper`` must hold that cast tree: build it as
     ``WidthSwapper(engine.params, cfg)``, or cast first
     (``transformer.cast_params(params, device)``) and hand the same tree
-    to both; the engine refuses one that would re-cast at every swap."""
+    to both; the engine refuses one that would re-cast at every swap.
+
+    With a ``compile_cache`` (built for ``cfg``), prefill and decode go
+    through its captured steps; plans whose modeled saving cannot pay for
+    a capture realize as zero-masked full-shape params (``decide``), which
+    replay the full-width steps on their own weights."""
 
     def __init__(self, params: dict, cfg: ModelConfig, *, max_len: int = 512,
                  batch_slots: int = 4, rng_seed: int = 0, device="cuda",
                  planner: "ServingWidthPlanner | None" = None,
                  swapper=None, admission: "AdmissionControl | None" = None,
                  clock: Callable[[], float] = time.monotonic,
-                 batch_cost_fn=None):
+                 batch_cost_fn=None, compile_cache=None):
         self.device = require_device(device)
         self.cfg = cfg
         self.params = tfm.cast_params(params, self.device)
@@ -326,6 +346,75 @@ class ServeEngine:
         self.plan_log: List[WidthPlan] = []
         self.swap_log: List = []
         self.batch_log: List[BatchStats] = []
+
+        # Captured steps (serving/compile_cache.py): with a cache attached
+        # every prefill/decode goes through its replay-or-eager entry
+        # points, and the boundary swap sets the active realized key.
+        self.compile_cache = compile_cache
+        if compile_cache is not None:
+            if compile_cache.cfg is not cfg and compile_cache.cfg != cfg:
+                raise ValueError("compile_cache was built for a different "
+                                 "ModelConfig than this engine")
+            self._prefill = compile_cache.prefill
+            self._decode = compile_cache.decode
+        else:
+            self._prefill = lambda p, toks: tfm.forward(
+                p, cfg, tokens=toks, mode="prefill")
+            self._decode = lambda p, t, pos, st: tfm.decode_step(
+                p, cfg, t, pos, st)
+
+    def warm_compile(self, plans: Sequence[WidthPlan],
+                     batch_shapes: Sequence[tuple]) -> int:
+        """Plan-time capture: for every plan x (batch, prompt length)
+        shape, capture the prefill and decode steps, so that the batch
+        boundary to that plan is a table lookup and each step a replay.
+        Masked-crossover plans (``decide() == "masked"``) warm the
+        full-width key instead, whose steps replay on whatever tree is
+        passed. Returns the number of warm entries (one already warm
+        counts); a capture fault is absorbed (eager fallback). Without a
+        swapper the plans cannot be realized and only the full-width
+        baseline, the one tree such an engine serves, is captured
+        (``repro`` captures nothing then)."""
+        cache = self.compile_cache
+        if cache is None:
+            return 0
+        prev_key = cache.active_key
+        n = 0
+        todo = (list(plans) if self.swapper is not None else []) + [None]
+        for plan in todo:          # None: the full-width baseline
+            if plan is None:
+                key, heads = cache.full_key, None
+                params = self.params if self.swapper is None \
+                    else self.swapper.full_params
+            else:
+                masked = bool(plan.widths) \
+                    and cache.decide(plan) == "masked"
+                params, event = self.swapper.apply_guarded(
+                    plan, masked=masked)
+                if event.outcome != "ok":
+                    continue
+                mlp_w, heads_to = self.swapper.realize_plan(plan)
+                if masked:
+                    key, heads = cache.full_key, None
+                else:
+                    key, heads = realized_exec_key(mlp_w, heads_to), heads_to
+            for (b, plen) in batch_shapes:
+                b, plen = int(b), int(plen)
+                cache.set_active(key)
+                toks = torch.zeros((b, plen), dtype=torch.long,
+                                   device=self.device)
+                n += cache.precompile("prefill", key, (b, plen),
+                                      (params, toks))
+                st = decode_state_struct(self.cfg, b, self.max_len,
+                                         swapper=self.swapper, heads=heads,
+                                         device=self.device)
+                cur = torch.zeros((b,), dtype=torch.long, device=self.device)
+                n += cache.precompile("decode", key, (b,),
+                                      (params, cur, 0, st))
+            if plan is not None:
+                cache.mark_plan_warm(plan)
+        cache.set_active(prev_key)
+        return n
 
     def generate(self, requests: List[Request]) -> List[Result]:
         """Serve an open-loop burst: all requests arrive now; batches of
@@ -389,6 +478,7 @@ class ServeEngine:
         then serve the batch on those params."""
         params = self.params
         plan = None
+        cache = self.compile_cache
         if self.planner is not None:
             plan = self.planner.select(
                 len(reqs) * max(len(r.prompt) for r in reqs))
@@ -397,8 +487,20 @@ class ServeEngine:
                 # Guarded: a mid-swap failure rolls back to the full-width
                 # tree (recorded on the SwapEvent) instead of dropping the
                 # batch. A plan without a module mapping still raises.
-                params, event = self.swapper.apply_guarded(plan)
+                masked = (cache is not None and bool(plan.widths)
+                          and cache.decide(plan) == "masked")
+                params, event = self.swapper.apply_guarded(plan,
+                                                           masked=masked)
                 self.swap_log.append(event)
+                if cache is not None:
+                    if event.outcome == "ok" and not masked:
+                        cache.set_active(realized_exec_key(
+                            *self.swapper.realize_plan(plan)))
+                    else:
+                        # masked or rolled back: canonical shapes
+                        cache.set_active(None)
+        elif cache is not None:
+            cache.set_active(None)
         return self._decode_batch(params, reqs), plan
 
     @torch.inference_mode()
@@ -415,9 +517,8 @@ class ServeEngine:
         toks = np.zeros((b, plen), np.int64)
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = r.prompt   # left-pad
-        logits, states = tfm.forward(params, cfg,
-                                     tokens=torch.from_numpy(toks).to(dev),
-                                     mode="prefill")
+        logits, states = self._prefill(params,
+                                       torch.from_numpy(toks).to(dev))
         states = self._ensure_states(states)
 
         cur = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
@@ -432,8 +533,7 @@ class ServeEngine:
                                  device=dev)
         track_eos = any(r.eos_id >= 0 for r in reqs)
         for t in range(max_new - 1):
-            logits, states = tfm.decode_step(params, cfg, cur, plen + t,
-                                             states)
+            logits, states = self._decode(params, cur, plen + t, states)
             logits = logits[:, :cfg.vocab_size]
             greedy = torch.argmax(logits, dim=-1)
             if any_temp:

@@ -696,3 +696,234 @@ def test_moe_family_on_the_card_vs_cpu(gen, strategy):
         reqs)
     assert all(len(r.tokens) == 4 for r in on_card)
     assert ops.LAUNCHES["moe_gmm"] == 3 * cfg.n_layers * 4
+
+
+# ---------------------------------------------------------------------------
+# the step cache: whole prefill and decode steps as CUDA graphs
+# ---------------------------------------------------------------------------
+# reduced families the kernels take (head dim 64 where flash attention runs)
+CACHED = {"qwen1.5-0.5b": dict(d_model=256, d_ff=1024, vocab=250),
+          "recurrentgemma-2b": {}, "rwkv6-1.6b": {},
+          "granite-moe-1b-a400m": dict(d_model=256, d_ff=512, vocab=250,
+                                       n_experts=16)}
+
+
+def cached_family(arch, seed=0):
+    cfg = reduced_config(get_config(arch), **CACHED[arch])
+    params = tfm.cast_params(
+        tfm.init_params(cfg, torch.Generator().manual_seed(seed)), "cuda")
+    return cfg, params
+
+
+def serve_requests(cfg, lens, seed=0, new=6):
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, size=(n,))
+                    .astype(np.int32), max_new_tokens=new) for n in lens]
+
+
+def clone_states(st):
+    if isinstance(st, dict):
+        return {k: clone_states(v) for k, v in st.items()}
+    return st.clone()
+
+
+def states_equal(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(states_equal(a[k], b[k])
+                                            for k in a)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", sorted(CACHED))
+def test_cached_steps_equal_eager_bit_for_bit(gen, arch):
+    """A reduced family through ServeEngine with a warm cache: the eager
+    engine's tokens and exact launch counts, no miss, fallback or capture
+    while serving; a replayed prefill and decode step bit-equal to the
+    eager ones on the same inputs."""
+    from repro_torch.serving import ServeEngine, WidthVariantCompileCache
+    cfg, params = cached_family(arch)
+    reqs = serve_requests(cfg, (12, 9, 4, 7))
+    eager = ServeEngine(params, cfg, max_len=24, device="cuda")
+    cache = WidthVariantCompileCache(cfg)
+    cached = ServeEngine(params, cfg, max_len=24, device="cuda",
+                         compile_cache=cache)
+    assert cached.warm_compile([], [(4, 12)]) == 2
+    assert all(e.outcome == "compiled" for e in cache.events)
+    count = cache.tracer.count
+    ops.reset_launches()
+    want = eager.generate(reqs)
+    launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    got = cached.generate(reqs)
+    assert dict(ops.LAUNCHES) == launches
+    for a, b in zip(want, got):
+        assert np.array_equal(a.tokens, b.tokens)
+    assert cache.stats["misses"] == cache.stats["fallbacks"] == 0
+    assert cache.stats["hits"] == 6 and cache.tracer.count == count
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(4, 12))).cuda()
+    with torch.inference_mode():
+        logits, st = tfm.forward(params, cfg, tokens=toks, mode="prefill")
+        st = eager._ensure_states(st)
+    c_logits, _ = cache.prefill(params, toks)
+    assert torch.equal(c_logits, logits)
+    cur = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+    st_c = clone_states(st)
+    with torch.inference_mode():
+        e_logits, st = tfm.decode_step(params, cfg, cur, 12, st)
+    c_logits, st_c = cache.decode(params, cur, 12, st_c)
+    assert torch.equal(c_logits, e_logits) and states_equal(st_c, st)
+
+
+def device_kernels_named(fn, name):
+    """How many kernels whose name holds ``name`` one call of ``fn`` runs
+    on the device, read from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.key)
+
+
+def test_replay_adds_the_captured_launches(gen):
+    """A replay launches nothing through the wrappers; the cache adds the
+    launches its capture recorded, once per replay, and they are the
+    kernels one replay runs on the device."""
+    from repro_torch.serving import WidthVariantCompileCache
+    from repro_torch.serving.compile_cache import decode_state_struct
+    cfg, params = cached_family("qwen1.5-0.5b")
+    cache = WidthVariantCompileCache(cfg)
+    toks = torch.zeros((2, 8), dtype=torch.long, device="cuda")
+    cur = torch.zeros(2, dtype=torch.long, device="cuda")
+    st = decode_state_struct(cfg, 2, 16, device="cuda")
+    before = dict(ops.LAUNCHES)
+    assert cache.precompile("prefill", cache.full_key, (2, 8),
+                            (params, toks))
+    assert cache.precompile("decode", cache.full_key, (2,),
+                            (params, cur, 0, st))
+    warm = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    # the warm-ups launched once each; the captures counted nothing
+    assert warm["flash_attention"] == cfg.n_layers
+    assert warm["matmul_tiled"] == 2 * 3 * cfg.n_layers
+    ops.reset_launches()
+    cache.prefill(params, toks)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["matmul_tiled"] == 3 * cfg.n_layers
+    for t in range(3):
+        _, st = cache.decode(params, cur, 8 + t, st)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["matmul_tiled"] == 3 * cfg.n_layers * 4
+    assert cache.stats["hits"] == 4
+    prefill = lambda: cache.prefill(params, toks)           # noqa: E731
+    decode = lambda: cache.decode(params, cur, 11, st)      # noqa: E731
+    assert device_kernels_named(prefill, "flash_attention_kernel") \
+        == cfg.n_layers
+    assert device_kernels_named(prefill, "gemm_sm90") == 3 * cfg.n_layers
+    assert device_kernels_named(decode, "flash_attention_kernel") == 0
+    assert device_kernels_named(decode, "gemm_sm90") == 3 * cfg.n_layers
+
+
+def test_replays_interleaved_with_eager_gemms_bit_equal(gen):
+    """The GEMMs' decode-form scratch is shared by eager launches and
+    every graph: replays of a captured decode step (its w_down in 4 K
+    chunks) between eager decode steps of the same shapes, and a captured
+    decode-form product between eager ones, give each run's own bits."""
+    from repro_torch.serving import ServeEngine, WidthVariantCompileCache
+    from repro_torch.serving.compile_cache import decode_state_struct
+    cfg, params = cached_family("qwen1.5-0.5b")
+    assert mt.kernel_form(4, cfg.d_ff) == (True, 4)
+    cache = WidthVariantCompileCache(cfg)
+    cache.precompile("decode", cache.full_key, (4,),
+                     (params, torch.zeros(4, dtype=torch.long,
+                                          device="cuda"), 0,
+                      decode_state_struct(cfg, 4, 24, device="cuda")))
+    eng = ServeEngine(params, cfg, max_len=24, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(4, 10))).cuda()
+    cur = torch.tensor([3, 1, 4, 1], device="cuda")
+    with torch.inference_mode():
+        st0 = eng._ensure_states(tfm.forward(params, cfg, tokens=toks,
+                                             mode="prefill")[1])
+        ref_st, ref = clone_states(st0), []
+        for t in range(4):
+            lg, ref_st = tfm.decode_step(params, cfg, cur, 10 + t, ref_st)
+            ref.append(lg.clone())
+        st_c, st_e = clone_states(st0), clone_states(st0)
+        for t in range(4):
+            lc, st_c = cache.decode(params, cur, 10 + t, st_c)
+            le, st_e = tfm.decode_step(params, cfg, cur, 10 + t, st_e)
+            assert torch.equal(lc, ref[t]) and torch.equal(le, ref[t]), t
+    assert cache.stats["hits"] == 4
+    x, w = randn(gen, 4, 2816), randn(gen, 2816, 1024)
+    x2, w2 = randn(gen, 4, 2816), randn(gen, 2816, 1024)
+    want, want2 = mt.matmul_tiled(x, w), mt.matmul_tiled(x2, w2)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mt.matmul_tiled(x, w)
+    for _ in range(3):
+        graph.replay()
+        got2 = mt.matmul_tiled(x2, w2)
+        assert torch.equal(out, want) and torch.equal(got2, want2)
+        got2 = mt.matmul_tiled(x2, w2)
+        graph.replay()
+        assert torch.equal(out, want) and torch.equal(got2, want2)
+
+
+def test_boundaries_on_the_card_replay_only_the_passed_tree(gen):
+    """Full width, plan A sliced, plan B masked (replaying the full-width
+    key's graphs), full width again, with the swapper at ``max_plans=1``
+    so that A's and B's trees are rebuilt at serve time: every step
+    replays, and the tokens equal a cold cache's (every step eager on the
+    same realizations) at every boundary."""
+    from repro_torch.core import H100_SXM
+    from repro_torch.serving import (
+        ServeEngine, ServingWidthPlanner, TrafficClass,
+        WidthPlan, WidthSwapper, WidthVariantCompileCache,
+        serving_templates)
+    cfg, params = cached_family("qwen1.5-0.5b")
+    _, modules = serving_templates(cfg, H100_SXM, tokens=96,
+                                   sites=("mlp", "attn"))
+
+    def plan(name, widths, tokens, latency, baseline):
+        return WidthPlan(traffic=TrafficClass(name, tokens), widths=widths,
+                         latency_s=latency, baseline_latency_s=baseline,
+                         satisfied=True, modules=modules)
+    plans = [plan("full", {}, 4, 1.0, 2.0),
+             plan("A", {n: (cfg.d_ff // 2 if r.site == "mlp"
+                            else 2 * cfg.head_dim)
+                        for n, r in modules.items()}, 48, 1.0, 2.0),
+             plan("B", {n: (cfg.d_ff // 4 if r.site == "mlp"
+                            else cfg.head_dim)
+                        for n, r in modules.items()}, 20, 0.999, 1.0)]
+
+    def engine(warm):
+        planner = ServingWidthPlanner(H100_SXM, [], modules=modules,
+                                      device="cuda")
+        planner.plans.update({p.traffic.name: p for p in plans})
+        cache = WidthVariantCompileCache(cfg)
+        eng = ServeEngine(params, cfg, max_len=24, device="cuda",
+                          planner=planner,
+                          swapper=WidthSwapper(params, cfg, max_plans=1),
+                          compile_cache=cache)
+        if warm:
+            eng.warm_compile(plans, [(4, 1), (4, 12), (4, 5)])
+        return eng, cache
+
+    cold, _ = engine(False)
+    warm, cache = engine(True)
+    count = cache.tracer.count
+    for lens, seed in (((1, 1, 1, 1), 3), ((12, 9, 4, 7), 4),
+                       ((5, 5, 2, 3), 5), ((1, 1, 1, 1), 6)):
+        reqs = serve_requests(cfg, lens, seed)
+        for a, b in zip(cold.generate(reqs), warm.generate(reqs)):
+            assert np.array_equal(a.tokens, b.tokens)
+    assert [e.masked for e in warm.swap_log] == [False, False, True, False]
+    assert cache.tracer.count == count
+    assert cache.stats["misses"] == cache.stats["fallbacks"] == 0
+    assert cache.stats["hits"] == 4 * 6
