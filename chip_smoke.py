@@ -9,8 +9,8 @@ the target) and ``nvcc``:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once) and prints the build time; Triton
-   compiles its kernel (the staircase) into ``build/triton`` at its first
-   launch;
+   compiles its kernels (the staircase sweeps of the tail model's TPU and
+   GPU forms) into ``build/triton`` at their first launch;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and a few ragged, GQA and local cases, and times
    the kernel, the plain version, the one PyTorch call that computes the
@@ -33,6 +33,13 @@ the target) and ``nvcc``:
    each case's form (CTAs, window steps, ring slots, copy route) logged,
    and the plain gates before it timed once; an empty Triton kernel timed
    the same way, the launch floor, beside the planner's staircase sweep;
+   the CTA-wave sweep kernel (the tail model's GPU form) at the GPU
+   planner's own sweep, 1024 x 1024 and a ragged block with shard 3; the
+   GEMM forms' CTAs an SM as read on the card, held against the constant
+   the CPU reads; paper Fig. 5 on the card (``launch.wave_verification``:
+   the GEMM timed across N at fixed M and K in both forms), failing where
+   the card's steps contradict the model's slot count and, at the run's
+   end, where its stairs at that slot count are not flat;
 4. serves 4 mixed-length requests with full-width qwen1.5-0.5b (random
    weights from seed 0) through ``ServeEngine``, with the launch counts set
    to 0 just before and read just after; checks the counts, that a second
@@ -61,9 +68,15 @@ the target) and ``nvcc``:
    wall and device ms, tokens/s of both in alternating bursts, capture
    seconds and peak memory, the graphs freed before the next family;
 5. the planner path, with the counts set to 0 just before and read just
-   after: plans two traffic classes for qwen1.5-0.5b on ``H100_SXM``
-   (one staircase-kernel sweep each), checks that the plans equal the same
-   planner's on the CPU, then serves bursts that select each class on the
+   after: plans two traffic classes for qwen1.5-0.5b on ``H100_SXM`` in
+   the GPU form (one CTA-wave sweep each; widths, CTAs and modeled waves
+   per class printed, and how the step cache would realize each plan) and
+   for ``TPU_V5E`` in the TPU form (one staircase sweep each), checks that
+   the plans equal the same planners' on the CPU, times each planned
+   layer's GEMM at its planned and its full width (each plan's measured
+   reduction beside its modeled one; a cut layer must be faster), then
+   serves bursts that
+   select each class on the
    plans' sliced weights (a cold swap, then warm ones), with exact launch
    counts and the same tokens on a repeat; serves the same bursts through
    the step cache, both classes' plans captured first, with the same
@@ -83,8 +96,10 @@ tree under SRC (e.g. the parent commit unpacked into ``build/parent/src``)
 and loads its RG-LRU wrapper, holds each against the plain version and
 times it beside this tree's in every attention, RWKV6 and RG-LRU case.
 
-Any failed check exits non-zero. Without a card, or outside a checkout, it
-exits non-zero and prints no result. TF32 is off: fp32 products are fp32.
+Any failed check exits non-zero (Fig. 5's flat-stair check after every
+phase has run, with no result line). Without a card, or outside a
+checkout, it exits non-zero and prints no result. TF32 is off: fp32
+products are fp32.
 
     python3 chip_smoke.py --host-us [SRC]
 
@@ -95,6 +110,7 @@ two trees compared on one card.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -132,6 +148,9 @@ REPLACES = {
     "matmul_tiled": "src/repro/kernels/matmul_tiled.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "staircase_fused": "src/repro/kernels/staircase_fused.py:208",
+    # the staircase sweep in the tail model's GPU form (CTA waves over the
+    # SMs), the same TPU kernel's function for a GPU spec
+    "staircase_cta": "src/repro/kernels/staircase_fused.py:208",
     "rglru_scan": "src/repro/kernels/rglru.py:43",
     "rwkv6": "src/repro/kernels/rwkv6.py:66",
     "moe_gmm": "src/repro/kernels/moe_gmm.py:39",
@@ -140,12 +159,14 @@ SOURCES = {
     "matmul_tiled": "src/repro_torch/csrc/matmul_tiled.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "staircase_fused": "src/repro_torch/kernels/staircase_fused.py",
+    "staircase_cta": "src/repro_torch/kernels/staircase_fused.py",
     "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
     "rwkv6": "src/repro_torch/csrc/rwkv6.cu",
     "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
 }
 ROUTES = {"matmul_tiled": "cuda", "flash_attention": "cuda",
-          "staircase_fused": "triton", "rglru_scan": "cuda",
+          "staircase_fused": "triton", "staircase_cta": "triton",
+          "rglru_scan": "cuda",
           "rwkv6": "cuda", "moe_gmm": "cuda"}
 # the planner path's traffic classes: one served burst selects each
 # (batch x padded prompt tokens), "long" being the full-width burst's
@@ -158,9 +179,20 @@ AB_ROUNDS = 6
 CACHED_ROUNDS = 5
 
 
+# checks whose failure ends the run only after every phase has run, so
+# that one run reads what each of them measures
+DEFERRED: list = []
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def check_at_end(cond: bool, msg: str) -> None:
+    if not cond:
+        log(f"FAILED (the run fails at its end): {msg}")
+        DEFERRED.append(msg)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -662,7 +694,8 @@ def expected_launches(tfm, cfg) -> dict:
     mlps = [m for _, m in tfm.layer_plan(cfg)]
     return {"matmul_tiled": 3 * mlps.count("dense") * NEW_TOKENS,
             "flash_attention": kinds.count("attn"), "staircase_fused": 0,
-            "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
+            "staircase_cta": 0, "rglru_scan": kinds.count("rglru"),
+            "rwkv6": kinds.count("rwkv"),
             "moe_gmm": 3 * mlps.count("moe") * NEW_TOKENS}
 
 
@@ -1118,6 +1151,134 @@ def compare_staircase(torch, sf, case) -> dict:
     return row
 
 
+def planner_sweep(mods, hw, tokens: int):
+    """(layers, w2d) of the first stacked sweep that the planner's latency
+    mode hands its model for qwen1.5-0.5b's class of ``tokens``, read from
+    the same planner on the CPU."""
+    sv = mods["serving"]
+    cfg = mods["configs"].get_config(ARCH)
+    tpl, _ = sv.serving_templates(cfg, hw, tokens=CLASSES[1][1])
+    planner = sv.ServingWidthPlanner(hw, tpl, device="cpu")
+    seen = []
+    sweep = planner.model.latency_model_packed
+
+    def spy(layers, w2d, counts):
+        seen.append((list(layers), w2d.copy()))
+        return sweep(layers, w2d, counts)
+
+    planner.model.latency_model_packed = spy
+    planner.plan([sv.TrafficClass("long", tokens)])
+    return seen[0]
+
+
+def staircase_cta_cases(np, mods) -> list:
+    """(name, widths, columns) as numpy for the CTA-wave kernel: the GPU
+    planner's own latency-mode sweep for qwen1.5-0.5b's 512-token class,
+    1024 random layer shapes x 1024 widths (prefill and decode forms, up
+    to 4 experts), and a ragged 37 x 1000 block with shard 3."""
+    hw, LayerShape = mods["H100_SXM"], mods["LayerShape"]
+    model = mods["CtaWaveModel"](hw)
+    layers, w2d = planner_sweep(mods, hw, CLASSES[1][1])
+    out = [("planner latency mode", w2d, model.kernel_columns(layers))]
+    rng = np.random.default_rng(SEED)
+    for name, rows, cols, shards in (("accuracy mode", 1024, 1024,
+                                      (1, 2, 4)),
+                                     ("ragged shard 3", 37, 1000, (3,))):
+        layers = [LayerShape(f"l{i}", tokens=int(rng.integers(1, 8192)),
+                             d_in=int(rng.integers(64, 8192)), width=1,
+                             shard_out=int(rng.choice(shards)),
+                             experts=int(rng.choice([1, 1, 4])))
+                  for i in range(rows)]
+        w = rng.integers(1, 50000, size=(rows, cols))
+        w[:, 0] = 1
+        out.append((name, w, model.kernel_columns(layers)))
+    return out
+
+
+def compare_staircase_cta(torch, sf, case) -> dict:
+    """The CTA-wave kernel against its fp64 plain version on one case:
+    waves and tiles exact, latency within rtol 1e-6; its time, the plain
+    version's and the bound."""
+    name, w, k = case
+    i32, f32 = torch.int32, torch.float32
+    cols = [(k[n], i32) for n in ("shard_out", "g", "slots")] \
+        + [(k[n], f32) for n in ("ca", "mb", "mc")]
+    args = tuple(torch.from_numpy(a.copy()).cuda().to(t)
+                 for a, t in [(w, i32)] + cols)
+    bn = k["block_n"]
+    lat, wv, tiles = sf.staircase_cta(*args, block_n=bn)
+    torch.cuda.synchronize()
+    rlat, rwv, rtiles = sf.staircase_cta_ref(*args, block_n=bn)
+    rows, ncols = w.shape
+    check(bool(torch.equal(wv.long(), rwv))
+          and bool(torch.equal(tiles.long(), rtiles)),
+          f"staircase_cta {name}: wave or tile counts differ")
+    rel = ((lat.double() - rlat).abs() / rlat.abs()).max().item()
+    check(rel <= 1e-6, f"staircase_cta {name}: relative error {rel} > 1e-6")
+    err = (lat.double() - rlat).abs().max().item()
+    # each cell: 4 B in, 12 B out; each row: six 4-byte columns; about 12
+    # int32 and fp32 operations per cell outside the tensor cores
+    b_ms, b_by = bound_ms(12.0 * rows * ncols,
+                          16.0 * rows * ncols + 24.0 * rows,
+                          peak=PEAK_FP32_FLOPS)
+    row = {"case": f"{name} {rows}x{ncols} block_n={bn}",
+           "max_abs_err": err, "max_rel_err": rel,
+           "tol": "rtol 1e-6, waves and tiles exact",
+           "ms": time_ms(torch, lambda *a: sf.staircase_cta(
+               *a, block_n=bn), args),
+           "plain_ms": time_ms(torch, lambda *a: sf.staircase_cta_ref(
+               *a, block_n=bn), args),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"staircase_cta {row['case']}: max_rel_err {rel:.3g} max_abs_err "
+        f"{err:.3g} ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+        f"bound_ms {b_ms:.5f} ({b_by}); no library call computes it")
+    return row
+
+
+def gemm_forms(mt, mg) -> None:
+    """Both GEMM libraries' prefill and decode forms read on the card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), held against the
+    constant the CPU reads (``matmul_tiled.FORMS``)."""
+    for module in (mt, mg):
+        for kind in ("prefill", "decode"):
+            got = module.form(kind)
+            want = mt.FORMS[kind]
+            check({k: got[k] for k in want} == want and
+                  got["spill_bytes"] == 0,
+                  f"{module.NAME} {kind} form {got} differs from {want}")
+            log(f"{module.NAME} {kind} form on the card: {got}")
+
+
+def fig5_on_card(mods) -> dict:
+    """Paper Fig. 5 on the card (``launch.wave_verification``): the model
+    side's v1-v3, the prefill and decode sweeps, and the prefill sweep
+    held against the model's slot count; fails where the card follows the
+    other slot count, or neither, and (at the run's end) where its stairs
+    there are not flat."""
+    wv, c = mods["wave_verification"], mods["EFFECTIVE_CTAS_PER_SM"]
+    t0 = time.perf_counter()
+    out = wv.run("cuda")
+    mc, fit = out["model"], out["fit"]
+    check(mc["v1"] and mc["v2"] and mc["v3"],
+          f"Fig. 5 model checks failed: {mc['v1']}, {mc['v2']}, "
+          f"{mc['v3']}")
+    want = wv.model_slots()
+    check(fit["follows"] == want,
+          f"Fig. 5: the card follows {fit['follows']} slots, the model's "
+          f"c = {c['prefill']} says {want}: S {fit['S']['fails'][:2]}, "
+          f"S x c {fit['Sc']['fails'][:2]}")
+    log(f"Fig. 5 on the card: the card steps with {fit['slots'][want]} "
+        f"slots (c = {fit['c']}), as the model does; "
+        f"{time.perf_counter() - t0:.1f}s")
+    flat = fit[want]
+    check_at_end(flat["flat_ok"],
+                 f"Fig. 5: the card's stairs at {fit['slots'][want]} slots "
+                 f"are not flat, as the model's are: "
+                 f"{len(flat['flat_fails'])} failed, "
+                 f"{flat['flat_fails'][:4]}")
+    return out
+
+
 def rglru_inputs(torch, case: tuple, gen) -> tuple:
     """(a, x, h0) of a case (B, T, W): decays in [0.3, 0.999), the
     reference's kernel-test range (tests/test_kernels.py:80)."""
@@ -1340,9 +1501,74 @@ def compare_moe_gmm(torch, mt, mg, case: tuple, gen) -> dict:
     return row
 
 
+def plan_tpu_form(mods, traffic) -> None:
+    """The same classes planned for ``TPU_V5E`` on the card: the TPU form
+    (``WaveQuantizationModel``) sweeps on ``staircase_fused``, one launch
+    per class, with the plans of its fp64 plain version on the CPU."""
+    sv, hw = mods["serving"], mods["TPU_V5E"]
+    cfg = mods["configs"].get_config(ARCH)
+    tpl, modules = sv.serving_templates(cfg, hw, tokens=CLASSES[1][1])
+    card = sv.ServingWidthPlanner(hw, tpl, modules=modules,
+                                  device="cuda").plan(traffic)
+    cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules,
+                                 device="cpu").plan(traffic)
+    for name, p in card.items():
+        check(cpu[name].widths == p.widths,
+              f"TPU-form plan {name}: the CPU planner chose other widths")
+        log(f"plan[{name}] for {hw.name} (TPU form, on the card): widths "
+            f"{sorted(set(p.widths.values()))}; modeled reduction "
+            f"{100 * p.latency_reduction:.2f}%; equal on the CPU")
+
+
+def plans_measured(mods, tpl, plans) -> None:
+    """Each plan's modeled reduction beside the card's: every planned
+    layer's GEMM timed (``profiler.measured_profile``) at its planned
+    width and at full width, at the class's tokens. Fails where a cut
+    layer is not faster on the card; reports whether the plan meets its
+    target on the card, not only in the model."""
+    from repro_torch.core.profiler import measured_profile
+    for name, p in plans.items():
+        meas = {}
+        for t in tpl:
+            at = dataclasses.replace(t.layer, tokens=p.traffic.tokens)
+            key = dataclasses.replace(at, name="", width=0)
+            meas.setdefault(key, (at, set()))[1].update(
+                (p.widths[t.layer.name], t.layer.width))
+        us = {}
+        for key, (at, ws) in meas.items():
+            ws = sorted(ws)
+            prof = measured_profile(at, ws, hw=mods["H100_SXM"])
+            us[key] = dict(zip(ws, (prof.latency_s * 1e6).tolist()))
+        new = full = 0.0
+        cut = {}
+        for t in tpl:
+            at = dataclasses.replace(t.layer, tokens=p.traffic.tokens,
+                                     name="", width=0)
+            w, w0 = p.widths[t.layer.name], t.layer.width
+            new, full = new + us[at][w], full + us[at][w0]
+            if w != w0:
+                cut[(w, w0)] = (us[at][w], us[at][w0])
+                check(us[at][w] < us[at][w0],
+                      f"plan {name}: {t.layer.name} at {w} columns takes "
+                      f"{us[at][w]:.3f} us on the card, not less than "
+                      f"{us[at][w0]:.3f} at {w0}")
+        card = 1.0 - new / full
+        model = p.latency_reduction
+        target = 1.0 - p.traffic.delta
+        log(f"plan[{name}] on the card: modeled reduction "
+            f"{100 * model:.2f}% (satisfied by the model {p.satisfied}); "
+            f"measured {100 * card:.2f}% (target {100 * target:.1f}%: met "
+            f"on the card {card >= target}); the model's over the card's "
+            f"{model / card if card else float('nan'):.2f}x; cut layers, us "
+            f"at (planned, full) width: "
+            f"{ {k: tuple(round(x, 3) for x in v) for k, v in cut.items()} }")
+
+
 def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
-    """The planner path: plan on the card (one staircase launch per
-    class), the same plans as on the CPU, then serve on the plans."""
+    """The planner path: plan on the card in the GPU form (one CTA-wave
+    launch per class) and, for TPU_V5E, in the TPU form (one staircase
+    launch per class), the same plans as on the CPU, then serve on the
+    GPU-form plans."""
     cfg = mods["configs"].get_config(ARCH)
     tfm, ops, sv = mods["tfm"], mods["ops"], mods["serving"]
     hw = mods["H100_SXM"]
@@ -1359,12 +1585,16 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     t0 = time.perf_counter()
     plans = planner.plan(traffic)
     plan_s = time.perf_counter() - t0
+    check(type(planner.model) is mods["CtaWaveModel"],
+          f"the planner on {hw.name} built {type(planner.model).__name__}")
+    plan_tpu_form(mods, traffic)
     after_plan = dict(ops.LAUNCHES)
     check(after_plan == {"matmul_tiled": 0, "flash_attention": 0,
-                         "staircase_fused": len(traffic), "rglru_scan": 0,
+                         "staircase_fused": len(traffic),
+                         "staircase_cta": len(traffic), "rglru_scan": 0,
                          "rwkv6": 0, "moe_gmm": 0},
-          f"planning launched {after_plan}, expected one staircase sweep "
-          f"per class ({len(traffic)})")
+          f"planning launched {after_plan}, expected one CTA-wave and one "
+          f"staircase sweep per class ({len(traffic)})")
     on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu")
     t0 = time.perf_counter()
     cpu_plans = on_cpu.plan(traffic)
@@ -1372,14 +1602,21 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     for name, p in plans.items():
         check(cpu_plans[name].widths == p.widths,
               f"plan {name}: the CPU planner chose other widths")
+    model = mods["CtaWaveModel"](hw)
     for name, p in plans.items():
-        counts = {}
-        for w in p.widths.values():
+        counts, waves = {}, {}
+        for t in tpl:
+            w = p.widths[t.layer.name]
             counts[w] = counts.get(w, 0) + 1
-        log(f"plan[{name}] ({p.traffic.tokens} tokens): widths {counts} "
-            f"of d_ff {cfg.d_ff}; modeled reduction "
-            f"{100 * p.latency_reduction:.2f}%; satisfied {p.satisfied}; "
-            f"equal on the CPU")
+            at = dataclasses.replace(t.layer, width=w,
+                                     tokens=p.traffic.tokens)
+            waves[w] = (model.blocks(at), model.waves(at))
+        log(f"plan[{name}] ({p.traffic.tokens} tokens, GPU form): widths "
+            f"{counts} of d_ff {cfg.d_ff}; (CTAs, modeled waves) per width "
+            f"{waves}; modeled reduction {100 * p.latency_reduction:.2f}%; "
+            f"satisfied {p.satisfied}; equal on the CPU; the step cache "
+            f"(compile_cost_s {cache.compile_cost_s}) realizes it "
+            f"{cache.decide(p)}")
     log(f"planner.plan() wall s, {len(traffic)} classes: card "
         f"{times['cuda']:.4f} (kernel already compiled), cpu "
         f"{times['cpu']:.4f}")
@@ -1402,8 +1639,10 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     launches = dict(ops.LAUNCHES)
     want = {k: n * len(bursts)
             for k, n in expected_launches(tfm, cfg).items()}
-    want["staircase_fused"] = len(traffic)
+    want["staircase_fused"] = want["staircase_cta"] = len(traffic)
     check(launches == want, f"planner path launched {launches} != {want}")
+    # outside the counted window: these launches time the plans
+    plans_measured(mods, tpl, plans)
     names = [p.traffic.name for p in engine.plan_log]
     check(names == ["long", "short", "long"],
           f"bursts selected {names}, expected long, short, long")
@@ -1470,7 +1709,7 @@ def cached_planned(torch, np, mods, eager, bursts, eager_outs,
     ops.reset_launches()
     outs = [engine.generate(reqs) for reqs in bursts]
     launches = dict(ops.LAUNCHES)
-    want = dict(eager_launches, staircase_fused=0)
+    want = dict(eager_launches, staircase_fused=0, staircase_cta=0)
     check(launches == want, f"cached planner path launched {launches} != "
           f"{want}")
     for eo, co in zip(eager_outs, outs):
@@ -1661,7 +1900,10 @@ def main() -> None:
         return
     import numpy as np
     from repro_torch import configs, serving
-    from repro_torch.core import H100_SXM, LayerShape
+    from repro_torch.core import H100_SXM, TPU_V5E, LayerShape
+    from repro_torch.core.tail_model import (EFFECTIVE_CTAS_PER_SM,
+                                             CtaWaveModel)
+    from repro_torch.launch import wave_verification
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_tiled as mt
@@ -1678,7 +1920,10 @@ def main() -> None:
             "recurrent": recurrent,
             "ServeEngine": ServeEngine, "serve_main": serve_main,
             "serving": serving, "serving_templates": serving.serving_templates,
-            "H100_SXM": H100_SXM, "LayerShape": LayerShape,
+            "H100_SXM": H100_SXM, "TPU_V5E": TPU_V5E,
+            "LayerShape": LayerShape, "CtaWaveModel": CtaWaveModel,
+            "EFFECTIVE_CTAS_PER_SM": EFFECTIVE_CTAS_PER_SM,
+            "wave_verification": wave_verification,
             "fused_columns": sf.fused_columns,
             "serve_batched_main": serve_batched_main}
 
@@ -1733,6 +1978,13 @@ def main() -> None:
     log(f"launch floor: an empty Triton kernel {launch_floor_ms(torch):.4f} "
         f"ms (time_ms, in a CUDA graph) beside staircase_fused "
         f"{st[0]['case']} {st[0]['ms']:.4f} ms")
+    # the tail model's GPU form: its sweep kernel at the planner's shape,
+    # 1024 x 1024 and a ragged block with shard 3
+    t0 = time.time()
+    cta = [compare_staircase_cta(torch, sf, c)
+           for c in staircase_cta_cases(np, mods)]
+    log(f"staircase_cta: {len(cta)} shapes checked and timed in "
+        f"{time.time() - t0:.1f}s, Triton's first compile included")
     # rwkv6-1.6b's prefill shape (bf16 r, k, v, as the model gives them), a
     # ragged T from a non-zero state, and constant decays at the model's
     # floor (-e^4), at -8 and at its ceiling (-e^-8): all finite; off the
@@ -1755,6 +2007,8 @@ def main() -> None:
            (32, 161, 1024, 512, False), (2, 33, 31, 32, False),
            (2, 65, 64, 63, False)]]
     gemm_edges(torch, mt, mg, gen)
+    gemm_forms(mt, mg)
+    fig5_on_card(mods)
     log(f"GEMM wrappers, host us per call: "
         f"{json.dumps(wrapper_host_us(torch, mt, mg))}")
 
@@ -1789,11 +2043,13 @@ def main() -> None:
     # granite serve for the grouped expert products
     rec_g, rec_w = (recurrent[a] for a in RECURRENT_ARCHS)
     check(all(planned["launches"][n] > 0 for n in (
-        "matmul_tiled", "flash_attention", "staircase_fused")),
+        "matmul_tiled", "flash_attention", "staircase_fused",
+        "staircase_cta")),
           f"the planner path skipped a kernel: {planned['launches']}")
     for name, row, path in (("matmul_tiled", mm[0], served),
                             ("flash_attention", fl[0], served),
                             ("staircase_fused", st[0], planned),
+                            ("staircase_cta", cta[0], planned),
                             ("rglru_scan", rgl[0], rec_g),
                             ("rwkv6", rwk[0], rec_w),
                             ("moe_gmm", mo[0], moe)):
@@ -1809,6 +2065,8 @@ def main() -> None:
             "case": row["case"]})
     log(f"card: {card}; total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
+    if DEFERRED:
+        fail(f"{len(DEFERRED)} check(s) failed during the run: {DEFERRED}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,6 +8,9 @@ staircase (Fig. 6).  We provide two generators:
 
   * ``analytic_candidates`` — from the wave-quantization model: the right
     edges are exactly the multiples of the quantum Q = shard_out * lane.
+    On a GPU spec (``gpu.GpuSpec``) the model is ``CtaWaveModel``, whose
+    stairs are CTA waves over the SMs, and the edges are found by
+    ``staircase_edges`` over a sweep at steps of Q (the port's addition).
   * ``profile_candidates`` — from a profiled/derived (width, U, T, L) table,
     exactly the paper's procedure, so the optimizer also works when fed
     measured tables (e.g. on hardware we do not have a closed form for).
@@ -26,9 +29,10 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core.gpu import is_gpu
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.tail_model import (
-    LayerShape, ModelStairTable, WaveQuantizationModel,
+    LayerShape, ModelStairTable, model_for, staircase_edges,
 )
 
 
@@ -38,14 +42,23 @@ def analytic_candidates(
     max_width: int | None = None,
     min_width: int = 1,
 ) -> np.ndarray:
-    """Multiples of the width quantum Q = shard_out * lane, in range."""
-    model = WaveQuantizationModel(hw)
+    """Multiples of the width quantum Q = shard_out * lane, in range; on a
+    GPU spec, the right edges of the CTA-wave stairs among them (the
+    widest width of each wave count, at ``layer``'s tokens)."""
+    gpu = is_gpu(hw)
+    model = model_for(hw)
     q = model.width_quantum(layer.shard_out)
     hi = max_width if max_width is not None else layer.width
     first = max(q, ((min_width + q - 1) // q) * q)
-    cands = np.arange(first, hi + 1, q, dtype=np.int64)
+    if gpu:
+        sweep = np.arange(q, hi + 1, q, dtype=np.int64)
+        edges = staircase_edges(sweep, model.latency_batch(layer, sweep)) \
+            if sweep.size else sweep
+        cands = edges[edges >= first]
+    else:
+        cands = np.arange(first, hi + 1, q, dtype=np.int64)
     if cands.size == 0:  # layer narrower than one quantum: only choice is Q
-        cands = np.array([q], dtype=np.int64)
+        cands = np.array([max(q, first) if gpu else q], dtype=np.int64)
     return cands
 
 

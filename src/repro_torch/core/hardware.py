@@ -1,6 +1,6 @@
 """Hardware specifications for the wave-quantization (tail-effect) model
 (``repro.core.hardware``'s counterpart: the four TPU entries unchanged, plus
-``H100_SXM``, the card the port runs on).
+``H100_SXM``, the card the port runs on, defined in ``core.gpu``).
 
 The paper parameterizes its latency model by the GPU's SM count ``S``
 (Titan-V: 80, P6000: 30, Jetson Nano: 1).  On TPU the scheduling granule is
@@ -17,8 +17,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict
-
-from repro_torch.kernels.matmul_tiled import BLOCK_M, BLOCK_N
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,27 +92,10 @@ TPU_LITE = HardwareSpec(
     vmem_bytes=32 * 1024**2,
 )
 
-# The card the port serves on. Its quanta are those of the port's own MLP
-# kernel's prefill tile (``csrc/gemm_sm90.cuh``: 128 token rows x 64 output
-# columns, one CTA each, one wgmma m64n128 per 16 of K with the tokens as
-# wgmma's N), so the planner plans for the tiles that actually run: a width
-# that is a multiple of ``lane`` leaves no partly filled output tile, and
-# the token axis pads to ``BLOCK_M`` rows. Decode (at most 64 rows) runs
-# 64 x 64 tiles over K chunks, whose column quantum is the same 64.
-H100_SXM = HardwareSpec(
-    name="h100_sxm",
-    peak_flops_bf16=989e12,        # dense bf16 tensor cores (data sheet)
-    hbm_bandwidth=3.35e12,         # HBM3 (data sheet)
-    ici_bandwidth_per_link=0.0,    # no ICI; NVLink is not modeled
-    ici_links=0,
-    hbm_bytes=80 * 10**9,          # 80 GB HBM3 (data sheet)
-    vmem_bytes=228 * 1024,         # shared memory + L1 per SM (Hopper)
-    mxu_dim=BLOCK_N,               # no systolic array: the output tile
-    lane=BLOCK_N,                  # matmul_tiled's output-tile columns
-    sublane_fp32=BLOCK_M,          # matmul_tiled's output-tile rows, for
-    sublane_bf16=BLOCK_M,          # every dtype
-    cores_per_chip=132,            # SMs of the SXM part (data sheet)
-)
+# The card the port serves on, a ``gpu.GpuSpec``: the tail model's GPU form
+# (``tail_model.CtaWaveModel``) plans for it. Imported here, after
+# ``HardwareSpec``, which ``gpu`` subclasses.
+from repro_torch.core.gpu import H100_SXM  # noqa: E402
 
 REGISTRY: Dict[str, HardwareSpec] = {
     s.name: s for s in (TPU_V5E, TPU_V4, TPU_V5P, TPU_LITE, H100_SXM)

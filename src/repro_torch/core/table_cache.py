@@ -87,8 +87,13 @@ _READ_ERRORS = (OSError, ValueError, KeyError, EOFError,
 @functools.lru_cache(maxsize=64)
 def _hw_json(hw: HardwareSpec) -> str:
     # dataclasses.asdict is ~100us a call; HardwareSpec is frozen, so one
-    # serialization per spec suffices for the whole process.
-    return json.dumps(dataclasses.asdict(hw), sort_keys=True)
+    # serialization per spec suffices for the whole process. A subclass's
+    # name joins the fields (a GPU spec, ``gpu.GpuSpec``, selects the tail
+    # model's GPU form); a ``HardwareSpec`` keeps its historical key.
+    fields = dataclasses.asdict(hw)
+    if type(hw) is not HardwareSpec:
+        fields["spec"] = type(hw).__name__
+    return json.dumps(fields, sort_keys=True)
 
 
 def hardware_fingerprint(hw: HardwareSpec) -> str:
@@ -102,17 +107,21 @@ def _shape_fields(layer: LayerShape) -> dict:
     Built field-by-field rather than via ``dataclasses.asdict`` — this
     runs once per layer per table build, and asdict's deep copy dominated
     cache lookups on 1000-layer stacks."""
-    return {"tokens": layer.tokens, "d_in": layer.d_in,
-            "shard_in": layer.shard_in, "shard_out": layer.shard_out,
-            "dtype_bits": layer.dtype_bits,
-            "flop_multiplier": layer.flop_multiplier}
+    out = {"tokens": layer.tokens, "d_in": layer.d_in,
+           "shard_in": layer.shard_in, "shard_out": layer.shard_out,
+           "dtype_bits": layer.dtype_bits,
+           "flop_multiplier": layer.flop_multiplier}
+    if layer.experts != 1:     # the port's field; absent keeps repro's key
+        out["experts"] = layer.experts
+    return out
 
 
 def _meta(hw: HardwareSpec, layer: LayerShape, variant: str = "") -> str:
-    # ``variant`` names the sweep engine that produced the tables (the
-    # model's ``table_variant``: "kernel-cuda" for the fp32 Triton sweep,
-    # "kernel-cpu" for its fp64 plain version); engines agree only to
-    # tolerance, so their entries must not share keys.  The empty string
+    # ``variant`` names the model form and the sweep engine that produced
+    # the tables (the model's ``table_variant``: "kernel-cuda" for the fp32
+    # Triton sweep, "kernel-cpu" for its fp64 plain version, "cta-..." for
+    # the GPU form, ``tail_model.CtaWaveModel``); forms differ and engines
+    # agree only to tolerance, so their entries must not share keys.  The empty string
     # (the exact numpy engine) keeps the historical meta/key unchanged.
     tail = f', "variant": {json.dumps(variant)}' if variant else ""
     return (f'{{"hw": {_hw_json(hw)}, "shape": '

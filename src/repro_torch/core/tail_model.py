@@ -23,6 +23,11 @@ functions L(width), U(width), T(width) — the quantities the paper profiles
 with nvprof — and ``GridWaveModel`` implements (2) for the Fig. 5
 verification benchmark.
 
+On a GPU the paper's own form comes back: ``CtaWaveModel`` (the port's
+addition, which a ``gpu.GpuSpec`` selects through ``model_for``) is Eq. 3
+over the CTA grid the port's GEMM launches, waves of S SMs times the CTAs
+an SM overlaps, behind the same interface, so Algorithm 2 runs on either.
+
 Table-driven evaluation
 -----------------------
 The model is closed-form, so a whole width sweep is one vectorized NumPy
@@ -105,6 +110,11 @@ class LayerShape:
     token count (batch already sharded by data parallelism).  ``flop_multiplier``
     scales FLOPs for layers where one "width unit" does more than one MAC per
     token-input pair (e.g. GQA heads, experts).
+
+    ``experts`` (the port's addition, read by the GPU form only) is the
+    count of such products one grouped launch computes (``moe_gmm``): it
+    multiplies the launch's CTAs. The TPU form folds experts into
+    ``flop_multiplier``, as ``repro`` does.
     """
 
     name: str
@@ -115,6 +125,7 @@ class LayerShape:
     shard_out: int = 1
     dtype_bits: int = 16
     flop_multiplier: float = 1.0
+    experts: int = 1
 
     def with_width(self, width: int) -> "LayerShape":
         return dataclasses.replace(self, width=width)
@@ -254,7 +265,132 @@ _STACKED_CHUNK = 32768
 BACKENDS = ("numpy", "kernel")
 
 
-class WaveQuantizationModel:
+class _StackedSweep:
+    """The sweep loop both forms share: the stacked model-level sweeps
+    (``latency_model_packed``, ``latency_model_batch``,
+    ``evaluate_model_batch``) in row blocks of ``_STACKED_CHUNK`` cells,
+    and the one-width wrappers. A form supplies ``_stack_columns`` (its
+    per-layer constants as (L, 1) columns) and two blocks over a (rows, C)
+    width block: ``_latency_block`` writes the latency into ``out``;
+    ``_table_block`` returns (latency, waves, utilization, throughput,
+    useful FLOPs, padded FLOPs)."""
+
+    def __init__(self, hw: HardwareSpec, backend: str = "numpy",
+                 device="cuda"):
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {backend!r}; expected one of {BACKENDS}")
+        self.hw = hw
+        self.backend = backend
+        self.device = torch.device(device)
+        self.eval_calls = 0    # number of evaluate/evaluate_batch calls
+        self.eval_points = 0   # total widths evaluated across those calls
+
+    def evaluate(self, layer: LayerShape) -> StairPoint:
+        return self.evaluate_batch(layer, [layer.width]).point(0)
+
+    def staircase(
+        self, layer: LayerShape, widths: Sequence[int]
+    ) -> list[StairPoint]:
+        return self.evaluate_batch(layer, widths).points()
+
+    @staticmethod
+    def pack_widths(
+        widths_per_layer: Sequence[Sequence[int]],
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Ragged per-layer width vectors -> padded (L, C) int64 + counts.
+
+        Pad value is 1 (any valid width); padded cells compute ordinary
+        staircase values and are masked out by ``counts`` downstream.
+        """
+        vecs = [np.atleast_1d(np.asarray(v, dtype=np.int64))
+                for v in widths_per_layer]
+        counts = np.array([v.size for v in vecs], dtype=np.int64)
+        n_layers = len(vecs)
+        n_cols = int(counts.max()) if n_layers else 0
+        if n_layers and int(counts.min()) == n_cols:
+            return (np.stack(vecs) if n_cols else
+                    np.zeros((n_layers, 0), np.int64)), counts
+        # empty + per-row fill: each cell written exactly once (np.ones
+        # would write the whole matrix and then overwrite the data region)
+        packed = np.empty((n_layers, n_cols), dtype=np.int64)
+        for i, v in enumerate(vecs):
+            packed[i, : v.size] = v
+            packed[i, v.size:] = 1
+        return packed, counts
+
+    @staticmethod
+    def _row_blocks(n_layers: int, n_cols: int):
+        rows = max(1, _STACKED_CHUNK // max(1, n_cols))
+        return [slice(r0, r0 + rows) for r0 in range(0, n_layers, rows)]
+
+    def latency_model_packed(
+        self,
+        layers: Sequence[LayerShape],
+        w2d: np.ndarray,
+        counts: np.ndarray,
+    ) -> np.ndarray:
+        """(L, C) latency matrix for a pre-packed width matrix (rows padded
+        with any valid width past ``counts[i]``; pad cells compute ordinary
+        staircase values the caller masks out).  The packed core under
+        ``latency_model_batch``, exposed so hot callers (the optimizer's
+        table build) can fill one matrix instead of L small arrays."""
+        if len(layers) != w2d.shape[0]:
+            raise ValueError("one width row per layer required")
+        self.eval_calls += 1
+        self.eval_points += int(np.asarray(counts).sum())
+        cols = self._stack_columns(layers)
+        lat = np.empty(w2d.shape, dtype=np.float64)
+        for sl in self._row_blocks(*w2d.shape):
+            self._latency_block(cols.block(sl), w2d[sl], lat[sl])
+        return lat
+
+    def latency_model_batch(
+        self,
+        layers: Sequence[LayerShape],
+        widths_per_layer: Sequence[Sequence[int]],
+    ) -> list[np.ndarray]:
+        """The latency columns of ``evaluate_model_batch`` alone — one
+        stacked sweep over all layers, returned as a ragged list of row
+        views (bit-identical to per-layer ``latency_batch`` calls).  This
+        is the optimizer's model-level table-build fast path."""
+        if len(layers) != len(widths_per_layer):
+            raise ValueError("one width vector per layer required")
+        w2d, counts = self.pack_widths(widths_per_layer)
+        lat = self.latency_model_packed(layers, w2d, counts)
+        return [lat[i, : int(counts[i])] for i in range(len(layers))]
+
+    def evaluate_model_batch(
+        self,
+        layers: Sequence[LayerShape],
+        widths_per_layer: Sequence[Sequence[int]],
+    ) -> ModelStairTable:
+        """Stacked staircase: one ``ModelStairTable`` over all layers x all
+        candidate widths.  ``layer_table(i)`` is bit-for-bit what
+        ``evaluate_batch(layers[i], widths_per_layer[i])`` returns;
+        ``layers[i].width`` is ignored (the sweep variable is the width
+        vector)."""
+        if len(layers) != len(widths_per_layer):
+            raise ValueError("one width vector per layer required")
+        w2d, counts = self.pack_widths(widths_per_layer)
+        self.eval_calls += 1
+        self.eval_points += int(counts.sum())
+        cols = self._stack_columns(layers)
+        lat, util, thr, flops, padded = (np.empty(w2d.shape, np.float64)
+                                         for _ in range(5))
+        waves = np.empty(w2d.shape, dtype=np.int64)
+        for sl in self._row_blocks(*w2d.shape):
+            lat[sl], waves[sl], util[sl], thr[sl], flops[sl], padded[sl] = \
+                self._table_block(cols.block(sl), w2d[sl])
+        return ModelStairTable(
+            layer_names=tuple(l.name for l in layers),
+            widths=w2d, counts=counts,
+            latency_s=lat, utilization=util, throughput=thr,
+            waves=waves, flops=flops, padded_flops=padded,
+        )
+
+
+class WaveQuantizationModel(_StackedSweep):
     """Closed-form staircase model L(width) = dL * ceil(width / Q).
 
     ``evaluate_batch`` is the primitive; ``evaluate``/``staircase`` are thin
@@ -270,17 +406,6 @@ class WaveQuantizationModel:
     ``device`` is where the ``"kernel"`` backend sweeps (the card unless
     the caller asks for the CPU); the numpy backend ignores it.
     """
-
-    def __init__(self, hw: HardwareSpec, backend: str = "numpy",
-                 device="cuda"):
-        if backend not in BACKENDS:
-            raise ValueError(
-                f"unknown backend {backend!r}; expected one of {BACKENDS}")
-        self.hw = hw
-        self.backend = backend
-        self.device = torch.device(device)
-        self.eval_calls = 0    # number of evaluate/evaluate_batch calls
-        self.eval_points = 0   # total widths evaluated across those calls
 
     @property
     def table_variant(self) -> str:
@@ -446,44 +571,11 @@ class WaveQuantizationModel:
             padded_flops=padded_total,
         )
 
-    def evaluate(self, layer: LayerShape) -> StairPoint:
-        return self.evaluate_batch(layer, [layer.width]).point(0)
-
-    def staircase(
-        self, layer: LayerShape, widths: Sequence[int]
-    ) -> list[StairPoint]:
-        return self.evaluate_batch(layer, widths).points()
-
     def staircase_arrays(self, layer: LayerShape, widths: Sequence[int]):
         t = self.evaluate_batch(layer, widths)
         return t.widths, t.latency_s, t.utilization, t.throughput
 
-    # ---- stacked model-level sweep --------------------------------------
-    @staticmethod
-    def pack_widths(
-        widths_per_layer: Sequence[Sequence[int]],
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """Ragged per-layer width vectors -> padded (L, C) int64 + counts.
-
-        Pad value is 1 (any valid width); padded cells compute ordinary
-        staircase values and are masked out by ``counts`` downstream.
-        """
-        vecs = [np.atleast_1d(np.asarray(v, dtype=np.int64))
-                for v in widths_per_layer]
-        counts = np.array([v.size for v in vecs], dtype=np.int64)
-        n_layers = len(vecs)
-        n_cols = int(counts.max()) if n_layers else 0
-        if n_layers and int(counts.min()) == n_cols:
-            return (np.stack(vecs) if n_cols else
-                    np.zeros((n_layers, 0), np.int64)), counts
-        # empty + per-row fill: each cell written exactly once (np.ones
-        # would write the whole matrix and then overwrite the data region)
-        packed = np.empty((n_layers, n_cols), dtype=np.int64)
-        for i, v in enumerate(vecs):
-            packed[i, : v.size] = v
-            packed[i, v.size:] = 1
-        return packed, counts
-
+    # ---- stacked model-level sweep (driven by ``_StackedSweep``) ------
     def _stack_columns(self, layers: Sequence[LayerShape]) -> _LayerColumns:
         hw = self.hw
 
@@ -572,107 +664,286 @@ class WaveQuantizationModel:
         latency = np.maximum(compute_s, memory_s, out=out)
         return latency, n_waves, padded_per_dev, nonneg
 
-    def latency_model_packed(
-        self,
-        layers: Sequence[LayerShape],
-        w2d: np.ndarray,
-        counts: np.ndarray,
-    ) -> np.ndarray:
-        """(L, C) latency matrix for a pre-packed width matrix (rows padded
-        with any valid width past ``counts[i]``; pad cells compute ordinary
-        staircase values the caller masks out).  The packed core under
-        ``latency_model_batch``, exposed so hot callers (the optimizer's
-        table build) can fill one matrix instead of L small arrays."""
-        if len(layers) != w2d.shape[0]:
-            raise ValueError("one width row per layer required")
-        self.eval_calls += 1
-        self.eval_points += int(np.asarray(counts).sum())
-        n_layers, n_cols = w2d.shape
+    def _latency_block(self, cols: _LayerColumns, w: np.ndarray,
+                       out: np.ndarray) -> None:
+        self._staircase_core_stacked(cols, w, need_padded=False, out=out)
+
+    def _table_block(self, blk: _LayerColumns, w: np.ndarray):
+        latency, n_waves, padded_per_dev, nonneg = \
+            self._staircase_core_stacked(blk, w)
+        useful = blk.two_td * w
+        if not blk.all_fm1:
+            useful = useful * blk.fm
+        padded_total = padded_per_dev
+        if not blk.all_si1:
+            padded_total = padded_total * blk.shard_in
+        if not blk.all_so1:
+            padded_total = padded_total * blk.shard_out
+        if nonneg:
+            util = useful / padded_total
+            thr = useful / latency
+        else:
+            util = np.divide(useful, padded_total,
+                             out=np.zeros_like(useful),
+                             where=padded_total != 0.0)
+            thr = np.divide(useful, latency, out=np.zeros_like(useful),
+                            where=latency != 0.0)
+        return latency, n_waves, util, thr, useful, padded_total
+
+
+# ---------------------------------------------------------------------------
+# The GPU form: paper Eq. 3 over a non-persistent GEMM's CTA grid
+# ---------------------------------------------------------------------------
+# The CTAs an SM runs at once *and* overlaps, per form of the port's GEMM
+# (``csrc/gemm_sm90.cuh``): a wave holds S x this many CTAs. Fixed from
+# the card's Fig. 5 sweep (``launch/wave_verification.py``; PERF.md §6):
+# the prefill form runs one CTA an SM (``matmul_tiled.FORMS``), and its
+# sweep steps at every S CTAs and is flat in between. (When two CTAs
+# shared an SM they took 1.6-1.8x one's time and the sweep ramped inside
+# every stair, which no slot count fits.) The decode value is the form's
+# occupancy and nothing more: the decode sweep is bound by its bytes and
+# shows no stair, so no sweep has fixed it.
+EFFECTIVE_CTAS_PER_SM = {"prefill": 1, "decode": 3}
+
+
+@dataclasses.dataclass(frozen=True)
+class CtaForm:
+    """One layer's CTA grid as a function of its width: B = g * tiles, with
+    tiles = ceil(ceil(width / shard_out) / block_n)."""
+
+    g: int              # CTAs per column tile: row tiles x K chunks x experts
+    slots: int          # CTAs in one wave: S x the effective CTAs an SM
+    block_n: int        # output columns per CTA
+    m_pad: int          # rows as the CTAs cover them
+    k_pad: int          # K as the CTAs cover it (chunks x chunk)
+    tile_flops: float   # 2 x block_m x block_n x K of one CTA
+
+
+def cta_form(hw: HardwareSpec, layer: LayerShape) -> CtaForm:
+    """``layer``'s CTA grid on ``hw``: the port's GEMM as it launches
+    (``kernels.matmul_tiled.grid_blocks``, ``kernels.moe_gmm.grid_blocks``
+    for experts > 1)."""
+    from repro_torch.kernels import matmul_tiled as mt
+    from repro_torch.kernels import moe_gmm
+    k_dev = ceil_div(layer.d_in, layer.shard_in)
+    decode, chunks = mt.kernel_form(layer.tokens, k_dev)
+    bm, bn = (mt.DECODE_BLOCK_M if decode else mt.BLOCK_M), mt.BLOCK_N
+    k_cta = mt.SPLIT_K if decode else ceil_div(k_dev, mt.BLOCK_K) \
+        * mt.BLOCK_K
+    g = mt.grid_blocks(layer.tokens, 1, k_dev) if layer.experts == 1 \
+        else moe_gmm.grid_blocks(layer.experts, layer.tokens, 1, k_dev)
+    c = EFFECTIVE_CTAS_PER_SM["decode" if decode else "prefill"]
+    return CtaForm(g=g, slots=hw.cores_per_chip * c, block_n=bn,
+                   m_pad=ceil_div(layer.tokens, bm) * bm,
+                   k_pad=chunks * k_cta, tile_flops=(2.0 * bm) * bn * k_cta)
+
+
+@dataclasses.dataclass(frozen=True)
+class _CtaColumns:
+    """Per-layer constants of the CTA-wave math as (L, 1) columns."""
+
+    shard_out: np.ndarray   # int64
+    g: np.ndarray           # int64: CTAs per column tile
+    slots: np.ndarray       # int64: CTAs a wave
+    dl: np.ndarray          # float64: one wave's time, slots x tile FLOPs
+    #                         x flop_multiplier / peak (paper Eq. 3's dL)
+    mk: np.ndarray          # int64: m_pad x k_pad
+    k_plus_m: np.ndarray    # int64: k_pad + m_pad
+    bits: np.ndarray        # int64
+    experts: np.ndarray     # int64
+    wave_flops: np.ndarray  # float64: one wave's FLOPs on all shards
+    useful: np.ndarray      # float64: useful FLOPs per unit of width
+    block_n: int
+    bytes_aligned: bool
+
+    def block(self, sl: slice) -> "_CtaColumns":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[sl]
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), np.ndarray)})
+
+
+class CtaWaveModel(_StackedSweep):
+    """Paper Eq. 3 over the grid a GEMM launches: the tail model's GPU
+    form, which a ``gpu.GpuSpec`` selects.
+
+    For a layer of width w (per device ceil(w / shard_out)), the port's
+    GEMM launches B = g * tiles CTAs, tiles = ceil(per_dev / block_n) and g
+    = row tiles x K chunks (x experts), exactly
+    ``matmul_tiled.grid_blocks(tokens, per_dev, ceil(d_in / shard_in))``
+    (``moe_gmm.grid_blocks`` for experts > 1). They run in
+    waves = ceil(B / (S * c)) of S SMs (``hw.cores_per_chip``) and c CTAs
+    an SM (``EFFECTIVE_CTAS_PER_SM``, from the card's own sweep), and
+
+        latency = max(waves * dL, bytes / bandwidth),
+
+    dL one wave's tile FLOPs (c tiles at one SM's share of the peak, times
+    ``flop_multiplier``), the bytes those of ``WaveQuantizationModel`` over
+    the CTAs' padded M, K and N (times experts). Utilization is the useful
+    FLOPs over the wave's slots' FLOPs, so Eq. 4's argmax(U x T) lands on
+    the right edges of the CTA-wave stairs.
+
+    It answers what ``TailEffectOptimizer``, ``candidates`` and
+    ``table_cache`` call on ``WaveQuantizationModel``, so Algorithm 2 runs
+    on it unchanged. ``backend`` "numpy" is the exact engine; "kernel"
+    sweeps through ``ops.staircase_cta_latency`` on ``device`` (the Triton
+    kernel, fp32, on a CUDA device; its fp64 plain version on the CPU),
+    falling back to numpy outside the kernel's domain (widths below 1,
+    dtypes that are not whole bytes), as ``WaveQuantizationModel`` does.
+    Every stacked row is bit-for-bit the per-layer sweep: both run the
+    same stacked core.
+    """
+
+    @property
+    def table_variant(self) -> str:
+        """The table cache's name for this model: the CTA-wave form, its
+        effective CTAs an SM, and the sweep engine, so a TPU-form table
+        never answers it, nor one of another engine or c."""
+        c = EFFECTIVE_CTAS_PER_SM
+        form = f"cta-gemm-c{c['prefill']}.{c['decode']}"
+        if self.backend == "numpy":
+            return form
+        return f"{form}-{self.backend}-{self.device.type}"
+
+    def form(self, layer: LayerShape) -> CtaForm:
+        return cta_form(self.hw, layer)
+
+    def width_quantum(self, shard_out: int) -> int:
+        """Widths that are multiples of this leave no partly filled CTA
+        tile (the stairs' edges are multiples of it)."""
+        from repro_torch.kernels.matmul_tiled import BLOCK_N
+        return shard_out * BLOCK_N
+
+    def blocks(self, layer: LayerShape) -> int:
+        """B of paper Eq. 3 at ``layer.width``."""
+        f = self.form(layer)
+        return f.g * ceil_div(ceil_div(layer.width, layer.shard_out),
+                              f.block_n)
+
+    def waves(self, layer: LayerShape) -> int:
+        return ceil_div(self.blocks(layer), self.form(layer).slots)
+
+    # ---- columns and the stacked core ------------------------------------
+    def _stack_columns(self, layers: Sequence[LayerShape]) -> _CtaColumns:
+        hw = self.hw
+        forms = [self.form(l) for l in layers]
+        bns = {f.block_n for f in forms}
+        if len(bns) > 1:
+            raise ValueError(f"one block_n per sweep, got {sorted(bns)}")
+
+        def col(vals, dtype):
+            return np.asarray(vals, dtype=dtype).reshape(-1, 1)
+
+        fm = col([l.flop_multiplier for l in layers], np.float64)
+        slots = col([f.slots for f in forms], np.int64)
+        tile = col([f.tile_flops for f in forms], np.float64)
+        m_pad = col([f.m_pad for f in forms], np.int64)
+        k_pad = col([f.k_pad for f in forms], np.int64)
+        bits = col([l.dtype_bits for l in layers], np.int64)
+        experts = col([l.experts for l in layers], np.int64)
+        shards = col([l.shard_in * l.shard_out for l in layers], np.float64)
+        wave = (slots * tile) * fm
+        useful = ((2.0 * col([l.tokens for l in layers], np.int64))
+                  * col([l.d_in for l in layers], np.int64)) * fm * experts
+        return _CtaColumns(
+            shard_out=col([l.shard_out for l in layers], np.int64),
+            g=col([f.g for f in forms], np.int64), slots=slots,
+            dl=wave / hw.peak_flops_bf16, mk=m_pad * k_pad,
+            k_plus_m=k_pad + m_pad, bits=bits, experts=experts,
+            wave_flops=wave * shards, useful=useful,
+            block_n=bns.pop() if bns else hw.lane,
+            bytes_aligned=bool((bits % 8 == 0).all()))
+
+    def _core(self, cols: _CtaColumns, w: np.ndarray):
+        """(latency, waves, tiles) over a (rows, C) width block."""
+        if self.backend != "numpy" and w.size and cols.bytes_aligned \
+                and int(w.min()) >= 1:
+            return self._kernel_core(cols, w)
+        hw, bn = self.hw, cols.block_n
+        per_dev = -(-w // cols.shard_out)
+        tiles = -(-per_dev // bn)
+        waves = -(-(cols.g * tiles) // cols.slots)
+        compute_s = waves * cols.dl
+        elems = cols.mk + cols.k_plus_m * (tiles * bn)
+        if cols.bytes_aligned:
+            nbytes = elems * (cols.bits // 8) * cols.experts
+        else:
+            nbytes = elems * cols.bits // 8 * cols.experts
+        return np.maximum(compute_s, nbytes / hw.hbm_bandwidth), waves, tiles
+
+    def _kernel_columns(self, cols: _CtaColumns) -> dict:
+        """The CTA-wave kernel's (L, 1) columns: latency = max(ca * waves,
+        mb * tiles + mc), ca = dL, mb and mc the bytes term's slope and
+        intercept over the tiles (byte-aligned dtypes)."""
+        hw = self.hw
+        bpe = (cols.bits // 8) * cols.experts
+        return {"shard_out": cols.shard_out, "g": cols.g,
+                "slots": cols.slots, "ca": cols.dl,
+                "mb": (cols.k_plus_m * bpe / hw.hbm_bandwidth)
+                * cols.block_n,
+                "mc": (cols.mk * bpe) / hw.hbm_bandwidth}
+
+    def kernel_columns(self, layers: Sequence[LayerShape]) -> dict:
+        """The kernel backend's per-layer columns for ``layers`` (numpy,
+        (L, 1)) and its ``block_n``: what ``ops.staircase_cta_latency``
+        takes beside the widths."""
         cols = self._stack_columns(layers)
-        lat = np.empty((n_layers, n_cols), dtype=np.float64)
-        rows = max(1, _STACKED_CHUNK // max(1, n_cols))
-        for r0 in range(0, n_layers, rows):
-            sl = slice(r0, r0 + rows)
-            self._staircase_core_stacked(
-                cols.block(sl), w2d[sl], need_padded=False, out=lat[sl])
-        return lat
+        return dict(self._kernel_columns(cols), block_n=cols.block_n)
 
-    def latency_model_batch(
-        self,
-        layers: Sequence[LayerShape],
-        widths_per_layer: Sequence[Sequence[int]],
-    ) -> list[np.ndarray]:
-        """The latency columns of ``evaluate_model_batch`` alone — one
-        stacked sweep over all layers, returned as a ragged list of row
-        views (bit-identical to per-layer ``latency_batch`` calls).  This
-        is the optimizer's model-level table-build fast path."""
-        if len(layers) != len(widths_per_layer):
-            raise ValueError("one width vector per layer required")
-        w2d, counts = self.pack_widths(widths_per_layer)
-        lat = self.latency_model_packed(layers, w2d, counts)
-        return [lat[i, : int(counts[i])] for i in range(len(layers))]
+    def _kernel_core(self, cols: _CtaColumns, w: np.ndarray):
+        """The sweep through ``kernels.ops`` on the model's device."""
+        from repro_torch.kernels import ops
+        rows = w.shape[0]
 
-    def evaluate_model_batch(
-        self,
-        layers: Sequence[LayerShape],
-        widths_per_layer: Sequence[Sequence[int]],
-    ) -> ModelStairTable:
-        """Stacked staircase: one ``ModelStairTable`` over all layers x all
-        candidate widths.  ``layer_table(i)`` is bit-for-bit what
-        ``evaluate_batch(layers[i], widths_per_layer[i])`` returns;
-        ``layers[i].width`` is ignored (the sweep variable is the width
-        vector)."""
-        if len(layers) != len(widths_per_layer):
-            raise ValueError("one width vector per layer required")
-        w2d, counts = self.pack_widths(widths_per_layer)
-        self.eval_calls += 1
-        self.eval_points += int(counts.sum())
-        n_layers, n_cols = w2d.shape
-        cols = self._stack_columns(layers)
-        shape = (n_layers, n_cols)
-        lat = np.empty(shape, dtype=np.float64)
-        util = np.empty(shape, dtype=np.float64)
-        thr = np.empty(shape, dtype=np.float64)
-        waves = np.empty(shape, dtype=np.int64)
-        flops = np.empty(shape, dtype=np.float64)
-        padded = np.empty(shape, dtype=np.float64)
-        rows = max(1, _STACKED_CHUNK // max(1, n_cols))
-        for r0 in range(0, n_layers, rows):
-            sl = slice(r0, r0 + rows)
-            blk = cols.block(sl)
-            w = w2d[sl]
-            latency, n_waves, padded_per_dev, nonneg = \
-                self._staircase_core_stacked(blk, w)
+        def put(a, dtype):
+            a = np.broadcast_to(np.asarray(a, dtype=dtype), (rows, 1))
+            return torch.from_numpy(a.copy()).to(self.device)
 
-            useful = blk.two_td * w
-            if not cols.all_fm1:
-                useful = useful * blk.fm
-            padded_total = padded_per_dev
-            if not cols.all_si1:
-                padded_total = padded_total * blk.shard_in
-            if not cols.all_so1:
-                padded_total = padded_total * blk.shard_out
+        k = self._kernel_columns(cols)
+        lat, waves, tiles = ops.staircase_cta_latency(
+            torch.from_numpy(np.ascontiguousarray(w, dtype=np.int64))
+            .to(self.device), *(put(k[n], np.int64) for n in
+                                ("shard_out", "g", "slots")),
+            *(put(k[n], np.float64) for n in ("ca", "mb", "mc")),
+            block_n=cols.block_n)
+        return (lat.cpu().numpy().astype(np.float64),
+                waves.cpu().numpy().astype(np.int64),
+                tiles.cpu().numpy().astype(np.int64))
 
-            if nonneg:
-                util[sl] = useful / padded_total
-                thr[sl] = useful / latency
-            else:
-                util[sl] = np.divide(useful, padded_total,
-                                     out=np.zeros_like(useful),
-                                     where=padded_total != 0.0)
-                thr[sl] = np.divide(useful, latency,
-                                    out=np.zeros_like(useful),
-                                    where=latency != 0.0)
-            lat[sl] = latency
-            waves[sl] = n_waves
-            flops[sl] = useful
-            padded[sl] = padded_total
-        return ModelStairTable(
-            layer_names=tuple(l.name for l in layers),
-            widths=w2d, counts=counts,
-            latency_s=lat, utilization=util, throughput=thr,
-            waves=waves, flops=flops, padded_flops=padded,
-        )
+    # ---- the blocks ``_StackedSweep`` drives ----------------------------
+    def _latency_block(self, cols: _CtaColumns, w: np.ndarray,
+                       out: np.ndarray) -> None:
+        out[...] = self._core(cols, w)[0]
+
+    def _table_block(self, blk: _CtaColumns, w: np.ndarray):
+        latency, n_waves, _ = self._core(blk, w)
+        useful = blk.useful * w
+        padded_total = n_waves * blk.wave_flops
+        util = np.divide(useful, padded_total, out=np.zeros_like(useful),
+                         where=padded_total != 0.0)
+        thr = np.divide(useful, latency, out=np.zeros_like(useful),
+                        where=latency != 0.0)
+        return latency, n_waves, util, thr, useful, padded_total
+
+    def evaluate_batch(self, layer: LayerShape,
+                       widths: Sequence[int]) -> StairTable:
+        """One layer's ``StairTable`` over a width vector: the stacked
+        sweep's single row (``layer.width`` is ignored)."""
+        w = np.atleast_1d(np.asarray(widths, dtype=np.int64))
+        return self.evaluate_model_batch([layer], [w]).layer_table(0)
+
+    def latency_batch(self, layer: LayerShape,
+                      widths: Sequence[int]) -> np.ndarray:
+        """The latency column of ``evaluate_batch`` alone."""
+        return self.latency_model_batch([layer], [widths])[0]
+
+
+def model_for(hw: HardwareSpec, backend: str = "numpy", device="cuda"):
+    """The tail model ``hw`` selects: ``CtaWaveModel`` on a GPU spec
+    (``gpu.GpuSpec``), ``WaveQuantizationModel`` on a TPU's."""
+    from repro_torch.core.gpu import is_gpu
+    cls = CtaWaveModel if is_gpu(hw) else WaveQuantizationModel
+    return cls(hw, backend=backend, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -683,26 +954,36 @@ class GridWave:
 
 
 class GridWaveModel:
-    """Paper Eq. 3 verbatim, for a Pallas kernel grid.
+    """Paper Eq. 3 verbatim, for a kernel grid.
 
     A ``pallas_call`` with grid (gm, gn, gk) issues B = gm*gn*gk cells; cells
     are scheduled onto ``cores_per_chip`` cores, so L = dL * ceil(B / S).
     This is the direct TPU transcription of the paper's block->SM wave model
     and is what ``benchmarks/wave_verification.py`` checks against the
     analytic staircase (paper Fig. 5's B / W / L panels).
+
+    ``ctas_per_sm`` (the port's addition) is the blocks an SM runs at
+    once: a wave is ``cores_per_chip * ctas_per_sm`` blocks. On a GPU spec
+    dL is their FLOPs at the chip's peak (``ctas_per_sm`` blocks at one
+    SM's share of it); on a TPU spec it is ``ctas_per_sm`` cells at the
+    chip's peak, so the default of 1 is ``repro``'s dL for every TPU spec.
     """
 
-    def __init__(self, hw: HardwareSpec, block_flops: float):
+    def __init__(self, hw: HardwareSpec, block_flops: float,
+                 ctas_per_sm: int = 1):
+        from repro_torch.core.gpu import is_gpu
         self.hw = hw
         self.block_flops = block_flops
-        # dL: one core processes one cell's FLOPs at peak.
-        self.delta_l = block_flops / hw.peak_flops_bf16
+        self.ctas_per_sm = ctas_per_sm
+        self.slots = hw.cores_per_chip * ctas_per_sm
+        blocks = self.slots if is_gpu(hw) else ctas_per_sm
+        self.delta_l = (blocks * block_flops) / hw.peak_flops_bf16
 
     def blocks_for(self, m: int, n: int, k: int, bm: int, bn: int, bk: int) -> int:
         return ceil_div(m, bm) * ceil_div(n, bn) * ceil_div(k, bk)
 
     def evaluate(self, blocks: int) -> GridWave:
-        waves = ceil_div(blocks, self.hw.cores_per_chip)
+        waves = ceil_div(blocks, self.slots)
         return GridWave(blocks=blocks, waves=waves,
                         latency_s=self.delta_l * waves)
 

@@ -30,7 +30,17 @@
 //
 // Two forms, chosen by the caller from M alone:
 // - prefill (M > DECODE_BLOCK_M): 128 x 64 tiles (m64n128k16), the whole
-//   of K in one CTA, two CTAs per SM;
+//   of K in one CTA, one CTA per SM: the CTA asks for more than half an
+//   SM's shared memory, so a second never shares its SM. Two co-resident
+//   CTAs ran 1.6-1.8x one's time, and the kernel's time then rose inside
+//   every wave of 132 CTAs on an H100 (5-6 us from 11 x 16 to 11 x 17
+//   tiles) instead of stepping at the waves' edges as paper Eq. 3 has it;
+//   one CTA per SM steps there and is flat in between (PERF.md §6).
+//   Where all of w fits in W_L2_BYTES the CTAs run row by row (n
+//   fastest), which re-reads w from the L2 for each row tile; where it
+//   does not, they run in bands of columns whose w does, every row tile
+//   of a band before the next band, so w is read from HBM about once and
+//   each wave's time stays that of the first;
 // - decode (M <= DECODE_BLOCK_M): 64 x 64 tiles (m64n64k16), K cut into
 //   chunks of the fixed length SPLIT_K, one CTA per chunk, three CTAs per
 //   SM. The 64 rows of x hold the few live ones; the weight bytes bound
@@ -78,19 +88,28 @@ constexpr int SPLIT_K = 256;       // the decode form's fixed K chunk
 constexpr int DECODE_BLOCK_M = 64; // M at or below this: the decode form
 constexpr int PREFILL_BLOCK_M = 128;
 constexpr int WG = 128;            // threads of a warpgroup
+// the share of the H100's 50 MB L2 that one band of w may fill (without
+// the bands a wave took longer once w outgrew about half the L2)
+constexpr long long W_L2_BYTES = 24ll << 20;
+// shared memory an SM holds, less a CTA's reserved 1 KB: a prefill CTA
+// asks for more than half of it
+constexpr int SM_SMEM = 227 * 1024;
 static_assert(SPLIT_K % BK == 0, "a chunk is whole K tiles");
 
 // BM: the rows of x (tokens) a CTA covers, wgmma's N
 template <int BM>
 struct Tile {
   static constexpr int THREADS = 2 * WG;                // consumer, producer
-  static constexpr int MIN_BLOCKS = BM == 128 ? 2 : 3;  // per SM
+  static constexpr int MIN_BLOCKS = BM == 128 ? 1 : 3;  // per SM
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int B_BYTES = BK * BN * 2;
   // 1024 for aligning the swizzled tiles, the ring, 2 x STAGES barriers
   // and the last-CTA flag
-  static constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) +
+  static constexpr int USED = 1024 + STAGES * (A_BYTES + B_BYTES) +
                               2 * STAGES * 8 + 16;
+  // the prefill form's request keeps its SM to itself
+  static constexpr int SMEM =
+      BM == 128 && USED <= SM_SMEM / 2 ? SM_SMEM / 2 + 1024 : USED;
 };
 
 struct Args {
@@ -104,6 +123,7 @@ struct Args {
   int splits;          // K chunks (1: all of K in one CTA)
   int tma;             // 1: loads through the tensor maps
   int x_bcast;         // x's expert stride is 0: its map holds one expert
+  int band;            // > 0: column tiles of w in one band (splits == 1)
 };
 
 // ---------------------------------------------------------------------------
@@ -188,8 +208,20 @@ gemm_kernel(__grid_constant__ const CUtensorMap map_x,
 
   const int tid = threadIdx.x;
   const int wg = tid / WG;
-  const int n0 = blockIdx.x * BN;
-  const int mt = blockIdx.y / a.splits, split = blockIdx.y % a.splits;
+  // (n tile, row of the grid) of this CTA: blockIdx itself, or, in bands
+  // of a.band column tiles, its place in launch order within its band
+  int nt = blockIdx.x, gy = blockIdx.y;
+  if (a.band > 0) {
+    const int order = blockIdx.y * gridDim.x + blockIdx.x;
+    const int per_band = a.band * gridDim.y;
+    const int b0 = order / per_band * a.band;
+    const int width = min(a.band, (int)gridDim.x - b0);
+    const int r = order - b0 * gridDim.y;
+    gy = r / width;
+    nt = b0 + r % width;
+  }
+  const int n0 = nt * BN;
+  const int mt = gy / a.splits, split = gy % a.splits;
   const int m0 = mt * BM;
   const int e = blockIdx.z;
   const int kb = a.splits > 1 ? split * SPLIT_K : 0;
@@ -316,8 +348,7 @@ gemm_kernel(__grid_constant__ const CUtensorMap map_x,
   asm volatile("bar.sync 1, %0;" ::"r"(WG) : "memory");
   if (tid == 0) {
     const int m_tiles = gridDim.y / a.splits;
-    int* cnt = a.counters + ((size_t)e * m_tiles + mt) * gridDim.x +
-               blockIdx.x;
+    int* cnt = a.counters + ((size_t)e * m_tiles + mt) * gridDim.x + nt;
     const int last = atomicAdd(cnt, 1) == a.splits - 1;
     if (last) *cnt = 0;   // every chunk has arrived: ready for the next launch
     *flag = last;
@@ -368,6 +399,46 @@ cudaError_t launch_form(const CUtensorMap& mx, const CUtensorMap& mw,
   return cudaGetLastError();
 }
 
+// The form of the kernel at BM rows into out[5]: threads a CTA, registers a
+// thread, dynamic shared memory bytes, CTAs an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), local (spilled) bytes a
+// thread. Returns 0 or a cudaError_t.
+template <int BM>
+int form_bm(int* out) {
+  using T = Tile<BM>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, gemm_kernel<BM>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(gemm_kernel<BM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<BM>,
+                                                      T::THREADS, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = T::THREADS;
+  out[1] = attr.numRegs;
+  out[2] = T::SMEM;
+  out[3] = per_sm;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+// The decode (decode != 0) or the prefill form on `device`, as form_bm.
+inline int form(int decode, int device, int* out) {
+  int current = -1;
+  if (cudaGetDevice(&current) != cudaSuccess) current = -1;
+  if (current != device) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
+  const int err = decode ? form_bm<DECODE_BLOCK_M>(out)
+                         : form_bm<PREFILL_BLOCK_M>(out);
+  if (current != device && current >= 0) cudaSetDevice(current);
+  return err;
+}
+
 // Launches one product on `device`'s `stream`. decode != 0 takes the
 // decode form with `splits` chunks of SPLIT_K (the caller's schedule); ws
 // holds splits x E x M x N floats when splits > 1, counters one zeroed int
@@ -398,6 +469,12 @@ inline int launch(const void* x, const void* w, void* out, void* ws,
   a.sx_r = sx_r;
   a.splits = decode ? splits : 1;
   a.x_bcast = sx_e == 0 || E == 1;
+  // bands of w where all of it does not fit in W_L2_BYTES (the decode
+  // form's chunks keep their order)
+  const long long w_tile = (long long)K * BN * 2;
+  a.band = !decode && w_tile * ((N + BN - 1) / BN) > W_L2_BYTES
+               ? (int)(W_L2_BYTES / w_tile > 1 ? W_L2_BYTES / w_tile : 1)
+               : 0;
   a.tma = 0;
   CUtensorMap mx, mw;
   memset(&mx, 0, sizeof(mx));

@@ -12,11 +12,12 @@
 // Bound: at the MLP's prefill shapes (M = 512) the product does about 300
 // operations per byte it must move, at the H100's ridge of ~295 bf16
 // ops/byte, and takes the prefill form: 128 x 64 tiles (m64n128k16), the
-// whole of K in each CTA, two CTAs per SM. At decode (M = batch = 4) reading the weight
-// bounds it; the decode form (64 x 64 tiles) cuts K into fixed chunks of
-// SPLIT_K = 256, so qwen1.5-0.5b's products launch 176 CTAs and
-// recurrentgemma-2b's 1200, more than one wave of 132 SMs, and the
-// chunks' fp32 partials are summed in chunk order by the tile's last CTA.
+// whole of K in each CTA, one CTA per SM (gemm_sm90.cuh says why). At
+// decode (M = batch = 4) reading the weight bounds it; the decode form
+// (64 x 64 tiles) cuts K into fixed chunks of SPLIT_K = 256, so
+// qwen1.5-0.5b's products launch 176 CTAs and recurrentgemma-2b's 1200,
+// more than one wave of 132 SMs, and the chunks' fp32 partials are summed
+// in chunk order by the tile's last CTA.
 // Ragged M, N and K are masked in the kernel (zero-filled by TMA, or by the
 // element-wise loads where TMA cannot take the strides), with no host
 // padding.
@@ -31,6 +32,15 @@ int matmul_tiled_block_m() { return gemm_sm90::PREFILL_BLOCK_M; }
 int matmul_tiled_block_n() { return gemm_sm90::BN; }
 int matmul_tiled_decode_block_m() { return gemm_sm90::DECODE_BLOCK_M; }
 int matmul_tiled_split_k() { return gemm_sm90::SPLIT_K; }
+int matmul_tiled_block_k() { return gemm_sm90::BK; }
+
+// The kernel's form on `device` (decode != 0: the decode form) into out[5]:
+// threads a CTA, registers a thread, dynamic shared memory bytes, CTAs an
+// SM holds at once, local (spilled) bytes a thread. Returns 0 or a
+// cudaError_t: the occupancy that paper Eq. 3's wave count divides by.
+int matmul_tiled_form(int decode, int device, int* out) {
+  return gemm_sm90::form(decode, device, out);
+}
 
 // decode != 0: the decode form over `splits` chunks (ws: splits x M x N
 // floats when splits > 1; counters: ceil(N / 64) zeroed ints). vec != 0

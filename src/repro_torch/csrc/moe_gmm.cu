@@ -35,6 +35,15 @@ int moe_gmm_block_c() { return gemm_sm90::PREFILL_BLOCK_M; }
 int moe_gmm_block_f() { return gemm_sm90::BN; }
 int moe_gmm_decode_block_c() { return gemm_sm90::DECODE_BLOCK_M; }
 int moe_gmm_split_k() { return gemm_sm90::SPLIT_K; }
+int moe_gmm_block_k() { return gemm_sm90::BK; }
+
+// The kernel's form on `device` (decode != 0: the decode form) into out[5]:
+// threads a CTA, registers a thread, dynamic shared memory bytes, CTAs an
+// SM holds at once, local (spilled) bytes a thread. Returns 0 or a
+// cudaError_t: the occupancy that paper Eq. 3's wave count divides by.
+int moe_gmm_form(int decode, int device, int* out) {
+  return gemm_sm90::form(decode, device, out);
+}
 
 // x: expert stride sx_e and row stride sx_r in elements, unit D stride;
 // w (E, D, F) and out (E, C, F) contiguous. decode != 0: the decode form

@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 CUDA_SOURCES = ("matmul_tiled", "flash_attention", "rwkv6",  # csrc/<name>.cu
                 "moe_gmm", "rglru_scan")
-TRITON_KERNELS = {"staircase_fused": "staircase_fused"}      # kernels/<v>.py
+TRITON_KERNELS = {"staircase_fused": "staircase_fused",      # kernels/<v>.py
+                  "staircase_cta": "staircase_fused"}
 LAUNCHES: Dict[str, int] = {k: 0 for k in CUDA_SOURCES
                             + tuple(TRITON_KERNELS)}
 

@@ -36,6 +36,15 @@ BLOCK_M = 128         # the prefill tile; csrc/matmul_tiled.cu checks it
 BLOCK_N = 64
 DECODE_BLOCK_M = 64   # M at or below this takes the decode form
 SPLIT_K = 256         # the decode form's K chunk
+BLOCK_K = 64          # K per ring stage
+# Each form's CTA as ``csrc/gemm_sm90.cuh`` builds it: threads, dynamic
+# shared memory bytes, and the CTAs an SM holds at once (a prefill CTA asks
+# for more than half of the SM's 228 KiB, so it runs alone on its SM, the
+# one CTA an SM of paper Eq. 3; the 4-stage ring of the decode form leaves
+# room for three). :func:`form` reads the same on the card, where it is
+# checked against these; on the CPU it returns them.
+FORMS = {"prefill": {"threads": 256, "smem_bytes": 117248, "ctas_per_sm": 1},
+         "decode": {"threads": 256, "smem_bytes": 66640, "ctas_per_sm": 3}}
 
 # the loads the last launch took: "tma", or "elementwise" where the base or
 # the strides are not 16-byte aligned
@@ -120,15 +129,50 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.matmul_tiled_bf16.restype = ci
     lib.matmul_tiled_error_string.argtypes = [ci]
     lib.matmul_tiled_error_string.restype = ctypes.c_char_p
+    lib.matmul_tiled_form.argtypes = [ci, ci, vp]
+    lib.matmul_tiled_form.restype = ci
     got = []
     for fn in (lib.matmul_tiled_block_m, lib.matmul_tiled_block_n,
-               lib.matmul_tiled_decode_block_m, lib.matmul_tiled_split_k):
+               lib.matmul_tiled_decode_block_m, lib.matmul_tiled_split_k,
+               lib.matmul_tiled_block_k):
         fn.argtypes = []
         fn.restype = ci
         got.append(fn())
-    if got != [BLOCK_M, BLOCK_N, DECODE_BLOCK_M, SPLIT_K]:
+    if got != [BLOCK_M, BLOCK_N, DECODE_BLOCK_M, SPLIT_K, BLOCK_K]:
         raise RuntimeError(f"matmul_tiled.cu tiles {got} differ from "
-                           f"BLOCK_M, BLOCK_N, DECODE_BLOCK_M, SPLIT_K")
+                           f"BLOCK_M, BLOCK_N, DECODE_BLOCK_M, SPLIT_K, "
+                           f"BLOCK_K")
+
+
+def read_form(name: str, bind, kind: str, device) -> dict:
+    """Form ``kind`` ("prefill" or "decode") of the GEMM library ``name``
+    (``matmul_tiled`` or ``moe_gmm``, bound by ``bind``) on ``device``:
+    :data:`FORMS` on the CPU; on a CUDA device what ``<name>_form`` reads
+    there, with registers and spilled bytes a thread."""
+    if kind not in FORMS:
+        raise ValueError(f"form kind {kind!r} not in {tuple(FORMS)}")
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dict(FORMS[kind])
+    if dev.type != "cuda":
+        raise ValueError(f"no GEMM form for device {dev}")
+    lib = build.load(name, bind)
+    out = (ctypes.c_int * 5)()
+    err = getattr(lib, f"{name}_form")(int(kind == "decode"),
+                                       dev.index or 0, out)
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name}_form({kind}) failed: {msg}")
+    return dict(zip(("threads", "registers", "smem_bytes", "ctas_per_sm",
+                     "spill_bytes"), out))
+
+
+def form(kind: str, device="cuda") -> dict:
+    """The kernel's form ``kind`` ("prefill" or "decode") on ``device``:
+    threads a CTA, dynamic shared memory bytes and CTAs an SM holds (paper
+    Eq. 3's CTAs an SM), plus registers and spilled bytes a thread on a
+    CUDA device; :data:`FORMS` on the CPU."""
+    return read_form(NAME, _bind, kind, device)
 
 
 def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -28,8 +28,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.matmul_tiled import (DECODE_BLOCK_M, SPLIT_K,
-                                              kernel_form, raw_stream,
+from repro_torch.kernels.matmul_tiled import (BLOCK_K, DECODE_BLOCK_M,
+                                              SPLIT_K, kernel_form,
+                                              raw_stream, read_form,
                                               schedule, workspace)
 from repro_torch.kernels.matmul_tiled import BLOCK_M as BLOCK_C
 from repro_torch.kernels.matmul_tiled import BLOCK_N as BLOCK_F
@@ -61,15 +62,25 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.moe_gmm_bf16.restype = ci
     lib.moe_gmm_error_string.argtypes = [ci]
     lib.moe_gmm_error_string.restype = ctypes.c_char_p
+    lib.moe_gmm_form.argtypes = [ci, ci, ctypes.c_void_p]
+    lib.moe_gmm_form.restype = ci
     got = []
     for fn in (lib.moe_gmm_block_c, lib.moe_gmm_block_f,
-               lib.moe_gmm_decode_block_c, lib.moe_gmm_split_k):
+               lib.moe_gmm_decode_block_c, lib.moe_gmm_split_k,
+               lib.moe_gmm_block_k):
         fn.argtypes = []
         fn.restype = ci
         got.append(fn())
-    if got != [BLOCK_C, BLOCK_F, DECODE_BLOCK_C, SPLIT_K]:
+    if got != [BLOCK_C, BLOCK_F, DECODE_BLOCK_C, SPLIT_K, BLOCK_K]:
         raise RuntimeError(f"moe_gmm.cu tiles {got} differ from BLOCK_C, "
-                           f"BLOCK_F, DECODE_BLOCK_C, SPLIT_K")
+                           f"BLOCK_F, DECODE_BLOCK_C, SPLIT_K, BLOCK_K")
+
+
+def form(kind: str, device="cuda") -> dict:
+    """The kernel's form ``kind`` ("prefill" or "decode") on ``device``,
+    as ``matmul_tiled.form``: the same mainloop, so the same
+    ``matmul_tiled.FORMS`` on the CPU."""
+    return read_form(NAME, _bind, kind, device)
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,8 @@ from repro_torch.kernels.moe_gmm import moe_gmm as moe_gmm_kernel, \
     moe_gmm_ref
 from repro_torch.kernels.rglru import rglru_ref, rglru_scan as rglru_kernel
 from repro_torch.kernels.rwkv6 import CHUNK, rwkv6 as rwkv6_kernel, rwkv6_ref
-from repro_torch.kernels.staircase_fused import staircase_fused, \
-    staircase_ref
+from repro_torch.kernels.staircase_fused import staircase_cta, \
+    staircase_cta_ref, staircase_fused, staircase_ref
 
 LAUNCHES = build.LAUNCHES
 reset_launches = build.reset_launches
@@ -88,6 +88,38 @@ def staircase_latency(widths, shard_out, ca, mb, mc, *, lane: int,
         widths.to(i32).contiguous(), shard_out.to(i32).contiguous(),
         ca.to(f32).contiguous(), mb.to(f32).contiguous(),
         mc.to(f32).contiguous(), lane=lane)
+
+
+def staircase_cta_latency(widths, shard_out, g, slots, ca, mb, mc, *,
+                          block_n: int, force: Optional[str] = None):
+    """CTA-wave staircase sweep (``kernels.staircase_fused``, the tail
+    model's GPU form): (L, C) widths and (L, 1) ``shard_out``, ``g``,
+    ``slots``, ``ca``, ``mb``, ``mc`` -> (latency, waves, tiles). A CUDA
+    tensor launches the Triton kernel, which computes in int32 and fp32;
+    the integers are checked against its domain first, in int64 (one host
+    sync), and cast. A CPU tensor takes the fp64 plain version."""
+    if _use_plain(widths, force):
+        return staircase_cta_ref(widths, shard_out, g, slots, ca, mb, mc,
+                                 block_n=block_n)
+    w, so = widths.to(torch.int64), shard_out.to(torch.int64)
+    gg, sl = g.to(torch.int64), slots.to(torch.int64)
+    top = 2 ** 31
+    w_max = w.amax(dim=1, keepdim=True) if w.numel() else w[:, :1]
+    most = gg * -torch.div(-(-torch.div(-w_max.clamp(min=0), so.clamp(min=1),
+                                        rounding_mode="floor")), block_n,
+                           rounding_mode="floor")
+    if bool((w < 0).any() | (w >= top).any() | (so < 1).any()
+            | (so >= top).any() | (gg < 0).any() | (sl < 1).any()
+            | (sl >= top).any() | (most >= top).any()):
+        raise ValueError("staircase_cta_latency: the kernel takes widths "
+                         "in [0, 2**31), shard_out and slots in [1, 2**31), "
+                         "g >= 0 and g x tiles below 2**31")
+    i32, f32 = torch.int32, torch.float32
+    return staircase_cta(
+        widths.to(i32).contiguous(), shard_out.to(i32).contiguous(),
+        g.to(i32).contiguous(), slots.to(i32).contiguous(),
+        ca.to(f32).contiguous(), mb.to(f32).contiguous(),
+        mc.to(f32).contiguous(), block_n=block_n)
 
 
 def rglru_scan(a, b, h0, *, force: Optional[str] = None):

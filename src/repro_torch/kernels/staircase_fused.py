@@ -28,7 +28,20 @@ loads cover the ragged edges that the TPU version pads on the host. Like
 the TPU kernel it computes in int32 and fp32, so ``mb * waves + mc`` may be
 one FMA and the latency may differ from the fp64 plain version by an ulp.
 
-Triton is imported, and the kernel compiled, at the first launch
+The GPU form of the tail model (``tail_model.CtaWaveModel``, paper Eq. 3
+over the GEMM's CTA grid) sweeps through a second kernel of the same kind,
+``staircase_cta``, with per-row ``g`` (CTAs per column tile: row tiles x K
+chunks x experts) and ``slots`` (CTAs a wave) columns::
+
+    tiles     = ceil(ceil(width / shard_out) / block_n)
+    waves     = ceil(g * tiles / slots)
+    latency   = max(ca * waves, mb * tiles + mc)
+
+``staircase_cta_ref`` is its plain fp64 version. It is one elementwise pass
+too (4 B read and 12 B written a cell, six 4-byte columns a row), and has
+no counterpart in ``repro``, whose model is the TPU form.
+
+Triton is imported, and the kernels compiled, at the first launch
 (``build.import_triton``), never when this module is imported.
 """
 
@@ -42,9 +55,10 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = ["fused_coeffs", "fused_columns", "staircase_ref",
-           "staircase_fused"]
+           "staircase_fused", "staircase_cta_ref", "staircase_cta"]
 
 NAME = "staircase_fused"
+CTA_NAME = "staircase_cta"
 BLOCK_R = 8       # rows per program (the TPU kernel's block_r)
 BLOCK_C = 128     # candidates per program (the TPU kernel's block_c)
 
@@ -140,13 +154,80 @@ def _staircase_kernel(w_ptr, so_ptr, ca_ptr, mb_ptr, mc_ptr,
              mask=mask)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
+def _staircase_cta_kernel(w_ptr, so_ptr, g_ptr, sl_ptr, ca_ptr, mb_ptr,
+                          mc_ptr, lat_ptr, wv_ptr, tl_ptr, rows, cols,
+                          block_n, BLOCK_R: tl.constexpr,
+                          BLOCK_C: tl.constexpr):
+    r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+    c = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+    rmask = r < rows
+    mask = rmask[:, None] & (c < cols)[None, :]
+    offs = r[:, None] * cols + c[None, :]
+    # masked lanes still compute: width 1, shard 1 and one slot keep them
+    # finite
+    w = tl.load(w_ptr + offs, mask=mask, other=1)
+    so = tl.load(so_ptr + r, mask=rmask, other=1)[:, None]
+    g = tl.load(g_ptr + r, mask=rmask, other=0)[:, None]
+    sl = tl.load(sl_ptr + r, mask=rmask, other=1)[:, None]
+    ca = tl.load(ca_ptr + r, mask=rmask, other=0.0)[:, None]
+    mb = tl.load(mb_ptr + r, mask=rmask, other=0.0)[:, None]
+    mc = tl.load(mc_ptr + r, mask=rmask, other=0.0)[:, None]
+    # ceil as quotient plus one for a remainder (truncating division,
+    # operands >= 0); g * tiles < 2**31 is checked by the dispatch
+    per_dev = w // so + (w % so != 0).to(tl.int32)
+    tiles = per_dev // block_n + (per_dev % block_n != 0).to(tl.int32)
+    b = g * tiles
+    nw = b // sl + (b % sl != 0).to(tl.int32)
+    lat = tl.maximum(ca * nw.to(tl.float32), mb * tiles.to(tl.float32) + mc)
+    tl.store(lat_ptr + offs, lat, mask=mask)
+    tl.store(wv_ptr + offs, nw, mask=mask)
+    tl.store(tl_ptr + offs, tiles, mask=mask)
+
+
+def _jit(fn):
     global tl
     triton = build.import_triton()
     import triton.language
     tl = triton.language
-    return triton.jit(_staircase_kernel)
+    return triton.jit(fn)
+
+
+def _check_sweep(name: str, args: tuple, n_int: int, quantum: int):
+    """A sweep kernel's inputs: (L, C) widths then (L, 1) columns, the
+    first ``n_int`` int32 and the rest fp32, contiguous, on one CUDA
+    device; fewer than 2**31 cells and a quantum (lane or block_n) >= 1.
+    Returns (L, C)."""
+    widths = args[0]
+    if not all(t.is_cuda and t.device == widths.device for t in args):
+        raise ValueError(f"{name}: every input must lie on one CUDA "
+                         f"device")
+    if any(t.dtype != torch.int32 for t in args[:n_int]) \
+            or any(t.dtype != torch.float32 for t in args[n_int:]):
+        raise TypeError(f"{name}: takes {n_int} int32 then "
+                        f"{len(args) - n_int} fp32 inputs, got "
+                        f"{[t.dtype for t in args]}")
+    if widths.dim() != 2:
+        raise ValueError(f"{name}: widths must be 2-D (layers, "
+                         f"candidates), got shape {tuple(widths.shape)}")
+    rows, cols = widths.shape
+    if any(tuple(t.shape) != (rows, 1) for t in args[1:]):
+        raise ValueError(f"{name}: columns must be ({rows}, 1)")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if rows * cols >= 2 ** 31 or quantum < 1:
+        raise ValueError(f"{name}: {rows}x{cols} cells or quantum "
+                         f"{quantum} out of range")
+    return rows, cols
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _jit(_staircase_kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def _cta_kernel():
+    return _jit(_staircase_cta_kernel)
 
 
 def staircase_fused(widths: torch.Tensor, shard_out: torch.Tensor,
@@ -160,24 +241,7 @@ def staircase_fused(widths: torch.Tensor, shard_out: torch.Tensor,
     the TPU kernel; the kernel does not check the values
     (``ops.staircase_latency`` does, before it casts)."""
     args = (widths, shard_out, ca, mb, mc)
-    if not all(t.is_cuda and t.device == widths.device for t in args):
-        raise ValueError("staircase_fused: every input must lie on one "
-                         "CUDA device")
-    if widths.dtype != torch.int32 or shard_out.dtype != torch.int32 \
-            or any(t.dtype != torch.float32 for t in (ca, mb, mc)):
-        raise TypeError("staircase_fused: takes int32 widths and shard_out "
-                        "and fp32 ca, mb, mc")
-    if widths.dim() != 2:
-        raise ValueError(f"staircase_fused: widths must be 2-D (layers, "
-                         f"candidates), got shape {tuple(widths.shape)}")
-    rows, cols = widths.shape
-    if any(tuple(t.shape) != (rows, 1) for t in args[1:]):
-        raise ValueError(f"staircase_fused: columns must be ({rows}, 1)")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("staircase_fused: inputs must be contiguous")
-    if rows * cols >= 2 ** 31 or lane < 1:
-        raise ValueError(f"staircase_fused: {rows}x{cols} cells or lane "
-                         f"{lane} out of range")
+    rows, cols = _check_sweep(NAME, args, 2, lane)
     lat = torch.empty((rows, cols), dtype=torch.float32, device=widths.device)
     waves = torch.empty((rows, cols), dtype=torch.int32, device=widths.device)
     occ = torch.empty((rows, cols), dtype=torch.float32, device=widths.device)
@@ -191,3 +255,49 @@ def staircase_fused(widths: torch.Tensor, shard_out: torch.Tensor,
                      num_warps=4)
     build.LAUNCHES[NAME] += 1
     return lat, waves, occ
+
+
+def staircase_cta_ref(widths, shard_out, g, slots, ca, mb, mc, *,
+                      block_n: int):
+    """Plain version of the CTA-wave kernel: (latency float64, waves
+    int64, tiles int64) over (L, C) widths and (L, 1) ``shard_out``,
+    ``g``, ``slots``, ``ca``, ``mb``, ``mc``, on their device."""
+    w = widths.to(torch.int64)
+    per_dev = -torch.div(-w, shard_out.to(torch.int64),
+                         rounding_mode="floor")
+    tiles = -torch.div(-per_dev, block_n, rounding_mode="floor")
+    n_waves = -torch.div(-(g.to(torch.int64) * tiles),
+                         slots.to(torch.int64), rounding_mode="floor")
+    latency = torch.maximum(
+        ca.to(torch.float64) * n_waves.to(torch.float64),
+        mb.to(torch.float64) * tiles.to(torch.float64)
+        + mc.to(torch.float64))
+    return latency, n_waves, tiles
+
+
+def staircase_cta(widths: torch.Tensor, shard_out: torch.Tensor,
+                  g: torch.Tensor, slots: torch.Tensor, ca: torch.Tensor,
+                  mb: torch.Tensor, mc: torch.Tensor, *, block_n: int):
+    """Launch the CTA-wave kernel on the current stream: (L, C) int32
+    widths, (L, 1) int32 ``shard_out``/``g``/``slots`` and (L, 1) fp32
+    ``ca``/``mb``/``mc``, contiguous, on one CUDA device -> (latency fp32,
+    waves int32, tiles int32), (L, C).
+
+    Widths must be >= 0, ``shard_out`` and ``slots`` >= 1, ``g`` >= 0 and
+    ``g`` times a row's most tiles below 2**31; the kernel does not check
+    the values (``ops.staircase_cta_latency`` does, before it casts)."""
+    args = (widths, shard_out, g, slots, ca, mb, mc)
+    rows, cols = _check_sweep(CTA_NAME, args, 4, block_n)
+    dev = widths.device
+    lat = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    waves = torch.empty((rows, cols), dtype=torch.int32, device=dev)
+    tiles = torch.empty((rows, cols), dtype=torch.int32, device=dev)
+    if rows == 0 or cols == 0:
+        return lat, waves, tiles
+    kernel = _cta_kernel()
+    grid = (-(-rows // BLOCK_R), -(-cols // BLOCK_C))
+    with torch.cuda.device(dev):
+        kernel[grid](*args, lat, waves, tiles, rows, cols, int(block_n),
+                     BLOCK_R=BLOCK_R, BLOCK_C=BLOCK_C, num_warps=4)
+    build.LAUNCHES[CTA_NAME] += 1
+    return lat, waves, tiles

@@ -5,8 +5,9 @@ ported).
     PYTHONPATH=src python -m repro_torch.launch.serve_batched --device cpu
 
 On the card (the default) it serves full-width qwen1.5-0.5b and plans for
-``H100_SXM``, whose width quantum is the MLP kernel's 64-column tile; the
-planner's table sweep runs on the staircase kernel. With ``--device cpu``
+``H100_SXM`` in the tail model's GPU form (``CtaWaveModel``: waves of the
+MLP kernel's CTAs over the SMs, paper Eq. 3); the planner's table sweep
+runs on the CTA-wave Triton kernel. With ``--device cpu``
 it runs the example's reduced model, whose FFN width (576) is deliberately
 misaligned with ``TPU_V5E``'s 128-lane quantum, on the plain versions.
 Either way it plans per-traffic-class widths with Algorithm 2 and serves a

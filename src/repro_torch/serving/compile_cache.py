@@ -185,24 +185,41 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
+def _version(x: torch.Tensor):
+    """The tensor's in-place version counter, or None for an inference
+    tensor, which keeps none."""
+    try:
+        return x._version
+    except RuntimeError:
+        return None
+
+
 class _StaticParams:
     """A realized key's static param tree, which its graphs read, and the
-    leaves last copied into it (held, so that ``is`` tells a leaf apart
-    from one that merely reuses a freed tensor's id)."""
+    leaves last copied into it with their version counters (the leaves are
+    held, so that ``is`` tells a leaf apart from one that merely reuses a
+    freed tensor's id, and a leaf changed in place since shows by its
+    version)."""
 
     def __init__(self, params: dict):
         self.tree = _clone(params)
         self.static = leaves(self.tree)
         self.loaded = leaves(params)
+        self.versions = [_version(x) for x in self.loaded]
 
     def load(self, params: dict) -> None:
         """Copy ``params`` in, leaf by leaf, skipping the leaves copied in
-        last. Raises, copying nothing, where the trees do not fit."""
+        last unless they changed in place since (an inference tensor keeps
+        no version, so it is copied every time). Raises, copying nothing,
+        where the trees do not fit."""
         src = leaves(params)
         if len(src) != len(self.static):
             raise ValueError("the tree's structure differs from the key's "
                              "static params")
-        todo = [i for i, x in enumerate(src) if x is not self.loaded[i]]
+        versions = [_version(x) for x in src]
+        todo = [i for i, x in enumerate(src)
+                if x is not self.loaded[i] or versions[i] is None
+                or versions[i] != self.versions[i]]
         for i in todo:
             d, x = self.static[i], src[i]
             if d.shape != x.shape or d.dtype != x.dtype:
@@ -211,6 +228,7 @@ class _StaticParams:
         for i in todo:
             self.static[i].copy_(src[i])
             self.loaded[i] = src[i]
+            self.versions[i] = versions[i]
 
 
 @dataclasses.dataclass

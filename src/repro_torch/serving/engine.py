@@ -15,7 +15,8 @@ entry points set it so.
 Width planning and live swapping, as in ``repro``: ``ServingWidthPlanner``
 runs the paper's Algorithm 2 once per traffic class (token-volume bucket)
 over the stacked staircase tables — on the card that sweep is one launch of
-the Triton staircase kernel per class — and at each batch boundary the
+a Triton staircase kernel per class (on a GPU spec the CTA-wave one, paper
+Eq. 3 over the GEMM's grid) — and at each batch boundary the
 engine selects the class nearest the batch's token volume (``plan_log``)
 and, with a ``width_swap.WidthSwapper`` attached, serves the batch on the
 plan's sliced params (``swap_log``; a warm swap is a cache lookup).
@@ -201,7 +202,9 @@ class ServingWidthPlanner:
     each traffic class re-tokens the shapes and runs one optimize pass.
     All per-class table builds go through the same
     ``TailEffectOptimizer`` — one stacked sweep per class, through the
-    staircase kernel on ``device`` (its plain version on the CPU) — and,
+    staircase kernel on ``device`` (its plain version on the CPU; on a GPU
+    spec, the tail model's GPU form, ``CtaWaveModel``, through the
+    CTA-wave kernel, or its exact numpy engine on the CPU) — and,
     when a ``table_cache.ProfileTableCache`` is supplied, tables persist
     across planner restarts (a warm planner performs zero model sweeps).
 
@@ -215,13 +218,19 @@ class ServingWidthPlanner:
                  tau_frac: float = 0.02,
                  modules: "dict[str, ModuleRef] | None" = None,
                  device="cuda", compile_cache=None):
-        from repro_torch.core.tail_model import WaveQuantizationModel
+        from repro_torch.core.gpu import is_gpu
+        from repro_torch.core.tail_model import model_for
         from repro_torch.core.tail_optimizer import TailEffectOptimizer
 
         self.hw = hw
         self.layers = list(layers)
-        self.model = WaveQuantizationModel(hw, backend="kernel",
-                                           device=require_device(device))
+        device = require_device(device)
+        # the GPU form plans on the CTA-wave kernel on the card and on the
+        # exact numpy engine on the CPU; the TPU form on its staircase
+        # kernel, or that kernel's fp64 plain version on the CPU
+        backend = "numpy" if is_gpu(hw) and device.type == "cpu" \
+            else "kernel"
+        self.model = model_for(hw, backend=backend, device=device)
         self.opt = TailEffectOptimizer(self.model, cache=cache)
         self.tau_frac = tau_frac
         self.compile_cache = compile_cache

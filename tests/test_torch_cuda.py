@@ -44,7 +44,10 @@ def randn(gen, *shape):
     (4, 600, 200), (1, 2752, 1024), (4, 7680, 2560),
     # M across the decode/prefill switch (64 | 65) and the prefill tile (128)
     (1, 520, 136), (64, 520, 136), (65, 520, 136), (128, 600, 200),
-    (129, 600, 200), (512, 1024, 2816)])
+    (129, 600, 200), (512, 1024, 2816),
+    # w past 24 MiB: the prefill CTAs run in bands of columns (a ragged
+    # last band; TMA and element-wise loads)
+    (300, 4096, 6400), (129, 4097, 6401)])
 def test_matmul_kernel_vs_plain(gen, m, k, n):
     x, w = randn(gen, m, k), randn(gen, k, n)
     before = ops.LAUNCHES["matmul_tiled"]
@@ -74,7 +77,8 @@ def test_matmul_kernel_unaligned_input(gen):
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 2816, 1024), (4, 600, 72),
-                                   (512, 1024, 2816), (100, 130, 70)])
+                                   (512, 1024, 2816), (100, 130, 70),
+                                   (300, 4096, 6400)])
 def test_matmul_kernel_repeats_bit_equal(gen, m, k, n):
     """No float atomics: the decode form's chunks are summed in a fixed
     order by whichever CTA ends last, so two launches give the same bits;
@@ -232,7 +236,7 @@ def test_prefill_on_kernels_vs_plain(gen):
     got, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill")
     assert ops.LAUNCHES == {"matmul_tiled": 3 * cfg.n_layers,
                             "flash_attention": cfg.n_layers,
-                            "staircase_fused": 0, "rglru_scan": 0,
+                            "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
                             "rwkv6": 0, "moe_gmm": 0}
     want, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill",
                           force="plain")
@@ -307,19 +311,139 @@ def test_staircase_dispatch_checks_and_casts(gen, itype):
         sf.staircase_fused(w, so, c, c, c, lane=64)
 
 
-def test_planner_on_the_card_equals_the_cpu(gen):
-    from repro_torch.core import H100_SXM
+# ---------------------------------------------------------------------------
+# the GPU form: the CTA-wave kernel (Triton), the GEMM forms, Fig. 5
+# ---------------------------------------------------------------------------
+def cta_inputs(rows, cols, shards=(1, 2, 3, 8), seed=0):
+    """int32 widths in [1, 50000) with width 1 and exact multiples of
+    shard x 64 first, ``g`` as the port's GEMM gives it (1-64 row tiles x
+    1-16 K chunks), slots 132 x 1-3, fp32 coefficient columns."""
+    rng = np.random.default_rng(seed)
+    so = rng.choice(shards, size=(rows, 1))
+    w = rng.integers(1, 50000, size=(rows, cols))
+    w[:, 0] = 1
+    if cols > 1:
+        w[:, 1] = so[:, 0] * 64 * rng.integers(1, 20, size=rows)
+    g = rng.integers(1, 65, size=(rows, 1)) * rng.integers(1, 17,
+                                                           size=(rows, 1))
+    sl = 132 * rng.integers(1, 4, size=(rows, 1))
+    cols_f = [rng.random((rows, 1)) * 1e-5 for _ in range(3)]
+    return tuple(torch.from_numpy(a).cuda().to(t) for a, t in
+                 ((w, torch.int32), (so, torch.int32), (g, torch.int32),
+                  (sl, torch.int32),
+                  *((c, torch.float32) for c in cols_f)))
+
+
+@pytest.mark.parametrize("rows,cols,shards", [
+    (1, 1, (1,)), (3, 5, (1, 2)), (24, 3, (1,)), (24, 45, (1,)),
+    (40, 257, (1, 2, 3, 8)), (37, 1000, (3,)), (1024, 1024, (1, 2, 3, 8))])
+def test_staircase_cta_kernel_vs_plain(gen, rows, cols, shards):
+    """Waves and tiles exact; latency within rtol 1e-6 (fp32 kernel vs
+    the fp64 plain version on the same fp32 inputs)."""
+    args = cta_inputs(rows, cols, shards)
+    before = ops.LAUNCHES["staircase_cta"]
+    lat, wv, tiles = sf.staircase_cta(*args, block_n=64)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["staircase_cta"] == before + 1
+    assert (lat.dtype, wv.dtype, tiles.dtype) == (
+        torch.float32, torch.int32, torch.int32)
+    rlat, rwv, rtiles = sf.staircase_cta_ref(*args, block_n=64)
+    assert torch.equal(wv.long(), rwv) and torch.equal(tiles.long(), rtiles)
+    assert ((lat.double() - rlat).abs() <= 1e-6 * rlat.abs()).all()
+
+
+def test_staircase_cta_dispatch_checks_and_casts(gen):
+    """The int32 domain (g x tiles included) is checked in int64 and the
+    inputs cast; a CPU tensor takes the plain version."""
+    w = torch.tensor([[1, 64, 65, 8448]], device="cuda")
+    one = torch.ones(1, 1, dtype=torch.int64, device="cuda")
+    c = torch.full((1, 1), 1e-6, dtype=torch.float64, device="cuda")
+    lat, wv, tiles = ops.staircase_cta_latency(w, one, one * 4, one * 264,
+                                               c, c, c, block_n=64)
+    assert tiles.tolist() == [[1, 1, 2, 132]]
+    assert wv.tolist() == [[1, 1, 1, 2]] and lat.dtype == torch.float32
+    for bad in [dict(w=-w), dict(so=one * 0), dict(sl=one * 0),
+                dict(g=-one), dict(g=one * 2 ** 30)]:
+        kw = dict(w=w, so=one, g=one, sl=one) | bad
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            ops.staircase_cta_latency(kw["w"], kw["so"], kw["g"], kw["sl"],
+                                      c, c, c, block_n=64)
+    with pytest.raises(TypeError):
+        sf.staircase_cta(w, one, one, one, c, c, c, block_n=64)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("module", [mt, mg])
+def test_gemm_forms_read_on_the_card(gen, module, kind):
+    """Each GEMM library's form on the card: the threads, shared bytes
+    and CTAs an SM of ``matmul_tiled.FORMS``, no spills."""
+    got = module.form(kind)
+    assert {k: got[k] for k in mt.FORMS[kind]} == mt.FORMS[kind]
+    assert got["spill_bytes"] == 0 and 0 < got["registers"] <= 255
+    assert module.form(kind, "cpu") == mt.FORMS[kind]
+
+
+def test_cta_model_kernel_backend_equals_numpy(gen):
+    """``CtaWaveModel``'s kernel backend on the card against its numpy
+    engine: equal waves, latency within rtol 1e-6, stacked and per
+    layer."""
+    from repro_torch.core import H100_SXM, LayerShape
+    from repro_torch.core.tail_model import CtaWaveModel
+    rng = np.random.default_rng(1)
+    layers = [LayerShape(f"l{i}", tokens=int(rng.integers(1, 5000)),
+                         d_in=int(rng.integers(1, 8000)), width=1,
+                         shard_out=int(rng.choice([1, 2, 3])),
+                         experts=int(rng.choice([1, 1, 4])))
+              for i in range(30)]
+    widths = [rng.integers(1, 20000, size=int(rng.integers(1, 80)))
+              for _ in layers]
+    ker = CtaWaveModel(H100_SXM, backend="kernel")
+    ref = CtaWaveModel(H100_SXM)
+    a = ker.evaluate_model_batch(layers, widths)
+    b = ref.evaluate_model_batch(layers, widths)
+    assert np.array_equal(a.waves, b.waves)
+    np.testing.assert_allclose(a.latency_s, b.latency_s, rtol=1e-6)
+    assert ker.table_variant == ref.table_variant + "-kernel-cuda"
+
+
+def test_measured_profile_on_the_card(gen):
+    """``measured_profile`` times the GEMM at each width: positive and
+    finite, with the model's waves and the replays' spread beside each
+    time."""
+    from repro_torch.core import H100_SXM, LayerShape
+    from repro_torch.core.profiler import measured_profile
+    from repro_torch.core.tail_model import CtaWaveModel
+    layer = LayerShape("ffn", tokens=512, d_in=1024, width=2816)
+    prof = measured_profile(layer, [64, 2816], hw=H100_SXM, reps=5,
+                            repeats=3)
+    assert prof.source == "measured"
+    assert np.isfinite(prof.latency_s).all() and (prof.latency_s > 0).all()
+    assert prof.waves.tolist() == CtaWaveModel(H100_SXM).evaluate_batch(
+        layer, [64, 2816]).waves.tolist()
+    assert (prof.throughput > 0).all()
+    assert prof.spread_s.shape == (2,) and (prof.spread_s >= 0).all()
+
+
+@pytest.mark.parametrize("spec,kernel", [("tpu_v5e", "staircase_fused"),
+                                         ("h100_sxm", "staircase_cta")])
+def test_planner_on_the_card_equals_the_cpu(gen, spec, kernel):
+    """A TPU spec plans in the TPU form on ``staircase_fused``, the H100 in
+    the GPU form on ``staircase_cta``: one launch per class either way,
+    and the plans the CPU makes (the GPU form on its numpy engine)."""
+    from repro_torch.core import get_hardware
     from repro_torch.serving import ServingWidthPlanner, TrafficClass, \
         serving_templates
+    hw = get_hardware(spec)
     cfg = get_config("qwen1.5-0.5b")
     traffic = [TrafficClass("decode", 4), TrafficClass("short", 128),
                TrafficClass("prefill", 8192, delta=0.9)]
-    tpl, mods = serving_templates(cfg, H100_SXM, tokens=512,
+    tpl, mods = serving_templates(cfg, hw, tokens=512,
                                   sites=("mlp", "attn"))
     ops.reset_launches()
-    card = ServingWidthPlanner(H100_SXM, tpl, modules=mods).plan(traffic)
-    assert ops.LAUNCHES["staircase_fused"] == len(traffic)
-    cpu = ServingWidthPlanner(H100_SXM, tpl, modules=mods,
+    card = ServingWidthPlanner(hw, tpl, modules=mods).plan(traffic)
+    assert ops.LAUNCHES[kernel] == len(traffic)
+    assert sum(ops.LAUNCHES.values()) == len(traffic)
+    cpu = ServingWidthPlanner(hw, tpl, modules=mods,
                               device="cpu").plan(traffic)
     for name in cpu:
         assert card[name].widths == cpu[name].widths
@@ -557,7 +681,7 @@ def test_recurrent_family_on_the_card_vs_cpu(gen, arch):
     kinds = cfg.layer_kinds()
     assert ops.LAUNCHES == {
         "matmul_tiled": 3 * sum(k != "rwkv" for k in kinds),
-        "flash_attention": kinds.count("attn"), "staircase_fused": 0,
+        "flash_attention": kinds.count("attn"), "staircase_fused": 0, "staircase_cta": 0,
         "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
         "moe_gmm": 0}
     v = cfg.vocab_size
@@ -683,7 +807,7 @@ def test_moe_family_on_the_card_vs_cpu(gen, strategy):
                               moe_strategy=strategy)
     assert ops.LAUNCHES == {"matmul_tiled": 0,
                             "flash_attention": cfg.n_layers,
-                            "staircase_fused": 0, "rglru_scan": 0,
+                            "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
                             "rwkv6": 0, "moe_gmm": 3 * cfg.n_layers}
     v = cfg.vocab_size
     card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()

@@ -262,7 +262,7 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
     assert p != build.library_path("matmul_tiled")
     assert set(build.CUDA_SOURCES) == {"matmul_tiled", "flash_attention",
                                        "rwkv6", "moe_gmm", "rglru_scan"}
-    assert set(build.TRITON_KERNELS) == {"staircase_fused"}
+    assert set(build.TRITON_KERNELS) == {"staircase_fused", "staircase_cta"}
     assert set(build.LAUNCHES) == set(build.CUDA_SOURCES) \
         | set(build.TRITON_KERNELS)
     assert all((build.CSRC / f"{n}.cu").is_file()
