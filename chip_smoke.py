@@ -86,7 +86,24 @@ the target) and ``nvcc``:
    alternating bursts; checks that a hand-narrowed
    plan's sliced forward equals its zero-masked full-shape forward on the
    kernels, and runs ``launch.serve_batched`` on the card;
-6. prints one JSON line with every kernel's numbers, then, last,
+6. the continuous path (after the planner path, before the recurrent
+   families): full-width qwen1.5-0.5b through ``ContinuousServeEngine``
+   as ``launch.serve_continuous`` builds it (4 slots, max_len 512, a warm
+   step cache), 8 greedy requests whose later four join in flight, (a)
+   whole-prompt joins on pow2 buckets and (b) 64-token chunks under a
+   step budget of 68, each with the counts set to 0 just before and read
+   just after: a complete ledger, no capture, miss or fallback while
+   serving, every lookup a hit, ``matmul_tiled`` (and in (a)
+   ``flash_attention``) launched, each request's first-token logits
+   within 4e-2 of the same request served alone by ``ServeEngine`` and
+   its tokens equal up to the solo run's first near tie; then (a) and
+   (b) timed, (c) (a) with no cache, and the same requests as two cached
+   static batches (tokens/s, p50 / p99 latency, device ms of every
+   captured step, capture seconds, peak memory); (d) small qwen (chunked
+   joins, seeded chunk faults, a shrink boundary), recurrentgemma, rwkv6
+   and granite through the engine on the card against the CPU on virtual
+   clocks: equal ledgers, logs and outcomes, tokens under the margin rule;
+7. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --parent SRC
@@ -177,6 +194,15 @@ AB_ROUNDS = 6
 # bursts per side when the cached path's tokens/s is held against the
 # eager engine's, alternating which side goes first
 CACHED_ROUNDS = 5
+# the continuous phase: 8 greedy requests whose slots free at different
+# steps, so that the last four join in flight; 4 slots, max_len 512; (b)'s
+# chunks and step token budget; logits and tokens held to the solo run
+# within 4e-2 of its largest |logit| (tests/test_torch_serve.py's bound)
+CONT_LENS = (128, 97, 64, 33, 200, 17, 150, 80)
+CONT_NEW = (16, 8, 24, 16, 8, 32, 16, 12)
+CONT_MAX_LEN = 512
+CONT_CHUNK, CONT_BUDGET = 64, 68
+CONT_TOL = 4e-2
 
 
 # checks whose failure ends the run only after every phase has run, so
@@ -1852,6 +1878,375 @@ def narrowed_plan(torch, np, mods, params, modules) -> None:
           f"the sliced forward differs from the masked one by {err}")
 
 
+# ---------------------------------------------------------------------------
+# the continuous engine (serving/continuous.py)
+# ---------------------------------------------------------------------------
+def cont_requests(cfg, Request, np, lens=CONT_LENS, new=CONT_NEW):
+    rng = np.random.default_rng(SEED)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, size=(n,))
+                    .astype(np.int32), max_new_tokens=m)
+            for n, m in zip(lens, new)]
+
+
+class StepRecorder:
+    """Wraps ``engine``'s join and step methods, reading their outputs
+    only, and keeps for each (request index, token index) the top-2
+    margin of the logits row that greedy token is taken from
+    (``margin``), the largest |logit| of those rows (``scale``), and each
+    request's first-token row on the device (``first``: a whole-prompt
+    join's last real row, or a final chunk's). ``off()`` puts the
+    engine's own methods back."""
+
+    NAMES = ("_decode", "_prefill", "_chunk", "_join")
+
+    def __init__(self, torch, engine, reqs):
+        self.torch, self.engine = torch, engine
+        self.index = {id(r): i for i, r in enumerate(reqs)}
+        self.first = [None] * len(reqs)
+        self.margin, self.scale = {}, 0.0
+        self._joining = None
+        self._own = {n: vars(engine).get(n) for n in self.NAMES}
+        self._call = {n: getattr(engine, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(engine, n, getattr(self, "_on" + n))
+
+    def off(self) -> None:
+        for n, fn in self._own.items():
+            if fn is None:
+                delattr(self.engine, n)
+            else:
+                setattr(self.engine, n, fn)
+
+    def _note(self, tr, row) -> None:
+        row = row[:self.engine.cfg.vocab_size].float()
+        i, k = self.index[id(tr.request)], len(tr.generated)
+        top2 = self.torch.topk(row, 2).values
+        self.margin[(i, k)] = (top2[0] - top2[1]).item()
+        self.scale = max(self.scale, row.abs().max().item())
+        if k == 0:
+            self.first[i] = row.clone()
+
+    def _on_join(self, i, tr):
+        self._joining = tr
+        return self._call["_join"](i, tr)
+
+    def _on_decode(self, p, t, pos, st):
+        out = self._call["_decode"](p, t, pos, st)
+        for i, tr in enumerate(self.engine._slots):
+            if tr is not None and tr.chunk_state is None:
+                self._note(tr, out[0][i])
+        return out
+
+    def _on_prefill(self, p, toks):
+        out = self._call["_prefill"](p, toks)
+        tr = self._joining
+        self._note(tr, out[0][0, len(tr.request.prompt)
+                              + len(tr.generated) - 1])
+        return out
+
+    def _on_chunk(self, p, toks, pos, st):
+        out = self._call["_chunk"](p, toks, pos, st)
+        [tr] = [t for t in self.engine._slots
+                if t is not None and t.chunk_state is st]
+        target = len(tr.request.prompt) + len(tr.generated)
+        clen = min(self.engine.prefill_chunk, target - int(pos))
+        if int(pos) + clen >= target:
+            self._note(tr, out[0][0, clen - 1])
+        return out
+
+
+def solo_reference(torch, np, mods, params, cfg, reqs) -> list:
+    """Each request alone through ServeEngine(batch_slots=1) on the card:
+    its tokens, its prefill's last logits row (the solo engine's first
+    token's), and the top-2 margins and largest |logit| of one forward
+    along its own tokens."""
+    tfm, v = mods["tfm"], cfg.vocab_size
+    solo = mods["ServeEngine"](params, cfg, max_len=CONT_MAX_LEN,
+                               batch_slots=1, rng_seed=SEED, device="cuda")
+    out = []
+    for r in reqs:
+        [res] = solo.generate([r])
+        seq = np.concatenate([r.prompt, res.tokens[:-1]]).astype(np.int64)
+        with torch.inference_mode():
+            first, _ = tfm.forward(solo.params, cfg, tokens=torch.from_numpy(
+                r.prompt.astype(np.int64))[None].cuda(), mode="prefill")
+            lg, _ = tfm.forward(solo.params, cfg, tokens=torch.from_numpy(
+                seq)[None].cuda(), mode="prefill")
+        lg = lg[0, len(r.prompt) - 1:, :v].float()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        out.append({"tokens": res.tokens, "first": first[0, -1, :v].float(),
+                    "margin": (top2[:, 0] - top2[:, 1]).cpu().numpy(),
+                    "scale": lg.abs().max().item()})
+    del solo
+    return out
+
+
+def held_to_solo(torch, np, name: str, rows, results, solo) -> int:
+    """Each request's first-token logits within 4e-2 of the solo run's
+    largest |logit|, and its tokens equal to the solo run's up to the
+    first step whose top-2 margin is within twice that bound (the rule of
+    tests/test_torch_serve.py); returns the tokens compared."""
+    compared, worst = 0, 0.0
+    for i, (row, res, ref) in enumerate(zip(rows, results, solo)):
+        check(row is not None, f"continuous {name}: request {i} left no "
+              f"first-token logits")
+        scale = ref["first"].abs().max().item()
+        err = (row - ref["first"]).abs().max().item()
+        worst = max(worst, err / scale)
+        check(bool(torch.isfinite(row).all()) and err <= CONT_TOL * scale,
+              f"continuous {name}: request {i}'s first-token logits differ "
+              f"from the solo run's by {err} > {CONT_TOL} x {scale}")
+        tol = CONT_TOL * ref["scale"]
+        check(len(res.tokens) == len(ref["tokens"]),
+              f"continuous {name}: request {i} has {len(res.tokens)} "
+              f"tokens, the solo run {len(ref['tokens'])}")
+        for k in range(len(res.tokens)):
+            if ref["margin"][k] <= 2 * tol:
+                break
+            check(res.tokens[k] == ref["tokens"][k],
+                  f"continuous {name}: request {i} token {k} "
+                  f"{res.tokens[k]} != solo {ref['tokens'][k]}")
+            compared += 1
+    total = sum(len(r.tokens) for r in results)
+    log(f"continuous {name} vs solo ServeEngine(batch_slots=1): first-token "
+        f"logits within {100 * worst:.3f}% of the solo largest |logit| "
+        f"(tol {100 * CONT_TOL:.0f}%); {compared} of {total} tokens compared "
+        f"(up to each request's first top-2 margin within twice the bound), "
+        f"all equal")
+    return compared
+
+
+def graph_ms(torch, cache) -> dict:
+    """Device ms of one replay of every entry in ``cache``, by (kind,
+    shape); the replays run back to back (``stream_ms``)."""
+    return {(k[1], k[3]): stream_ms(torch, e.graph.replay)
+            for k, e in cache._exec.items()}
+
+
+def continuous_full_width(torch, np, mods, card: str) -> dict:
+    """The continuous path: full-width qwen1.5-0.5b through
+    ``launch.serve_continuous``'s engine, 4 slots, max_len 512, the 8
+    CONT requests (later ones join in flight). (a) whole-prompt joins on
+    pow2 buckets and (b) chunked joins (64-token chunks, a step budget of
+    68), each through a warm step cache, with the counts set to 0 just
+    before and read just after: a complete ledger, no capture, miss or
+    fallback while serving, every lookup a hit, the kernels launched, and
+    each request held against the same request served alone; then each
+    run again, timed; (c) run (a) with no cache, timed once; the same 8
+    requests through ServeEngine as two cached static batches of 4.
+    Logs tokens/s and p50 / p99 latency of each, the device ms of every
+    captured step, capture seconds and peak memory."""
+    cfg = mods["configs"].get_config(ARCH)
+    tfm, ops, sv, sc = mods["tfm"], mods["ops"], mods["serving"], \
+        mods["serve_continuous"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tfm.cast_params(tfm.init_params(cfg, gen, "cuda"), "cuda")
+    reqs = cont_requests(cfg, sv.Request, np)
+    solo = solo_reference(torch, np, mods, params, cfg, reqs)
+    total = sum(CONT_NEW)
+    runs, out = {"a": {}, "b": {"prefill_chunk": CONT_CHUNK,
+                                "step_token_budget": CONT_BUDGET}}, {}
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        engine = sc.build_engine(params, cfg, device="cuda", slots=4,
+                                 max_len=CONT_MAX_LEN, cached=True,
+                                 seed=SEED, warm_lengths=CONT_LENS, **kw)
+        warm_s = time.perf_counter() - t0
+        cache = engine.compile_cache
+        captured = [(e.kind, e.key[3], e.wall_s) for e in cache.events
+                    if e.outcome == "compiled"]
+        check(cache.stats["fallbacks"] == 0 and len(captured) == len(
+            cache._exec), f"continuous ({name}): warm_compile faulted: "
+              f"{cache.events}")
+        count = cache.tracer.count
+        rec = StepRecorder(torch, engine, reqs)
+        ops.reset_launches()
+        first = sc.serve(engine, reqs)
+        launches = dict(ops.LAUNCHES)
+        led = first["ledger"]
+        check(led.complete and (led.submitted, led.finished, led.shed,
+                                led.failed) == (8, 8, 0, 0),
+              f"continuous ({name}): ledger {led}")
+        check(first["tokens"] == total and all(
+            (r.tokens >= 0).all() and (r.tokens < cfg.vocab_size).all()
+            for r in first["results"]),
+              f"continuous ({name}): tokens out of range or of the wrong "
+              f"count")
+        lookups = (engine.chunk_steps if kw else engine.join_count) \
+            + engine._decode_steps
+        check(cache.tracer.count == count and cache.stats["misses"] == 0
+              and cache.stats["fallbacks"] == 0
+              and cache.stats["hits"] == lookups
+              and not any(e.outcome == "miss" for e in cache.events),
+              f"continuous ({name}): stats {cache.stats}, captures "
+              f"{cache.tracer.count - count} while serving, {lookups} "
+              f"lookups")
+        used = ("matmul_tiled",) if kw else ("matmul_tiled",
+                                             "flash_attention")
+        check(all(launches[k] > 0 for k in used),
+              f"continuous ({name}): launches {launches}, expected "
+              f"{used} > 0")
+        compared = held_to_solo(torch, np, f"({name})", rec.first,
+                                first["results"], solo)
+        rec.off()
+        timed = sc.serve(engine, reqs)
+        check(engine.ledger().complete and engine.ledger().finished == 16
+              and cache.tracer.count == count
+              and cache.stats["misses"] == 0
+              and cache.stats["fallbacks"] == 0,
+              f"continuous ({name}) timed: ledger {engine.ledger()}, stats "
+              f"{cache.stats}")
+        dev = graph_ms(torch, cache)
+        out[name] = {"launches": launches, "tok_s": timed["tok_s"],
+                     "p50_s": timed["tail"].p50_s,
+                     "p99_s": timed["tail"].p99_s, "graph_ms": dev,
+                     "capture_s": captured, "compared": compared,
+                     "joins": engine.join_count, "chunks": engine.chunk_steps,
+                     "decode_steps": engine._decode_steps}
+        log(f"continuous ({name}) {card}: {'chunks of %d, step budget %d'
+            % (CONT_CHUNK, CONT_BUDGET) if kw else 'whole-prompt joins on '
+            'pow2 buckets'}; warm_compile {warm_s:.2f}s, captures "
+            f"{[(k, s, round(w, 3)) for k, s, w in captured]} (kind, shape, "
+            f"s); launches {launches}; stats {cache.stats}")
+        log(f"continuous ({name}) {card}: {timed['tokens']} tokens in "
+            f"{timed['wall_s']:.3f}s, {timed['tok_s']:.1f} tok/s; latency "
+            f"p50 {timed['tail'].p50_s:.4f}s p99 {timed['tail'].p99_s:.4f}s; "
+            f"device ms per replay "
+            f"{ {f'{k} {s}': round(ms, 4) for (k, s), ms in dev.items()} }")
+        del engine, cache, rec
+        torch.cuda.empty_cache()
+    # (c): (a) with no cache, once
+    engine = sc.build_engine(params, cfg, device="cuda", slots=4,
+                             max_len=CONT_MAX_LEN, seed=SEED)
+    eager = sc.serve(engine, reqs)
+    check(eager["ledger"].complete and eager["ledger"].finished == 8,
+          f"continuous (c): ledger {eager['ledger']}")
+    log(f"continuous (c) {card}: no cache: {eager['tokens']} tokens in "
+        f"{eager['wall_s']:.3f}s, {eager['tok_s']:.1f} tok/s; latency p50 "
+        f"{eager['tail'].p50_s:.4f}s p99 {eager['tail'].p99_s:.4f}s; cached "
+        f"(a) / eager {out['a']['tok_s'] / eager['tok_s']:.2f}x")
+    del engine
+    # the same 8 requests as two cached static batches of 4
+    cache = sv.WidthVariantCompileCache(cfg, hw=mods["H100_SXM"])
+    static = sv.ServeEngine(params, cfg, max_len=CONT_MAX_LEN, batch_slots=4,
+                            rng_seed=SEED, device="cuda", compile_cache=cache)
+    shapes = [(4, max(CONT_LENS[:4])), (4, max(CONT_LENS[4:]))]
+    static.warm_compile([], shapes)
+    static.generate(reqs)
+    count = cache.tracer.count
+    t0 = time.perf_counter()
+    res = static.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tail = mods["chaos"].TailReport.build("static", res)
+    check(cache.tracer.count == count and cache.stats["misses"] == 0
+          and cache.stats["fallbacks"] == 0,
+          f"static batches: stats {cache.stats}")
+    static_tok_s = sum(len(r.tokens) for r in res) / wall
+    log(f"static ServeEngine {card}: the same 8 requests as two cached "
+        f"batches of 4 (shapes {shapes}): {sum(len(r.tokens) for r in res)} "
+        f"tokens in {wall:.3f}s, {static_tok_s:.1f} tok/s; latency p50 "
+        f"{tail.p50_s:.4f}s p99 {tail.p99_s:.4f}s")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"continuous phase {card}: peak memory {peak / 2**30:.3f} GiB "
+        f"(the params, one warm cache at a time, the solo engine)")
+    del static, cache, params
+    torch.cuda.empty_cache()
+    return {"runs": out, "eager_tok_s": eager["tok_s"],
+            "eager_p50_s": eager["tail"].p50_s,
+            "eager_p99_s": eager["tail"].p99_s,
+            "static_tok_s": static_tok_s, "static_p50_s": tail.p50_s,
+            "static_p99_s": tail.p99_s, "peak_bytes": peak}
+
+
+class Scripted:
+    """A degrader stand-in: the scripted plans in order, then the last."""
+
+    def __init__(self, plans):
+        self.plans = list(plans)
+
+    def select(self, tokens):
+        plan = self.plans[0]
+        if len(self.plans) > 1:
+            self.plans.pop(0)
+        return plan
+
+    def observe(self, signal):
+        return 0
+
+
+def continuous_small_vs_cpu(torch, np, mods, arch: str, *,
+                            boundary: bool, **reduce) -> None:
+    """(d): a small ``arch`` through the continuous engine on the card and
+    on the CPU, both on a VirtualClock with modeled_batch_cost; for qwen
+    also chunked joins with seeded chunk faults and a scripted boundary to
+    half the heads while requests decode and prefill. Ledgers, boundary
+    and chunk logs and every request's retries, shed, failed, latency and
+    token count must be equal; tokens equal under the margin rule, the
+    CPU run's margins."""
+    c, tfm, sv, ch = mods["configs"], mods["tfm"], mods["serving"], \
+        mods["chaos"]
+    cfg = c.reduced_config(c.get_config(arch), **reduce)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED))
+    lens, new = (12, 9, 7, 5, 20, 3, 15, 8), (6, 4, 8, 6, 4, 10, 6, 5)
+    reqs = cont_requests(cfg, sv.Request, np, lens, new)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cast = tfm.cast_params(params, dev)
+        kw = {}
+        if boundary:
+            _, modules = sv.serving_templates(cfg, mods["H100_SXM"],
+                                              sites=("attn",))
+            g = cfg.n_heads // max(cfg.n_kv_heads, 1)
+            plan = sv.WidthPlan(
+                traffic=sv.TrafficClass("narrow", 64),
+                widths={n: max(cfg.n_heads // 2, g) * cfg.head_dim
+                        for n in modules}, latency_s=0.6,
+                baseline_latency_s=1.0, satisfied=True, modules=modules)
+            kw = dict(swapper=sv.WidthSwapper(cast, cfg),
+                      admission=sv.AdmissionControl(max_queue_batches=100),
+                      degrader=Scripted([plan]), boundary_every=3,
+                      prefill_chunk=8, step_token_budget=12,
+                      chunk_fault_hook=ch.ChunkFaultInjector(0.2, seed=3))
+        eng = sv.ContinuousServeEngine(
+            cast, cfg, max_len=64, batch_slots=4, device=dev,
+            clock=ch.VirtualClock(),
+            batch_cost_fn=ch.modeled_batch_cost(1e-3), **kw)
+        rec = StepRecorder(torch, eng, reqs) if dev == "cpu" else None
+        res = eng.run(reqs)
+        runs[dev] = (eng, res, rec)
+    (ce, cres, rec), (ge, gres, _) = runs["cpu"], runs["cuda"]
+    logs = [(e.ledger(), [dataclasses.astuple(b) for b in e.boundary_log],
+             [dataclasses.astuple(x) for x in e.chunk_log],
+             [(r.retries, r.shed, r.failed, r.latency_s, len(r.tokens))
+              for r in res]) for e, res in ((ce, cres), (ge, gres))]
+    check(logs[0] == logs[1], f"continuous small {arch}: the card's "
+          f"ledger and logs differ from the CPU's: {logs[1]} vs {logs[0]}")
+    check(logs[0][0].complete and logs[0][0].finished == len(reqs),
+          f"continuous small {arch}: ledger {logs[0][0]}")
+    if boundary:
+        check([b[2] for b in logs[0][1]] == ["ok"] and logs[0][2],
+              f"continuous small {arch}: boundaries {logs[0][1]}, chunk "
+              f"faults {logs[0][2]}")
+    tol = CONT_TOL * rec.scale
+    compared = 0
+    for i, (a, b) in enumerate(zip(cres, gres)):
+        for k in range(len(a.tokens)):
+            if not np.array_equal(a.tokens[:k], b.tokens[:k]):
+                break
+            if rec.margin[(i, k)] > 2 * tol:
+                check(a.tokens[k] == b.tokens[k], f"continuous small "
+                      f"{arch}: request {i} token {k} differs on the card")
+                compared += 1
+    log(f"continuous small {cfg.name} card vs CPU: ledger "
+        f"{dataclasses.astuple(logs[0][0])}, boundaries "
+        f"{[b[2] for b in logs[0][1]]}, {len(logs[0][2])} chunk faults, "
+        f"all equal; {compared} of {sum(new)} tokens compared (margin "
+        f"rule), all equal")
+
+
 def serve_batched_on_card(mods) -> None:
     t0 = time.perf_counter()
     engine = mods["serve_batched_main"]([])
@@ -1913,6 +2308,8 @@ def main() -> None:
     from repro_torch.kernels import staircase_fused as sf
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.serve_batched import main as serve_batched_main
+    from repro_torch.launch import serve_continuous
+    from repro_torch.serving import chaos
     from repro_torch.models import recurrent
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import Request, ServeEngine
@@ -1925,7 +2322,8 @@ def main() -> None:
             "EFFECTIVE_CTAS_PER_SM": EFFECTIVE_CTAS_PER_SM,
             "wave_verification": wave_verification,
             "fused_columns": sf.fused_columns,
-            "serve_batched_main": serve_batched_main}
+            "serve_batched_main": serve_batched_main,
+            "serve_continuous": serve_continuous, "chaos": chaos}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2021,6 +2419,24 @@ def main() -> None:
                   planned.pop("modules"))
     torch.cuda.empty_cache()
     serve_batched_on_card(mods)
+    # the continuous engine: full-width qwen (a)-(c) and the static
+    # batches beside them, then (d) small configs on the card against the
+    # CPU (qwen with chunked joins, chunk faults and a shrink boundary;
+    # head dim 64 where attention runs on the flash kernel)
+    continuous = continuous_full_width(torch, np, mods, card)
+    continuous_small_vs_cpu(torch, np, mods, ARCH, boundary=True,
+                            n_layers=2, d_model=256)
+    for arch, reduce in (("recurrentgemma-2b", {}), ("rwkv6-1.6b", {}),
+                         (MOE_ARCH, dict(d_model=256, d_ff=512, vocab=250,
+                                         n_experts=16))):
+        continuous_small_vs_cpu(torch, np, mods, arch, boundary=False,
+                                **reduce)
+    runs = continuous["runs"]
+    log(f"continuous summary {card}: tok/s (a) {runs['a']['tok_s']:.1f}, "
+        f"(b) {runs['b']['tok_s']:.1f}, (c) eager "
+        f"{continuous['eager_tok_s']:.1f}, static cached batches "
+        f"{continuous['static_tok_s']:.1f}; launches (a) "
+        f"{runs['a']['launches']}, (b) {runs['b']['launches']}")
     # the recurrent families: each at full width, freed before the next;
     # their small configs on the card against the CPU (70 tokens, past the
     # reduced window of 64, so the ring cache rolls)

@@ -1,11 +1,12 @@
 """Attention: GQA projections, causal prefill through the flash-attention
-kernel, sliding-window (local) prefill, and single-token decode against a
-cache (``repro.models.attention``'s counterpart).
+kernel, sliding-window (local) prefill, single-token decode and
+chunked-prefill attention against a cache (``repro.models.attention``'s
+counterpart).
 
 Layouts are ``repro``'s: ``wq`` (d, H, dh), ``wk``/``wv`` (d, KV, dh),
 ``wo`` (H, dh, d); activations (B, S, H, dh). The projections, local
-prefill and decode attention are torch products, as they are XLA einsums
-outside any Pallas kernel in ``repro``.
+prefill, decode and chunk attention are torch products, as they are XLA
+einsums outside any Pallas kernel in ``repro``.
 """
 
 from __future__ import annotations
@@ -121,3 +122,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.einsum("bkgs,bskd->bkgd", p.to(COMPUTE_DTYPE).float(),
                      v_cache.to(COMPUTE_DTYPE).float())
     return o.reshape(b, h, dh).to(COMPUTE_DTYPE)
+
+
+def chunk_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor,
+                            offset: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Chunked-prefill attention: a (B, C, H, dh) query chunk whose rows sit
+    at positions ``offset .. offset + C`` attends causally over a cache
+    (B, S, KV, dh) that already holds every earlier chunk's K/V and this
+    chunk's own rows. Row ``i`` sees keys ``0 .. offset + i``, the key set a
+    whole-prompt causal prefill gives it; rows past a bucketed final chunk's
+    real length compute values that the caller never commits.
+
+    ``offset`` is an int or a 0-d long tensor; nothing here reads it on the
+    host, so a CUDA graph captured at one offset replays at any other.
+    Scores are fp32 from bf16 inputs and P is rounded to bf16 before P @ V,
+    as in ``repro``."""
+    b, c, h, dh = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(dh)
+    qf = q.reshape(b, c, kv, g, dh).to(COMPUTE_DTYPE).float()
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qf,
+                      k_cache.to(COMPUTE_DTYPE).float()) * scale
+    qpos = offset + torch.arange(c, device=q.device)
+    kpos = torch.arange(s, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]                  # (C, S)
+    sc = torch.where(mask, sc, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(COMPUTE_DTYPE).float(),
+                     v_cache.to(COMPUTE_DTYPE).float())
+    return o.reshape(b, c, h, dh).to(COMPUTE_DTYPE)

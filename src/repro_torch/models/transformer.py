@@ -215,14 +215,34 @@ def _rope(cfg: ModelConfig, q, k, positions):
 def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                     mode: str, cache: Optional[dict],
                     positions: torch.Tensor, pos: Pos, force: Optional[str]):
-    """Self-attention for train / prefill / decode.  Returns (y, cache).
+    """Self-attention for train / prefill / decode / chunk.  Returns (y,
+    cache).
 
     In decode, ``pos`` is the write position: an int (every row at the same
     position) or a (B,) tensor (ragged decode, each row at its own). A
     ``local`` layer writes slot ``pos % window`` of its ring and attends
-    ``min(pos + 1, window)`` slots."""
+    ``min(pos + 1, window)`` slots.
+
+    In chunk mode (chunked prefill, global layers only) x is a (B, C, d)
+    chunk at positions ``pos .. pos + C`` (an int or a 0-d tensor) of
+    requests whose caches hold ``pos`` committed rows: the chunk's K/V go
+    into rows ``[pos, pos + C)`` in place, and every row attends causally
+    over the whole cache, so chunk by chunk gives the whole-prompt
+    prefill's rows. Rows past the cache's end (the pad rows of a bucketed
+    last chunk, never committed) land on its last row, which no real row
+    of the chunk reads."""
+    if mode == "chunk" and kind != "attn":
+        raise ValueError("chunked prefill requires global attention layers")
     q, k, v = attn_lib.qkv_proj(p, x)
     q, k = _rope(cfg, q, k, positions)
+    if mode == "chunk":
+        kc, vc = cache["k"], cache["v"]
+        rows = torch.clamp(torch.arange(x.shape[1], device=x.device) + pos,
+                           max=kc.shape[1] - 1)
+        kc.index_copy_(1, rows, k.to(kc.dtype))
+        vc.index_copy_(1, rows, v.to(vc.dtype))
+        o = attn_lib.chunk_prefill_attention(q, kc, vc, pos)
+        return attn_lib.out_proj(p, o), {"k": kc, "v": vc}
     if mode == "decode":
         kc, vc = cache["k"], cache["v"]
         slot, valid = pos, pos + 1
@@ -279,6 +299,12 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 moe_strategy: str = "auto"):
     """One layer of ``kind`` with its ``mlp_kind`` MLP.  Returns (x,
     new_state)."""
+    if mode == "chunk" and kind != "attn":
+        # a recurrent layer carries a running state, not a cache, and a
+        # local ring rotates by the total length: neither replays a chunk
+        raise ValueError(
+            f"chunked prefill supports global-attention layers only "
+            f"(got {kind!r})")
     decode = mode == "decode"
     if kind == "rwkv":
         h = apply_norm(p["norm1"], x, cfg.norm)
@@ -341,8 +367,10 @@ def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, states: Optional[dict], positions: torch.Tensor,
                 pos: Pos, force: Optional[str], moe_strategy: str = "auto"):
     """Every decoder layer in order.  Returns (x, new_states); new_states
-    is None in train mode and, in decode, the input states updated."""
+    is None in train mode and, in decode and chunk mode, the input states
+    updated in place."""
     plan = layer_plan(cfg)
+    carried = mode in ("decode", "chunk")
     cycle = unit_cycle(cfg)
     n_units = len(plan) // cycle
     new_states: dict = {}
@@ -361,19 +389,19 @@ def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 f"u{j}": run(_index(stack_p["stack"][f"u{j}"], u),
                              plan[j],
                              _index(states["stack"][f"u{j}"], u)
-                             if mode == "decode" else None)
+                             if carried else None)
                 for j in range(cycle)})
         if mode == "prefill":
             new_states["stack"] = _stack(units)
     if "extra" in stack_p:
         extra = {k: run(lp, plan[n_units * cycle + int(k[1:])],
-                        states["extra"][k] if mode == "decode" else None)
+                        states["extra"][k] if carried else None)
                  for k, lp in stack_p["extra"].items()}
         if mode == "prefill":
             new_states["extra"] = extra
     if mode == "train":
         return x, None
-    return x, (states if mode == "decode" else new_states)
+    return x, (states if carried else new_states)
 
 
 # ---------------------------------------------------------------------------
@@ -490,6 +518,29 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                             positions=_positions(b, 1, pos, tokens.device),
                             pos=pos, force=force, moe_strategy=moe_strategy)
     return _logits(params, x, cfg)[:, 0], states
+
+
+def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  pos: Pos, states: dict, force: Optional[str] = None,
+                  moe_strategy: str = "auto"):
+    """One prefill chunk: tokens (B, C) at positions ``[pos, pos + C)``
+    (``pos`` an int or a 0-d long tensor), written into and attending over
+    the decode-state caches ``states``. Returns (logits (B, C, V), states),
+    the states updated in place. Chunk after chunk over a prompt, it leaves
+    the caches and logits of a whole-prompt prefill, while no call costs
+    more than one chunk. Pure global-attention stacks only; nothing reads
+    ``pos`` on the host, so one CUDA graph per chunk shape serves every
+    position."""
+    if cfg.is_encdec:
+        raise ValueError("chunked prefill supports decoder-only models")
+    _check(cfg)
+    b, c = tokens.shape
+    x = embed_tokens(params["embed"], tokens, cfg.d_model)
+    x, states = apply_stack(params["decoder"], x, cfg, mode="chunk",
+                            states=states,
+                            positions=_positions(b, c, pos, tokens.device),
+                            pos=pos, force=force, moe_strategy=moe_strategy)
+    return _logits(params, x, cfg), states
 
 
 # ---------------------------------------------------------------------------

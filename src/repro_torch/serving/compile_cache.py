@@ -69,10 +69,16 @@ Each graph keeps a private memory pool: its static outputs (a prefill's
 logits among them) stay allocated while the entry lives, and a key's
 static params while any of its entries does.
 
-``repro``'s "chunk" kind (``transformer.prefill_chunk``, served by its
-continuous engine) raises ``NotImplementedError`` until that engine is
-ported (``ROADMAP.md`` §1 item 3). ``repro``'s kernel context with the
-autotuner's tiles (``tile_cache=``) waits for the autotuner (§1 item 4).
+The "chunk" kind serves ``transformer.prefill_chunk`` to the continuous
+engine (``serving/continuous.py``): one graph per chunk shape, captured
+with a static 0-d ``pos`` and a static batch-1 ``max_len`` state tree, so
+one entry serves every chunk position of every request that is
+prefilling. Each request keeps its own checkpoint: :meth:`chunk` copies
+the request's states in, replays, and copies the updated states back out
+into the request's tensors (two batch-1 cache copies per chunk), so the
+next request's chunk cannot overwrite them. ``repro``'s kernel context
+with the autotuner's tiles (``tile_cache=``) waits for the autotuner
+(``ROADMAP.md`` §1 item 4).
 """
 
 from __future__ import annotations
@@ -295,7 +301,11 @@ class WidthVariantCompileCache:
         def decode_fn(p, t, pos, st):
             return tfm.decode_step(p, cfg, t, pos, st)
 
-        self._fns = {"prefill": prefill_fn, "decode": decode_fn}
+        def chunk_fn(p, toks, pos, st):
+            return tfm.prefill_chunk(p, cfg, toks, pos, st)
+
+        self._fns = {"prefill": prefill_fn, "decode": decode_fn,
+                     "chunk": chunk_fn}
 
     # ------------------------------------------------------------------
     # keys
@@ -352,10 +362,6 @@ class WidthVariantCompileCache:
             self.fault_hook(step)
 
     def _kind(self, kind: str) -> None:
-        if kind == "chunk":
-            raise NotImplementedError(
-                "the 'chunk' kind serves transformer.prefill_chunk, which "
-                "is not ported yet (ROADMAP.md §1 item 3)")
         if kind not in self._fns:
             raise ValueError(f"unknown kind {kind!r}")
 
@@ -391,8 +397,9 @@ class WidthVariantCompileCache:
                    example_args: tuple) -> bool:
         """Capture one (kind, realized key, shape) step on ``example_args``
         — ``(params, toks)`` for a prefill, ``(params, toks, pos,
-        states)`` for a decode step; the cache copies the inputs into
-        static buffers of its own and ``params`` into the key's static
+        states)`` for a decode step (``pos`` an int or a (B,) tensor) or a
+        chunk (``pos`` an int or a 0-d tensor); the cache copies the inputs
+        into static buffers of its own and ``params`` into the key's static
         params. Returns True when the entry is warm afterwards; a fault is
         recorded and absorbed (the serve path runs the step eagerly)."""
         self._kind(kind)
@@ -411,8 +418,8 @@ class WidthVariantCompileCache:
                 inputs = (example_args[1].clone(),)
             else:
                 toks, pos, states = example_args[1:]
-                p = torch.zeros(toks.shape[0], dtype=torch.long,
-                                device=toks.device)
+                p = torch.zeros(() if kind == "chunk" else toks.shape[0],
+                                dtype=torch.long, device=toks.device)
                 inputs = (toks.clone(), p.copy_(pos) if torch.is_tensor(pos)
                           else p.fill_(int(pos)), _clone(states))
             graph, out, launches = self._capture(self._fns[kind],
@@ -501,9 +508,31 @@ class WidthVariantCompileCache:
                 self.stats["fallbacks"] += 1
         return self._fns["decode"](params, toks, pos, states)
 
+    @torch.inference_mode()
     def chunk(self, params, toks, pos, states):
-        """``repro``'s chunked-prefill entry point; not ported yet."""
-        self._kind("chunk")
+        """Replayed prefill chunk (``transformer.prefill_chunk``) on a hit,
+        else the eager step. ``pos`` is an int or a 0-d tensor, so one
+        entry per chunk shape serves every position. Returns (logits,
+        states): the logits are the entry's static tensor on a hit, and
+        the states are always the caller's own tree, updated in place (a
+        hit copies the entry's static states back out into it)."""
+        shape_key = tuple(int(d) for d in toks.shape)
+        entry = self._get("chunk", shape_key)
+        if entry is not None:
+            try:
+                t, p, st = entry.inputs
+                t.copy_(toks)
+                if torch.is_tensor(pos):
+                    p.copy_(pos)
+                else:
+                    p.fill_(int(pos))
+                _copy_into(st, states)
+                logits, out = entry.replay(params)
+                _copy_into(states, out)
+                return logits, states
+            except (RuntimeError, ValueError):  # => eager fallback
+                self.stats["fallbacks"] += 1
+        return self._fns["chunk"](params, toks, pos, states)
 
 
 def decode_state_struct(cfg: ModelConfig, b: int, max_len: int, *,
@@ -527,5 +556,5 @@ def decode_state_struct(cfg: ModelConfig, b: int, max_len: int, *,
     if swapper is not None and heads is not None:
         full = np.full(len(swapper.refs), cfg.n_heads, dtype=np.int64)
         if (np.asarray(heads) != full).any():
-            st = swapper.reshape_states(st, full, np.asarray(heads))
+            st = swapper.reshape_fresh(st, full, np.asarray(heads))
     return st

@@ -73,6 +73,14 @@ class Result:
     shed: bool = False              # rejected by admission control
     deadline_missed: bool = False   # completed, but past its budget
     latency_s: float = 0.0          # submission -> completion (engine clock)
+    # continuous engine (serving/continuous.py): boundary or chunk-fault
+    # requeues survived, whether the request finished after one, terminal
+    # failure (retries exhausted, or it cannot fit max_len), and
+    # cancellation (ContinuousServeEngine.cancel)
+    retries: int = 0
+    recovered: bool = False
+    failed: bool = False
+    cancelled: bool = False
 
 
 def _shed_result() -> "Result":

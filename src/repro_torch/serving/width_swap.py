@@ -257,7 +257,7 @@ class WidthSwapper:
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_plans: int = 8,
-                 fault_hook=None):
+                 fault_hook=None, reshape_fault_hook=None):
         self.full_params = params
         self.cfg = cfg
         self.refs = tfm.decoder_layer_refs(cfg)
@@ -268,6 +268,11 @@ class WidthSwapper:
         # checkpoint inside apply(); it may raise to simulate a mid-swap
         # failure (a fault injector's entry point).
         self.fault_hook = fault_hook
+        # Optional callable() invoked at the top of reshape_states: the
+        # KV-reshape counterpart of fault_hook, which the continuous
+        # engine's boundary transaction must survive too
+        # (serving.chaos.ReshapeFailureInjector).
+        self.reshape_fault_hook = reshape_fault_hook
 
     def _step(self, name: str) -> None:
         if self.fault_hook is not None:
@@ -486,7 +491,19 @@ class WidthSwapper:
         another's at a batch boundary.  Shrinking slices the cached
         K/V head prefix (exact: GQA keeps a prefix of KV heads); growing
         zero-pads the new head slots, which have no cached history —
-        engines that prefill per batch never hit the growing case."""
+        engines that prefill per batch never hit the growing case, and
+        the continuous engine re-prefills grown requests from their own
+        tokens instead of decoding on zero-history heads."""
+        if self.reshape_fault_hook is not None:
+            self.reshape_fault_hook()
+        return self.reshape_fresh(states, heads_from, heads_to)
+
+    def reshape_fresh(self, states: Optional[dict], heads_from,
+                      heads_to) -> Optional[dict]:
+        """:meth:`reshape_states` for a state built fresh (a buffer, not
+        live KV at a boundary): the same cut, with no
+        ``reshape_fault_hook`` in the path, so shaping a buffer or
+        recovering from a fault cannot be fault-injected."""
         if states is None:
             return None
         cfg = self.cfg

@@ -188,12 +188,24 @@ def test_lru_bounds_entries(setup):
 
 
 def test_chunk_kind_waits_for_the_continuous_engine(setup):
+    """The continuous engine is ported, so the chunk kind serves: a warm
+    chunk replays ``prefill_chunk`` at any position, bit-equal to the
+    eager step, into the caller's own states."""
     cfg, params = setup
     cache = WidthVariantCompileCache(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cache.precompile("chunk", cache.full_key, (1, 8), (params,))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        cache.chunk(params, None, 0, None)
+    assert cache.precompile("chunk", cache.full_key, (1, 8),
+                            (params, tokens(cfg, (1, 8)), 0,
+                             tfm.init_decode_state(cfg, 1, 32)))
+    mine = tfm.init_decode_state(cfg, 1, 32)
+    ref = tfm.init_decode_state(cfg, 1, 32)
+    for pos in (0, 8, torch.tensor(16)):
+        toks = tokens(cfg, (1, 8), seed=int(pos))
+        got, st = cache.chunk(params, toks, pos, mine)
+        with torch.inference_mode():
+            want, ref = tfm.prefill_chunk(params, cfg, toks, pos, ref)
+        assert st is mine and tree_equal(st, ref)
+        assert torch.equal(got, want)
+    assert cache.stats["hits"] == 3 and cache.tracer.count == 1
     with pytest.raises(ValueError, match="unknown kind"):
         cache.precompile("train", cache.full_key, (1, 8), (params,))
 

@@ -1051,3 +1051,88 @@ def test_boundaries_on_the_card_replay_only_the_passed_tree(gen):
     assert cache.tracer.count == count
     assert cache.stats["misses"] == cache.stats["fallbacks"] == 0
     assert cache.stats["hits"] == 4 * 6
+
+
+# ---------------------------------------------------------------------------
+# the continuous engine's steps through the cache
+# ---------------------------------------------------------------------------
+def test_chunk_replay_equals_eager_chunk(gen):
+    """The chunk kind's graph, captured at one position, replays at every
+    other bit-equal to the eager chunk, into the caller's own states."""
+    from repro_torch.serving import WidthVariantCompileCache
+    cfg, params = cached_family("qwen1.5-0.5b")
+    cache = WidthVariantCompileCache(cfg)
+    zeros = torch.zeros((1, 8), dtype=torch.long, device="cuda")
+    assert cache.precompile("chunk", cache.full_key, (1, 8),
+                            (params, zeros, 0,
+                             tfm.init_decode_state(cfg, 1, 32, "cuda")))
+    mine = tfm.init_decode_state(cfg, 1, 32, "cuda")
+    ref = tfm.init_decode_state(cfg, 1, 32, "cuda")
+    rng = np.random.default_rng(2)
+    for pos in (0, 8, 16, 24):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             size=(1, 8))).cuda()
+        got, st = cache.chunk(params, toks, pos, mine)
+        with torch.inference_mode():
+            want, ref = tfm.prefill_chunk(params, cfg, toks, pos, ref)
+        assert st is mine and states_equal(st, ref)
+        assert torch.equal(got, want)
+    assert cache.stats["hits"] == 4 and cache.stats["fallbacks"] == 0
+
+
+def test_ragged_decode_replay_equals_eager(gen):
+    """A ragged decode step (each row at its own position) through the
+    graph, bit-equal to the eager step on the same inputs."""
+    from repro_torch.serving import WidthVariantCompileCache
+    cfg, params = cached_family("qwen1.5-0.5b")
+    cache = WidthVariantCompileCache(cfg)
+    cur = torch.zeros(4, dtype=torch.long, device="cuda")
+    assert cache.precompile("decode", cache.full_key, (4,),
+                            (params, cur, cur.clone(),
+                             tfm.init_decode_state(cfg, 4, 32, "cuda")))
+    with torch.inference_mode():
+        _, st = tfm.forward(params, cfg, tokens=torch.from_numpy(
+            np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                              size=(4, 20))).cuda(),
+            mode="prefill")
+        st = {g: {k: {n: torch.nn.functional.pad(
+            x, (0, 0, 0, 0, 0, 12)) for n, x in d.items()}
+            for k, d in sub.items()} for g, sub in st.items()}
+    st_c = clone_states(st)
+    pos = torch.tensor([20, 3, 11, 0], device="cuda")
+    cur = torch.tensor([5, 9, 1, 7], device="cuda")
+    for _ in range(3):
+        with torch.inference_mode():
+            want, st = tfm.decode_step(params, cfg, cur, pos, st)
+        got, st_c = cache.decode(params, cur, pos, st_c)
+        assert torch.equal(got, want) and states_equal(st_c, st)
+        cur, pos = torch.argmax(want[:, :cfg.vocab_size], dim=-1), pos + 1
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_small_continuous_run_replays_every_step(gen, chunk):
+    """A reduced qwen through the continuous engine with a warm cache, in
+    whole-prompt and chunked joins: zero fallbacks, misses and captures
+    while serving, and the tokens of the same engine without a cache
+    (bucketed alike, so that every step runs the same shapes)."""
+    from repro_torch.serving import (
+        ContinuousServeEngine, WidthVariantCompileCache)
+    cfg, params = cached_family("qwen1.5-0.5b")
+    lens = (12, 9, 30, 4, 17)
+    cache = WidthVariantCompileCache(cfg)
+
+    def engine(c):
+        return ContinuousServeEngine(params, cfg, max_len=48, batch_slots=2,
+                                     device="cuda", compile_cache=c,
+                                     prefill_bucketing=True,
+                                     prefill_chunk=chunk)
+
+    warm = engine(cache)
+    assert warm.warm_compile([], lens) >= 2
+    count = cache.tracer.count
+    got = warm.run(serve_requests(cfg, lens, new=7))
+    want = engine(None).run(serve_requests(cfg, lens, new=7))
+    for a, b in zip(want, got):
+        assert np.array_equal(a.tokens, b.tokens)
+    assert cache.stats["misses"] == cache.stats["fallbacks"] == 0
+    assert cache.tracer.count == count and warm.ledger().complete
