@@ -39,7 +39,19 @@ the target) and ``nvcc``:
    the CPU reads; paper Fig. 5 on the card (``launch.wave_verification``:
    the GEMM timed across N at fixed M and K in both forms), failing where
    the card's steps contradict the model's slot count and, at the run's
-   end, where its stairs at that slot count are not flat;
+   end, where its stairs at that slot count are not flat; the tiles phase:
+   every prefill tile of the two GEMM kernels ((64, 64), (128, 64) and
+   (256, 64), each at one CTA an SM, its form read on the card) at each
+   main-path prefill shape (qwen's FFN up and down, recurrentgemma's MLP
+   up and down, qwen's FFN at the planned 2112 columns, granite's dense
+   expert products), each tile's time, error against the plain version,
+   bit-equality to (128, 64), bound and modeled waves, each tile's share
+   of an SM's peak (the autotuner's ``TILE_EFFICIENCY``), the autotuner's
+   pick on ``H100_SXM`` timed against (128, 64) in alternating rounds (at
+   the run's end it fails where the pick is slower by more than 5 % and
+   the spread), and a short Fig. 5 sweep per added tile at qwen's
+   prefill (at the run's end it fails where the card does not step every
+   132 CTAs);
 4. serves 4 mixed-length requests with full-width qwen1.5-0.5b (random
    weights from seed 0) through ``ServeEngine``, with the launch counts set
    to 0 just before and read just after; checks the counts, that a second
@@ -66,7 +78,13 @@ the target) and ``nvcc``:
    replay of each step runs on the device (``torch.profiler``) equal to
    the launches the cache adds for it; then the cached and eager steps'
    wall and device ms, tokens/s of both in alternating bursts, capture
-   seconds and peak memory, the graphs freed before the next family;
+   seconds and peak memory, the graphs freed before the next family (the
+   caches have ``hw=H100_SXM``, so their GEMMs take the autotuner's
+   tiles, read from each replay's device trace); for qwen also a cached
+   A/B of the same batch through a step cache with ``hw=None`` (default
+   tiles) and one with ``hw=H100_SXM`` (autotuned): tokens equal to the
+   eager engine's, prefill and decode replay device ms, the tiles each
+   replay's GEMMs took and tokens/s in alternating bursts;
 5. the planner path, with the counts set to 0 just before and read just
    after: plans two traffic classes for qwen1.5-0.5b on ``H100_SXM`` in
    the GPU form (one CTA-wave sweep each; widths, CTAs and modeled waves
@@ -85,7 +103,16 @@ the target) and ``nvcc``:
    a decode step's device time on the plans against full width, in
    alternating bursts; checks that a hand-narrowed
    plan's sliced forward equals its zero-masked full-shape forward on the
-   kernels, and runs ``launch.serve_batched`` on the card;
+   kernels, and runs ``launch.serve_batched`` on the card; then the
+   degradation ladder: three rungs built on the card's planner with
+   ``tile_hw=H100_SXM`` (each rung's predicted reduction and
+   ``plan_tail_free``), equal to the CPU planner's ladder, and
+   ``ServeEngine`` with ``AdmissionControl``, a ``DegradationController``,
+   a swapper and a step cache warmed for every rung serving a burst and
+   then a lull on a virtual clock of modeled batch costs, with the counts
+   set to 0 just before and read just after: a down and an up shift, every
+   request finished, no capture while serving, and the batches served at
+   level 0 equal to the same batches served without a degrader;
 6. the continuous path (after the planner path, before the recurrent
    families): full-width qwen1.5-0.5b through ``ContinuousServeEngine``
    as ``launch.serve_continuous`` builds it (4 slots, max_len 512, a warm
@@ -117,6 +144,11 @@ Any failed check exits non-zero (Fig. 5's flat-stair check after every
 phase has run, with no result line). Without a card, or outside a
 checkout, it exits non-zero and prints no result. TF32 is off: fp32
 products are fp32.
+
+    python3 chip_smoke.py --tiles
+
+runs only the GEMM forms and the tiles phase (the tiles, the picks, the
+per-tile Fig. 5 sweeps), prints them as one JSON line, and no result line.
 
     python3 chip_smoke.py --host-us [SRC]
 
@@ -856,12 +888,15 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
     del st
     cached = serve_cached(torch, np, mods, engine, arch, second, toks, split)
     torch.cuda.empty_cache()
+    tiles_ab = cached_tiles_ab(torch, np, mods, engine, second,
+                               mods["card"]) if arch == ARCH else None
+    torch.cuda.empty_cache()
     if cfg.moe:
         capacity_prefill(torch, mods, engine.params, cfg, toks)
     del engine
     torch.cuda.empty_cache()
     return {"launches": launches, "tok_s": n_new / warm_s, "split": split,
-            "cached": cached}
+            "cached": cached, "tiles_ab": tiles_ab}
 
 
 def serve_cached(torch, np, mods, engine, arch: str, eager_out, toks,
@@ -938,17 +973,20 @@ def serve_cached(torch, np, mods, engine, arch: str, eager_out, toks,
     # the launches a replay adds, held against the kernels the device ran
     # in one replay of each entry (torch.profiler)
     entries = {k[1]: e for k, e in cache._exec.items()}
+    tiles = {}
     with torch.inference_mode():
         for kind, fn in (("prefill", steps["prefill"]),
                          ("decode", steps["decode step"])):
             summary, by_name = device_kernels(torch, fn)
             traced = traced_launches(by_name)
             recorded = traced_expected(entries[kind].launches)
+            tiles[kind] = gemm_tiles(by_name)
             check(traced == recorded, f"{arch} cached {kind}: one replay "
                   f"ran {traced} port kernels on the device ({summary}), "
                   f"the entry adds {recorded}")
             log(f"{arch} cached {kind}: one replay ran {traced} port "
-                f"kernels on the device, as the entry counts ({summary})")
+                f"kernels on the device, as the entry counts ({summary}); "
+                f"GEMM tiles (the autotuner's, hw=H100_SXM) {tiles[kind]}")
     reqs = requests(cfg, mods["Request"], np)
     tok_s = {"eager": [], "cached": []}
     engines = {"eager": engine, "cached": cached}
@@ -977,7 +1015,7 @@ def serve_cached(torch, np, mods, engine, arch: str, eager_out, toks,
         f"{peak / 2**30:.3f} GiB with the cache warm")
     del steps, cache, cached, st_c, c_logits
     return {"launches": launches, "tok_s": tok_s, "steps": timed,
-            "capture_s": capture_s, "peak_bytes": peak}
+            "capture_s": capture_s, "peak_bytes": peak, "tiles": tiles}
 
 
 def moe_held(torch, ops, fn):
@@ -1262,17 +1300,18 @@ def compare_staircase_cta(torch, sf, case) -> dict:
 
 
 def gemm_forms(mt, mg) -> None:
-    """Both GEMM libraries' prefill and decode forms read on the card
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), held against the
-    constant the CPU reads (``matmul_tiled.FORMS``)."""
+    """Both GEMM libraries' prefill and decode forms, on each tile, read on
+    the card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), held
+    against the constant the CPU reads (``matmul_tiled.FORMS``): one CTA
+    an SM on every prefill tile."""
     for module in (mt, mg):
-        for kind in ("prefill", "decode"):
-            got = module.form(kind)
-            want = mt.FORMS[kind]
+        for (kind, tile), want in mt.FORMS.items():
+            got = module.form(kind, tile=tile)
             check({k: got[k] for k in want} == want and
                   got["spill_bytes"] == 0,
-                  f"{module.NAME} {kind} form {got} differs from {want}")
-            log(f"{module.NAME} {kind} form on the card: {got}")
+                  f"{module.NAME} {kind} form on {tile} {got} differs from "
+                  f"{want}")
+            log(f"{module.NAME} {kind} form on {tile} on the card: {got}")
 
 
 def fig5_on_card(mods) -> dict:
@@ -1303,6 +1342,195 @@ def fig5_on_card(mods) -> dict:
                  f"{len(flat['flat_fails'])} failed, "
                  f"{flat['flat_fails'][:4]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the GEMM tiles and the tile autotuner
+# ---------------------------------------------------------------------------
+# the main paths' prefill GEMM shapes (M, K, N): qwen's FFN up and down,
+# recurrentgemma's MLP up and down, and qwen's FFN up at the planned 2112
+# columns; granite's dense expert products (E, C, D, F, x broadcast)
+TILE_MATMULS = ((512, 1024, 2816), (512, 2816, 1024), (512, 2560, 7680),
+                (512, 7680, 2560), (512, 1024, 2112))
+TILE_MOES = ((32, 512, 1024, 512, True), (32, 512, 512, 1024, False))
+# shapes that autotune.TILE_EFFICIENCY was not fitted on (the seven above
+# were), held by the same pick check: qwen's FFN at the continuous
+# engine's prefill buckets (M = 128, 256) and a cut layer's down
+# projection (K = 2112, the planned width)
+TILE_HELD_OUT = ((128, 1024, 2816), (128, 2816, 1024), (256, 1024, 2816),
+                 (256, 2816, 1024), (512, 2112, 1024))
+# rounds of (default tile, pick) timings, alternating which goes first,
+# for the check that the pick is not slower than the default
+TILE_ROUNDS = 4
+# the per-tile Fig. 5 sweeps: qwen's prefill (M, K), the predicted edges
+# held on the card
+TILE_SWEEP = (512, 1024)
+TILE_SWEEP_EDGES = 2
+
+
+def tile_case(torch, mods, kernel: str, case: tuple, gen) -> dict:
+    """One prefill GEMM shape on every tile: each tile's time, error
+    against the plain version, bit-equality to the default tile, bound
+    and modeled waves; the plain and ``torch.matmul`` times; the
+    autotuner's pick on ``H100_SXM``, then the pick against the default
+    tile in alternating rounds (a deferred check: not slower by more than
+    5 % and more than the two timings' spread)."""
+    mt, mg, at = mods["mt"], mods["mg"], mods["autotune"]
+    hw = mods["H100_SXM"]
+    if kernel == "matmul":
+        m, k, n = case
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(k, n, generator=gen, device="cuda").bfloat16()
+        args = (x, w)
+        run = mt.matmul_tiled
+        plain, library = mt.matmul_ref, torch.matmul
+        flops, nbytes = 2.0 * m * n * k, 2.0 * (m * k + k * n + m * n)
+        pick = at.autotune_matmul(hw, m, n, k)
+        score = lambda t: at._gpu_matmul_config(hw, m, n, k, *t, 16)
+        name = f"matmul_tiled M={m} K={k} N={n}"
+    else:
+        e, c, d, f, bcast = case
+        xb = torch.randn(*((c, d) if bcast else (e, c, d)), generator=gen,
+                         device="cuda").bfloat16()
+        w = torch.randn(e, d, f, generator=gen, device="cuda").bfloat16()
+        args = (xb, w)
+
+        def view(a):
+            return a.expand(e, c, d) if bcast else a
+
+        run = lambda a, b, t=None: mg.moe_gmm(view(a), b, t)
+        plain = lambda a, b: mg.moe_gmm_ref(view(a), b)
+        library = lambda a, b: torch.matmul(view(a), b)
+        flops = 2.0 * e * c * d * f
+        nbytes = 2.0 * (xb.numel() + w.numel() + e * c * f)
+        pick = at.autotune_moe_gmm(hw, e, c, d, f)
+        score = lambda t: at._gpu_moe_config(hw, e, c, d, f, *t, 16)
+        name = f"moe_gmm E={e} C={c} D={d} F={f}" + (
+            " x broadcast" if bcast else "")
+    b_ms, b_by = bound_ms(flops, nbytes)
+    ref = plain(*args)
+    default = run(*args, None)
+    tol = (MOE_RTOL if kernel == "moe_gmm" else 2.0 ** -7) \
+        * ref.float().abs().max().item()
+    row = {"case": name, "bound_ms": b_ms, "bound_by": b_by,
+           "plain_ms": time_ms(torch, plain, args),
+           "library_ms": time_ms(torch, library, args),
+           "pick": list(pick.blocks), "pick_waves": pick.waves,
+           "pick_tail_free": pick.tail_free, "tiles": {}}
+    for tile in mt.PREFILL_TILES:
+        out = run(*args, tile)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        check(bool(torch.isfinite(out.float()).all()) and err <= tol,
+              f"{name} tile {tile}: max_abs_err {err} > tol {tol}")
+        # the step cache's sliced and masked plans agree only if a tile
+        # never changes a sum's K order
+        check(bool(torch.equal(out, default)),
+              f"{name} tile {tile}: not bit-equal to {mt.DEFAULT_TILE}")
+        cfg = score(tile)
+        # Eq. 3's compute time at the full peak: waves x one CTA's FLOPs
+        # over one SM's share of it
+        pure_ms = cfg.waves * cfg.padded_flops / cfg.grid_blocks \
+            * hw.cores_per_chip / hw.peak_flops_bf16 * 1e3
+        t = {"ms": time_ms(torch, lambda a, b: run(a, b, tile), args),
+             "max_abs_err": err, "bit_equal_default": bool(
+                 torch.equal(out, default)),
+             "ctas": cfg.grid_blocks, "waves": cfg.waves,
+             "tail_free": cfg.tail_free, "model_us": cfg.latency_s * 1e6}
+        t["efficiency"] = pure_ms / t["ms"]
+        row["tiles"][f"{tile[0]}x{tile[1]}"] = t
+        log(f"tiles {name} tile {tile}: ms {t['ms']:.4f} max_abs_err "
+            f"{err:.4g} bit-equal to {mt.DEFAULT_TILE} "
+            f"{t['bit_equal_default']} CTAs {t['ctas']} waves "
+            f"{t['waves']} tail-free {t['tail_free']} model "
+            f"{t['model_us']:.3f} us; bound_ms {b_ms:.4f} ({b_by})")
+    pk = tuple(pick.blocks)
+    ab = {"default": [], "pick": []}
+    for r in range(TILE_ROUNDS):
+        order = ("default", "pick") if r % 2 == 0 else ("pick", "default")
+        for side in order:
+            t = mt.DEFAULT_TILE if side == "default" else pk
+            ab[side].append(time_ms(torch, lambda a, b: run(a, b, t), args))
+    md = {k: sorted(v)[len(v) // 2] for k, v in ab.items()}
+    spread = max(max(v) - min(v) for v in ab.values())
+    row.update(pick_ms=md["pick"], default_ms=md["default"],
+               ab_spread_ms=spread, ab=ab)
+    log(f"tiles {name}: plain_ms {row['plain_ms']:.4f} library_ms "
+        f"{row['library_ms']:.4f}; autotuner's pick {pk} ({pick.waves} "
+        f"waves, tail-free {pick.tail_free}): {md['pick']:.4f} ms against "
+        f"{mt.DEFAULT_TILE}'s {md['default']:.4f} (medians of "
+        f"{TILE_ROUNDS} alternating rounds, spread {spread:.4f})")
+    slower = md["pick"] - md["default"]
+    check_at_end(not (slower > 0.05 * md["default"] and slower > spread),
+                 f"tiles {name}: the pick {pk} is {slower:.4f} ms slower "
+                 f"than {mt.DEFAULT_TILE} ({md['pick']:.4f} against "
+                 f"{md['default']:.4f}, spread {spread:.4f})")
+    return row
+
+
+def tile_sweeps(np, mods) -> dict:
+    """A short Fig. 5 sweep per added tile at qwen's prefill (M = 512,
+    K = 1024; ``launch.wave_verification``'s sweep on the tile): where the
+    card steps against the tile's predicted edges every S CTAs. A tile
+    whose sweep does not step there fails the run at its end: Eq. 3 over
+    that tile does not hold."""
+    wv, mt, hw = mods["wave_verification"], mods["mt"], mods["H100_SXM"]
+    m, k = TILE_SWEEP
+    s = hw.cores_per_chip
+    out = {}
+    for tile in mt.PREFILL_TILES:
+        if tile == mt.DEFAULT_TILE:
+            continue
+        # widths up to SIDE past the TILE_SWEEP_EDGES-th predicted edge
+        tiles_per_edge = -(-s // -(-m // tile[0]))
+        top = (TILE_SWEEP_EDGES * tiles_per_edge + 1 + wv.SIDE) * tile[1]
+        widths = tuple(range(tile[1], top + 1, tile[1]))
+        t0 = time.perf_counter()
+        sw = wv.card_sweep(hw, m, k, widths, tile=tile)
+        waves = np.asarray(sw["waves_S"])
+        res = wv.card_checks(sw["us"], waves, edges=TILE_SWEEP_EDGES)
+        edges = wv.edges_of(sw, "waves_S")[:TILE_SWEEP_EDGES]
+        log(f"Fig. 5 tile {tile} M={m} K={k}: {len(widths)} widths in "
+            f"{time.perf_counter() - t0:.1f}s; predicted edges (last width "
+            f"of a stair, every {s} CTAs) {edges}; steps there {res['ok']}"
+            f" (jumps us {[round(x, 3) for x in res['jumps_us']]}, noise "
+            f"{res['noise_us']:.3f}, time per wave "
+            f"{res['per_wave_over_dl']:.3f} x dL {res['dl_us']:.3f} us); "
+            f"flat {res['flat_ok']} {res['flat_fails'][:2]}; {res['fails']}")
+        for i in range(0, len(widths), max(1, len(widths) // 24)):
+            log(f"    N={widths[i]:>6} B={sw['blocks'][i]:>5} "
+                f"W={waves[i]:>3} {sw['us'][i]:9.3f} us")
+        check_at_end(res["ok"], f"Fig. 5 tile {tile}: the card does not "
+                                f"step every {s} CTAs: {res['fails']}")
+        out[f"{tile[0]}x{tile[1]}"] = {"edges": edges, **{
+            key: res[key] for key in ("ok", "flat_ok", "jumps_us", "dl_us",
+                                      "noise_us", "per_wave_over_dl")}}
+    return out
+
+
+def tiles_phase(torch, np_, mods, gen) -> dict:
+    """Every prefill tile at each main-path prefill GEMM shape, the
+    autotuner's picks held against the default tile, then the per-tile
+    Fig. 5 sweeps."""
+    t0 = time.perf_counter()
+    rows = [tile_case(torch, mods, "matmul", c, gen) for c in TILE_MATMULS]
+    rows += [tile_case(torch, mods, "moe_gmm", c, gen) for c in TILE_MOES]
+    held = [dict(tile_case(torch, mods, "matmul", c, gen), held_out=True)
+            for c in TILE_HELD_OUT]
+    log(f"tiles phase: {len(rows)} + {len(held)} held-out shapes x "
+        f"{len(mods['mt'].PREFILL_TILES)} tiles in "
+        f"{time.perf_counter() - t0:.1f}s")
+    # each tile's share of an SM's peak (Eq. 3's compute time at the full
+    # peak over the measured time), median over the shapes it was fitted
+    # on: what autotune.TILE_EFFICIENCY holds, as measured in this run
+    for tile in mods["mt"].PREFILL_TILES:
+        key = f"{tile[0]}x{tile[1]}"
+        effs = sorted(r["tiles"][key]["efficiency"] for r in rows)
+        log(f"tiles: {tile} efficiency median {effs[len(effs) // 2]:.4f} "
+            f"over {len(effs)} shapes {[round(e, 3) for e in effs]}; "
+            f"autotune.TILE_EFFICIENCY "
+            f"{mods['autotune'].TILE_EFFICIENCY['prefill', tile]}")
+    return {"shapes": rows + held, "sweeps": tile_sweeps(np_, mods)}
 
 
 def rglru_inputs(torch, case: tuple, gen) -> tuple:
@@ -1546,12 +1774,14 @@ def plan_tpu_form(mods, traffic) -> None:
             f"{100 * p.latency_reduction:.2f}%; equal on the CPU")
 
 
-def plans_measured(mods, tpl, plans) -> None:
+def plans_measured(mods, tpl, plans, tile_hw) -> None:
     """Each plan's modeled reduction beside the card's: every planned
     layer's GEMM timed (``profiler.measured_profile``) at its planned
-    width and at full width, at the class's tokens. Fails where a cut
-    layer is not faster on the card; reports whether the plan meets its
-    target on the card, not only in the model."""
+    width and at full width, at the class's tokens, each on the tile the
+    autotuner picks on ``tile_hw`` (the tile the planner priced and a step
+    cache with ``hw=tile_hw`` launches). Fails where a cut layer is not
+    faster on the card; reports whether the plan meets its target on the
+    card, not only in the model."""
     from repro_torch.core.profiler import measured_profile
     for name, p in plans.items():
         meas = {}
@@ -1563,7 +1793,8 @@ def plans_measured(mods, tpl, plans) -> None:
         us = {}
         for key, (at, ws) in meas.items():
             ws = sorted(ws)
-            prof = measured_profile(at, ws, hw=mods["H100_SXM"])
+            prof = measured_profile(at, ws, hw=mods["H100_SXM"],
+                                    tile_hw=tile_hw)
             us[key] = dict(zip(ws, (prof.latency_s * 1e6).tolist()))
         new = full = 0.0
         cut = {}
@@ -1606,8 +1837,11 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
 
     ops.reset_launches()
     cache = sv.WidthVariantCompileCache(cfg, hw=hw)
+    # the cache launches the autotuner's tiles on hw, so the planner prices
+    # each width on them (tile_hw) and breaks its ties toward them
     planner = sv.ServingWidthPlanner(hw, tpl, modules=modules,
-                                     device="cuda", compile_cache=cache)
+                                     device="cuda", compile_cache=cache,
+                                     tile_hw=hw)
     t0 = time.perf_counter()
     plans = planner.plan(traffic)
     plan_s = time.perf_counter() - t0
@@ -1621,14 +1855,15 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
                          "rwkv6": 0, "moe_gmm": 0},
           f"planning launched {after_plan}, expected one CTA-wave and one "
           f"staircase sweep per class ({len(traffic)})")
-    on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu")
+    on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu",
+                                    tile_hw=hw)
     t0 = time.perf_counter()
     cpu_plans = on_cpu.plan(traffic)
     times = {"cuda": plan_s, "cpu": time.perf_counter() - t0}
     for name, p in plans.items():
         check(cpu_plans[name].widths == p.widths,
               f"plan {name}: the CPU planner chose other widths")
-    model = mods["CtaWaveModel"](hw)
+    model = planner.model
     for name, p in plans.items():
         counts, waves = {}, {}
         for t in tpl:
@@ -1636,10 +1871,10 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
             counts[w] = counts.get(w, 0) + 1
             at = dataclasses.replace(t.layer, width=w,
                                      tokens=p.traffic.tokens)
-            waves[w] = (model.blocks(at), model.waves(at))
-        log(f"plan[{name}] ({p.traffic.tokens} tokens, GPU form): widths "
-            f"{counts} of d_ff {cfg.d_ff}; (CTAs, modeled waves) per width "
-            f"{waves}; modeled reduction {100 * p.latency_reduction:.2f}%; "
+            waves[w] = (model.tile(at), model.blocks(at), model.waves(at))
+        log(f"plan[{name}] ({p.traffic.tokens} tokens, GPU form, tiles of "
+            f"tile_hw {hw.name}): widths {counts} of d_ff {cfg.d_ff}; (tile, "
+            f"CTAs, modeled waves) per width {waves}; modeled reduction {100 * p.latency_reduction:.2f}%; "
             f"satisfied {p.satisfied}; equal on the CPU; the step cache "
             f"(compile_cost_s {cache.compile_cost_s}) realizes it "
             f"{cache.decide(p)}")
@@ -1668,7 +1903,7 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     want["staircase_fused"] = want["staircase_cta"] = len(traffic)
     check(launches == want, f"planner path launched {launches} != {want}")
     # outside the counted window: these launches time the plans
-    plans_measured(mods, tpl, plans)
+    plans_measured(mods, tpl, plans, hw)
     names = [p.traffic.name for p in engine.plan_log]
     check(names == ["long", "short", "long"],
           f"bursts selected {names}, expected long, short, long")
@@ -1876,6 +2111,228 @@ def narrowed_plan(torch, np, mods, params, modules) -> None:
         f"max_abs_err {err} (bit-identical: {bool(torch.equal(a, b))})")
     check(bool(torch.isfinite(a).all()) and bool(torch.equal(a, b)),
           f"the sliced forward differs from the masked one by {err}")
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's tiles through the step cache, and the degradation ladder
+# ---------------------------------------------------------------------------
+# the degradation phase: a ladder of 1 + len(LADDER_DELTAS) rungs; a burst
+# of BURST batches of 4 x 128-token prompts, then LULL single requests, on
+# a virtual clock whose batch costs are modeled (per token, as
+# chaos.modeled_batch_cost), so that the overload signal, and with it the
+# controller's walk, is the same in every run; the tokens are the card's
+LADDER_DELTAS = (0.85, 0.7)
+BURST, LULL = 3, 8
+DEGRADE_TARGET_S = 0.4     # a full batch's modeled 0.576 s is overload
+
+
+def gemm_tiles(by_name: dict) -> dict:
+    """{"prefill 256x64": launches, ...}: the GEMM kernels of a device
+    trace (``device_kernels``' table) by their template's tile."""
+    import re
+    out: dict = {}
+    for name, (count, _) in by_name.items():
+        hit = re.search(r"gemm_kernel<(\d+), (true|false)>", name)
+        if hit:
+            key = (f"{'prefill' if hit.group(2) == 'true' else 'decode'} "
+                   f"{hit.group(1)}x64")
+            out[key] = out.get(key, 0) + count
+    return dict(sorted(out.items()))
+
+
+def cached_tiles_ab(torch, np, mods, engine, eager_out, card: str) -> dict:
+    """Full-width qwen1.5-0.5b, one batch of 4 x 16 new tokens, through two
+    step caches in one call: ``hw=None`` (the kernels' default tiles) and
+    ``hw=H100_SXM`` (the autotuner's). Both serve the eager engine's
+    tokens, with no capture while serving; then, per side, the prefill
+    and decode replays' device ms, the tiles their GEMMs took (read from
+    the device trace) and tokens/s in alternating bursts."""
+    cfg, sv = engine.cfg, mods["serving"]
+    b, plen = len(PROMPT_LENS), max(PROMPT_LENS)
+    sides = {}
+    for name, hw in (("default", None), ("autotuned", mods["H100_SXM"])):
+        cache = sv.WidthVariantCompileCache(cfg, hw=hw)
+        eng = sv.ServeEngine(engine.params, cfg, max_len=engine.max_len,
+                             batch_slots=engine.slots, rng_seed=SEED,
+                             device="cuda", compile_cache=cache)
+        check(eng.warm_compile([], [(b, plen)]) == 2,
+              f"cached A/B {name}: warm_compile failed: {cache.events}")
+        count = cache.tracer.count
+        out = eng.generate(requests(cfg, mods["Request"], np))
+        check(all(np.array_equal(a.tokens, r.tokens)
+                  for a, r in zip(eager_out, out))
+              and cache.tracer.count == count
+              and cache.stats["misses"] == 0,
+              f"cached A/B {name}: other tokens than the eager engine's, "
+              f"or a capture or miss while serving ({cache.stats})")
+        entries = {k[1]: e for k, e in cache._exec.items()}
+        row = {"tok_s": []}
+        with torch.inference_mode():
+            for kind in ("prefill", "decode"):
+                replay = entries[kind].graph.replay
+                row[f"{kind}_ms"] = stream_ms(torch, replay)
+                summary, by_name = device_kernels(torch, replay)
+                row[f"{kind}_tiles"] = gemm_tiles(by_name)
+                row[f"{kind}_trace"] = summary
+        sides[name] = (eng, row)
+    check(sides["default"][1]["prefill_tiles"] == {"prefill 128x64":
+                                                   3 * cfg.n_layers},
+          f"cached A/B: the default cache's prefill ran "
+          f"{sides['default'][1]['prefill_tiles']}")
+    auto = sides["autotuned"][1]["prefill_tiles"]
+    check(sum(auto.values()) == 3 * cfg.n_layers and
+          auto != sides["default"][1]["prefill_tiles"],
+          f"cached A/B: the autotuned prefill ran {auto}")
+    reqs = requests(cfg, mods["Request"], np)
+    for r in range(CACHED_ROUNDS):
+        for name in (("default", "autotuned") if r % 2 == 0 else
+                     ("autotuned", "default")):
+            eng, row = sides[name]
+            t0 = time.perf_counter()
+            res = eng.generate(reqs)
+            row["tok_s"].append(sum(len(x.tokens) for x in res)
+                                / (time.perf_counter() - t0))
+    out = {}
+    for name, (eng, row) in sides.items():
+        row["tok_s_median"] = float(np.median(row["tok_s"]))
+        out[name] = row
+        log(f"cached A/B {card} {ARCH}, one batch of {b} x {NEW_TOKENS} new "
+            f"tokens (prompts {PROMPT_LENS}), {name} tiles: tok/s median "
+            f"{row['tok_s_median']:.2f} {[round(x, 2) for x in row['tok_s']]}"
+            f"; prefill replay {row['prefill_ms']:.4f} device ms, GEMM tiles "
+            f"{row['prefill_tiles']} ({row['prefill_trace']}); decode replay "
+            f"{row['decode_ms']:.4f} device ms, GEMM tiles "
+            f"{row['decode_tiles']}")
+    d, a = out["default"], out["autotuned"]
+    log(f"cached A/B {card}: autotuned against default, prefill device "
+        f"{100 * (a['prefill_ms'] / d['prefill_ms'] - 1):+.2f}%, decode "
+        f"{100 * (a['decode_ms'] / d['decode_ms'] - 1):+.2f}%, tok/s "
+        f"{100 * (a['tok_s_median'] / d['tok_s_median'] - 1):+.2f}% "
+        f"({CACHED_ROUNDS} bursts each, alternating)")
+    del sides
+    return out
+
+
+def ladder_rows(ladder) -> list:
+    return [(r.level, {n: dict(p.widths) for n, p in r.plans.items()})
+            for r in ladder.rungs]
+
+
+def degradation_phase(torch, np, mods, card: str) -> dict:
+    """The degradation ladder on full-width qwen1.5-0.5b: a ladder of
+    three rungs on the card's planner (``H100_SXM``, ``tile_hw=H100_SXM``;
+    one CTA-wave sweep per class and rung) held against the CPU planner's;
+    then ``ServeEngine`` with ``AdmissionControl``, a
+    ``DegradationController``, a swapper and a step cache (``hw=H100_SXM``)
+    warmed for every rung, serving a burst that drives the overload signal
+    past the down threshold and then a lull, with the launch counts set to
+    0 just before and read just after. Checks: a down and an up shift, every
+    request finished, the batches served at level 0 give the tokens of the
+    same batches on an engine without a degrader, and no capture while
+    serving."""
+    cfg = mods["configs"].get_config(ARCH)
+    tfm, sv, ops, hw = mods["tfm"], mods["serving"], mods["ops"], \
+        mods["H100_SXM"]
+    plen = max(PROMPT_LENS)
+    tpl, modules = sv.serving_templates(cfg, hw, tokens=plen * 4)
+    traffic = [sv.TrafficClass(n, t) for n, t in CLASSES]
+    ladders = {}
+    for device in ("cuda", "cpu"):
+        planner = sv.ServingWidthPlanner(hw, tpl, modules=modules,
+                                         device=device, tile_hw=hw)
+        planner.plan(traffic)
+        ladders[device] = (planner, sv.DegradationLadder.build(
+            planner, traffic, deltas=LADDER_DELTAS, tile_hw=hw))
+    planner, ladder = ladders["cuda"]
+    cpu = ladders["cpu"][1]
+    check(len(ladder) == 1 + len(LADDER_DELTAS)
+          and ladder_rows(ladder) == ladder_rows(cpu)
+          and all(abs(a.reduction - b.reduction) <= 1e-6 * max(
+              abs(b.reduction), 1e-12) for a, b in zip(ladder.rungs,
+                                                       cpu.rungs)),
+          f"degradation: the card's ladder differs from the CPU's: "
+          f"{[(r.level, r.reduction) for r in ladder.rungs]} against "
+          f"{[(r.level, r.reduction) for r in cpu.rungs]}")
+    for r in ladder.rungs:
+        log(f"degradation rung {r.level} on {card}: predicted reduction "
+            f"{r.reduction:.4f}; " + "; ".join(
+                f"{n}: widths {sorted(set(p.widths.values())) or 'full'} "
+                f"(cut {sum(w < cfg.d_ff for w in p.widths.values())} "
+                f"layers), reduction {p.latency_reduction:.4f}, "
+                f"plan_tail_free {planner.plan_tail_free(p)}"
+                for n, p in r.plans.items()))
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tfm.cast_params(tfm.init_params(cfg, gen, "cuda"), "cuda")
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [mods["Request"](prompt=rng.integers(0, cfg.vocab_size,
+                                                size=(plen,)).astype(np.int32),
+                            max_new_tokens=NEW_TOKENS)
+            for _ in range(4 * BURST + LULL)]
+    cache = sv.WidthVariantCompileCache(cfg, hw=hw)
+    swapper = sv.WidthSwapper(params, cfg)
+    ctl = sv.DegradationController(ladder, down_threshold=1.0,
+                                   up_threshold=0.5, down_patience=1,
+                                   up_patience=2)
+    eng = sv.ServeEngine(
+        params, cfg, max_len=plen + NEW_TOKENS, batch_slots=4,
+        rng_seed=SEED, device="cuda", planner=planner, swapper=swapper,
+        admission=sv.AdmissionControl(max_queue_batches=8,
+                                      target_batch_s=DEGRADE_TARGET_S,
+                                      ewma_alpha=0.5),
+        degrader=ctl, clock=mods["chaos"].VirtualClock(),
+        batch_cost_fn=mods["chaos"].modeled_batch_cost(1e-3),
+        compile_cache=cache)
+    rung_plans = [p for r in ladder.rungs for p in r.plans.values()]
+    t0 = time.perf_counter()
+    warm = eng.warm_compile(rung_plans, [(4, plen), (1, plen)])
+    warm_s = time.perf_counter() - t0
+    count = cache.tracer.count
+    ops.reset_launches()
+    out = eng.generate(reqs[:4 * BURST])
+    for r in reqs[4 * BURST:]:
+        out += eng.generate([r])
+    launches = dict(ops.LAUNCHES)
+    captured = cache.tracer.count - count
+    dirs = [s.direction for s in ctl.shift_log]
+    check("down" in dirs and "up" in dirs,
+          f"degradation: shifts {dirs}: no down and up shift")
+    check(len(out) == len(reqs) and all(
+        not r.shed and not r.failed and len(r.tokens) == NEW_TOKENS
+        for r in out), "degradation: a request did not finish")
+    check(captured == 0 and cache.stats["misses"] == 0
+          and cache.stats["fallbacks"] == 0,
+          f"degradation: {captured} captures while serving, stats "
+          f"{cache.stats}")
+    check(launches["matmul_tiled"] > 0 and launches["flash_attention"] > 0,
+          f"degradation: launches {launches}")
+    # the batches served at level 0 (rung 0's plans are full width) against
+    # the same batches on an engine without a degrader
+    plain = sv.ServeEngine(params, cfg, max_len=plen + NEW_TOKENS,
+                           batch_slots=4, rng_seed=SEED, device="cuda")
+    batches = [reqs[4 * i:4 * i + 4] for i in range(BURST)] + \
+        [[r] for r in reqs[4 * BURST:]]
+    firsts = np.cumsum([0] + [len(bt) for bt in batches])
+    level0 = [i for i, p in enumerate(eng.plan_log) if not p.widths]
+    check(level0 and level0[0] == 0 and level0[-1] == len(batches) - 1,
+          f"degradation: batches at level 0: {level0}")
+    for i in level0:
+        alone = plain.generate(batches[i])
+        check(all(np.array_equal(a.tokens, b.tokens) for a, b in
+                  zip(alone, out[firsts[i]:firsts[i + 1]])),
+              f"degradation: batch {i} at level 0 gave other tokens than "
+              f"without a degrader")
+    levels = [b.level for b in eng.batch_log]
+    log(f"degradation on {card}: {len(reqs)} requests ({BURST} batches of "
+        f"4 x {plen} tokens, then {LULL} of 1), {warm} warm entries "
+        f"captured in {warm_s:.2f}s, 0 captures while serving; levels after "
+        f"each batch {levels}; plans {[p.traffic.name + ':' + str(len(p.widths)) for p in eng.plan_log]}; "
+        f"shift log {[(s.direction, s.level, round(s.signal, 3), s.batch_index) for s in ctl.shift_log]}; "
+        f"{len(level0)} batches at level 0 equal to serving without a "
+        f"degrader; launches {launches}")
+    del eng, plain, cache, swapper, params
+    torch.cuda.empty_cache()
+    return {"shifts": dirs, "levels": levels, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2299,7 +2756,7 @@ def main() -> None:
     from repro_torch.core.tail_model import (EFFECTIVE_CTAS_PER_SM,
                                              CtaWaveModel)
     from repro_torch.launch import wave_verification
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import autotune, build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_tiled as mt
     from repro_torch.kernels import moe_gmm as mg
@@ -2323,15 +2780,26 @@ def main() -> None:
             "wave_verification": wave_verification,
             "fused_columns": sf.fused_columns,
             "serve_batched_main": serve_batched_main,
-            "serve_continuous": serve_continuous, "chaos": chaos}
+            "serve_continuous": serve_continuous, "chaos": chaos,
+            "mt": mt, "mg": mg, "autotune": autotune}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
     card = card_info(torch)
+    mods["card"] = card
     build_kernels(build)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if "--tiles" in argv:
+        # the tiles phase alone: every GEMM tile at the main paths' prefill
+        # shapes, the autotuner's picks, the per-tile Fig. 5 sweeps
+        gemm_forms(mt, mg)
+        tiles = tiles_phase(torch, np, mods, gen)
+        print(json.dumps({"tiles": tiles}), flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
     # the parent tree's attention, RWKV6 and RG-LRU kernels beside this
     # tree's in each of their cases, if given
     parent = parent_rw = parent_rg = None
@@ -2407,6 +2875,9 @@ def main() -> None:
     gemm_edges(torch, mt, mg, gen)
     gemm_forms(mt, mg)
     fig5_on_card(mods)
+    # every GEMM tile at the main paths' prefill shapes, the autotuner's
+    # picks against the default tile, the per-tile Fig. 5 sweeps
+    tiles = tiles_phase(torch, np, mods, gen)
     log(f"GEMM wrappers, host us per call: "
         f"{json.dumps(wrapper_host_us(torch, mt, mg))}")
 
@@ -2418,6 +2889,7 @@ def main() -> None:
     narrowed_plan(torch, np, mods, planned.pop("params"),
                   planned.pop("modules"))
     torch.cuda.empty_cache()
+    degradation = degradation_phase(torch, np, mods, card)
     serve_batched_on_card(mods)
     # the continuous engine: full-width qwen (a)-(c) and the static
     # batches beside them, then (d) small configs on the card against the
@@ -2479,6 +2951,22 @@ def main() -> None:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "case": row["case"]})
+        if name in ("matmul_tiled", "moe_gmm"):
+            # a sub-row per tile at each main-path prefill shape (the
+            # tiles phase), and the tiles one cached prefill replay of the
+            # family ran with the autotuner's picks
+            kernels[-1]["tiles"] = [
+                {"case": r["case"], "tile": key, **{
+                    k: t[k] for k in ("ms", "max_abs_err",
+                                      "bit_equal_default", "ctas", "waves")},
+                 "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],
+                 "library_ms": r["library_ms"],
+                 "pick": key == f"{r['pick'][0]}x{r['pick'][1]}",
+                 "held_out": r.get("held_out", False)}
+                for r in tiles["shapes"]
+                if r["case"].startswith(name) for key, t in r["tiles"].items()]
+            kernels[-1]["cached_prefill_tiles"] = \
+                path["cached"]["tiles"]["prefill"]
     log(f"card: {card}; total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     if DEFERRED:

@@ -15,8 +15,7 @@ staircase (Fig. 6).  We provide two generators:
     exactly the paper's procedure, so the optimizer also works when fed
     measured tables (e.g. on hardware we do not have a closed form for).
 
-(``repro.core.candidates``'s counterpart; ``kernel_tail_free`` comes with
-the port's tile autotuner.)
+(``repro.core.candidates``'s counterpart.)
 
 Both return sorted unique widths.  ``profile_candidates`` on a table produced
 by the analytic model must agree with ``analytic_candidates`` — this is a
@@ -187,3 +186,19 @@ def snap_nearest(candidates: np.ndarray, width: int) -> int:
     idx = int(np.argmin(np.abs(candidates - width)))
     return int(candidates[idx])
 
+
+def kernel_tail_free(hw, tokens: int, d_in: int, width: int, *,
+                     dtype_bits: int = 16, cache=None) -> bool:
+    """True when the autotuned matmul grid for a (tokens x d_in) @ (d_in
+    x width) projection lands on a full-wave boundary (paper Eq. 3: no
+    partial wave, no padded tail).  This is the *kernel-level* tail
+    check — the staircase model scores the layer, this scores the tile
+    grid the layer would actually run on (on a GPU spec, the port's CUDA
+    tiles over the card's SMs) — and is what
+    ``ServingWidthPlanner``/``DegradationLadder`` use to prefer widths
+    whose executables waste no wave.  Memoized per (hw, shape) by the
+    autotuner."""
+    from repro_torch.kernels.autotune import autotune_matmul
+    cfg = autotune_matmul(hw, int(tokens), int(width), int(d_in),
+                          dtype_bits=dtype_bits, cache=cache)
+    return bool(cfg.tail_free)

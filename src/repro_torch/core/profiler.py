@@ -178,15 +178,19 @@ def time_graph_ms(fn, reps: int = 20, repeats: int = 5) -> list[float]:
 def measured_profile(layer: LayerShape, widths: Sequence[int], *,
                      hw: Optional[HardwareSpec] = None, device="cuda",
                      reps: int = 20, repeats: int = 5,
-                     seed: int = 0) -> LayerProfile:
+                     seed: int = 0, tile=None,
+                     tile_hw=None) -> LayerProfile:
     """The paper's nvprof step on the card: ``ops.matmul`` of random bf16
     (tokens, ceil(d_in / shard_in)) @ (.., ceil(w / shard_out)) operands
     at each width, the median of ``repeats`` CUDA-graph replays of
-    ``reps`` calls (``time_graph_ms``). Utilization and waves are
-    ``CtaWaveModel``'s on ``hw`` (the card's own spec by default,
-    ``GpuSpec.from_device``); throughput is the useful FLOPs over the
-    measured time. Raises without a CUDA device: a measurement never
-    falls back to the CPU."""
+    ``reps`` calls (``time_graph_ms``). Each product runs on ``tile``, or
+    where that is None on the autotuner's pick on ``tile_hw`` (what a step
+    cache with ``hw=tile_hw`` launches), else on the kernel's default.
+    Utilization and waves are ``CtaWaveModel``'s on ``hw`` (the card's own
+    spec by default, ``GpuSpec.from_device``) with ``tile_hw`` (the
+    default tile's without it, ``tile`` or not); throughput is the useful
+    FLOPs over the measured time. Raises without a CUDA device: a
+    measurement never falls back to the CPU."""
     from repro_torch.core.gpu import GpuSpec
     from repro_torch.kernels import ops
 
@@ -195,7 +199,7 @@ def measured_profile(layer: LayerShape, widths: Sequence[int], *,
         raise RuntimeError(f"measured_profile times the card: device {dev} "
                            f"is not an available CUDA device")
     hw = hw if hw is not None else GpuSpec.from_device(dev)
-    tbl = CtaWaveModel(hw).evaluate_batch(layer, widths)
+    tbl = CtaWaveModel(hw, tile_hw=tile_hw).evaluate_batch(layer, widths)
     k_dev = ceil_div(layer.d_in, layer.shard_in)
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(layer.tokens, k_dev, generator=gen, device=dev) \
@@ -204,11 +208,12 @@ def measured_profile(layer: LayerShape, widths: Sequence[int], *,
     w_full = torch.randn(k_dev, n_max, generator=gen, device=dev).bfloat16()
     # the widest product first: the decode form's workspace grows once,
     # not at every width (each buffer it outgrows stays allocated)
-    ops.matmul(x, w_full)
+    ops.matmul(x, w_full, tile=tile, hw=tile_hw)
     lat, spread = [], []
     for w in widths:
         wt = w_full[:, :ceil_div(int(w), layer.shard_out)].contiguous()
-        ms = time_graph_ms(lambda: ops.matmul(x, wt), reps, repeats)
+        ms = time_graph_ms(lambda: ops.matmul(x, wt, tile=tile,
+                                              hw=tile_hw), reps, repeats)
         lat.append(float(np.median(ms)) * 1e-3)
         spread.append((max(ms) - min(ms)) * 1e-3)
         del wt

@@ -1,6 +1,6 @@
 """Disk-backed profile-table cache — persistent "Step 1: pre-analysis"
-(``repro.core.table_cache``'s counterpart, without the tile-config entries
-of ``repro``'s autotuner, which the port does not have yet).
+(``repro.core.table_cache``'s counterpart, the tile autotuner's entries
+included: ``get_tiles`` / ``put_tiles``).
 
 The staircase tables the optimizer sweeps (``tail_optimizer._build_tables``)
 and the profiler derives (``profiler.analytic_profile``) depend only on the
@@ -320,6 +320,61 @@ class ProfileTableCache:
                       w2d=np.asarray(w2d, dtype=np.int64),
                       counts=np.asarray(counts, dtype=np.int64),
                       latency_2d=np.asarray(lat2d, dtype=np.float64))
+        self.stats.writes += 1
+        self._evict_to_cap(keep=path)
+        return path
+
+    # ---- kernel tile configs --------------------------------------------
+    # Tiny entries persisting the tile autotuner's chosen blocks per
+    # (hardware, kernel, invocation shape+dtype) — see kernels/autotune.py.
+    # Selection is deterministic, so these are pure lookup-table reuse: a
+    # serving process resolves tiles from disk instead of re-enumerating
+    # the candidate space.
+
+    def _tiles_meta(self, hw: HardwareSpec, kernel: str,
+                    shape: Sequence[int]) -> str:
+        return (f'{{"tiles": {CACHE_VERSION}, "hw": {_hw_json(hw)}, '
+                f'"kernel": {json.dumps(kernel)}, '
+                f'"shape": {json.dumps(list(map(int, shape)))}}}')
+
+    def tiles_key(self, hw: HardwareSpec, kernel: str,
+                  shape: Sequence[int]) -> str:
+        return hashlib.sha256(
+            self._tiles_meta(hw, kernel, shape).encode()).hexdigest()
+
+    def get_tiles(self, hw: HardwareSpec, kernel: str,
+                  shape: Sequence[int]) -> tuple[int, ...] | None:
+        """Persisted block tuple for (hw, kernel, shape), or None."""
+        path = self._path(self.tiles_key(hw, kernel, shape))
+        if not path.exists():
+            self.stats.misses += 1
+            return None
+        for attempt in (0, 1):
+            try:
+                with np.load(path, allow_pickle=False) as z:
+                    if str(z["__meta__"]) != \
+                            self._tiles_meta(hw, kernel, shape):
+                        self.stats.misses += 1
+                        return None
+                    blocks = tuple(int(b) for b in z["blocks"])
+                break
+            except _READ_ERRORS:
+                if attempt == 0 and path.exists():
+                    continue
+                self._quarantine(path)
+                self.stats.misses += 1
+                return None
+        self.stats.hits += 1
+        self._touch(path)
+        return blocks
+
+    def put_tiles(self, hw: HardwareSpec, kernel: str,
+                  shape: Sequence[int],
+                  blocks: Sequence[int]) -> Path:
+        path = self._path(self.tiles_key(hw, kernel, shape))
+        _atomic_savez(
+            path, __meta__=np.array(self._tiles_meta(hw, kernel, shape)),
+            blocks=np.asarray(list(blocks), dtype=np.int64))
         self.stats.writes += 1
         self._evict_to_cap(keep=path)
         return path

@@ -717,21 +717,26 @@ class CtaForm:
     m_pad: int          # rows as the CTAs cover them
     k_pad: int          # K as the CTAs cover it (chunks x chunk)
     tile_flops: float   # 2 x block_m x block_n x K of one CTA
+    rate: float = 1.0   # a CTA's share of an SM's peak: dL divides by
+    #                     it (1, Eq. 3 at the peak, unless a caller sets
+    #                     ``autotune.tile_rate``)
 
 
-def cta_form(hw: HardwareSpec, layer: LayerShape) -> CtaForm:
-    """``layer``'s CTA grid on ``hw``: the port's GEMM as it launches
+def cta_form(hw: HardwareSpec, layer: LayerShape, tile=None) -> CtaForm:
+    """``layer``'s CTA grid on ``hw`` on ``tile`` (the launch's default
+    when None): the port's GEMM as it launches
     (``kernels.matmul_tiled.grid_blocks``, ``kernels.moe_gmm.grid_blocks``
     for experts > 1)."""
     from repro_torch.kernels import matmul_tiled as mt
     from repro_torch.kernels import moe_gmm
     k_dev = ceil_div(layer.d_in, layer.shard_in)
     decode, chunks = mt.kernel_form(layer.tokens, k_dev)
-    bm, bn = (mt.DECODE_BLOCK_M if decode else mt.BLOCK_M), mt.BLOCK_N
+    bm, bn = mt.launch_tile(layer.tokens, tile)
     k_cta = mt.SPLIT_K if decode else ceil_div(k_dev, mt.BLOCK_K) \
         * mt.BLOCK_K
-    g = mt.grid_blocks(layer.tokens, 1, k_dev) if layer.experts == 1 \
-        else moe_gmm.grid_blocks(layer.experts, layer.tokens, 1, k_dev)
+    g = mt.grid_blocks(layer.tokens, 1, k_dev, tile) \
+        if layer.experts == 1 else \
+        moe_gmm.grid_blocks(layer.experts, layer.tokens, 1, k_dev, tile)
     c = EFFECTIVE_CTAS_PER_SM["decode" if decode else "prefill"]
     return CtaForm(g=g, slots=hw.cores_per_chip * c, block_n=bn,
                    m_pad=ceil_div(layer.tokens, bm) * bm,
@@ -761,6 +766,30 @@ class _CtaColumns:
             f.name: getattr(self, f.name)[sl]
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), np.ndarray)})
+
+    @staticmethod
+    def stack(parts: Sequence["_CtaColumns"]) -> "_CtaColumns":
+        """The rows of ``parts`` one after another (one ``block_n``)."""
+        return dataclasses.replace(parts[0], **{
+            f.name: np.concatenate([getattr(c, f.name) for c in parts])
+            for f in dataclasses.fields(parts[0])
+            if isinstance(getattr(parts[0], f.name), np.ndarray)},
+            bytes_aligned=all(c.bytes_aligned for c in parts))
+
+
+@dataclasses.dataclass(frozen=True)
+class _TiledColumns:
+    """``CtaWaveModel``'s columns with ``tile_hw``: one ``_CtaColumns``
+    per tile slot (slot i of a row is its i-th candidate tile, the last
+    repeated where a row has fewer), and per row what the autotuner's pick
+    reads: (kernel, experts, tokens, K per device, dtype bits)."""
+
+    slots: tuple            # of _CtaColumns, each (L, 1)
+    picks: tuple            # per row: (kernel, e, m, k_dev, bits)
+
+    def block(self, sl: slice) -> "_TiledColumns":
+        return _TiledColumns(tuple(c.block(sl) for c in self.slots),
+                             self.picks[sl])
 
 
 class CtaWaveModel(_StackedSweep):
@@ -792,21 +821,65 @@ class CtaWaveModel(_StackedSweep):
     dtypes that are not whole bytes), as ``WaveQuantizationModel`` does.
     Every stacked row is bit-for-bit the per-layer sweep: both run the
     same stacked core.
+
+    Each width is priced on the tile its GEMM launches. Without
+    ``tile_hw`` that is the default tile, as a launch outside
+    ``ops.kernel_context`` takes. With ``tile_hw`` (a GPU spec) it is the
+    tile the autotuner picks on that spec at that width
+    (``autotune.gemm_tile_picks``), as a step cache built with
+    ``hw=tile_hw`` launches: B, the waves and the padded bytes are that
+    tile's, and dL is divided by the tile's measured share of an SM's peak
+    (``autotune.tile_rate``), so at ``flop_multiplier`` 1 and one shard a
+    width's latency is the autotuner's ``latency_s`` for its pick. A sweep
+    then evaluates every candidate tile in one pass of the core (one
+    kernel launch) and keeps the pick at each width.
     """
+
+    def __init__(self, hw: HardwareSpec, backend: str = "numpy",
+                 device="cuda", tile_hw=None):
+        super().__init__(hw, backend=backend, device=device)
+        self.tile_hw = tile_hw
 
     @property
     def table_variant(self) -> str:
         """The table cache's name for this model: the CTA-wave form, its
-        effective CTAs an SM, and the sweep engine, so a TPU-form table
-        never answers it, nor one of another engine or c."""
+        effective CTAs an SM, the tiles it prices and the sweep engine, so
+        a TPU-form table never answers it, nor one of another engine, c or
+        tile set."""
         c = EFFECTIVE_CTAS_PER_SM
         form = f"cta-gemm-c{c['prefill']}.{c['decode']}"
+        if self.tile_hw is not None:
+            from repro_torch.core.table_cache import hardware_fingerprint
+            form += f"-tiles-{hardware_fingerprint(self.tile_hw)}"
         if self.backend == "numpy":
             return form
         return f"{form}-{self.backend}-{self.device.type}"
 
+    def tile(self, layer: LayerShape) -> tuple:
+        """The tile ``layer``'s GEMM launches at ``layer.width``."""
+        from repro_torch.kernels import matmul_tiled as mt
+        from repro_torch.kernels.autotune import gemm_tile_picks
+        if self.tile_hw is None:
+            return mt.launch_tile(layer.tokens)
+        tiles, pick = gemm_tile_picks(
+            "matmul" if layer.experts == 1 else "moe_gmm", self.tile_hw,
+            layer.experts, layer.tokens,
+            ceil_div(layer.d_in, layer.shard_in),
+            np.array([ceil_div(layer.width, layer.shard_out)]),
+            layer.dtype_bits)
+        return tiles[int(pick[0])]
+
     def form(self, layer: LayerShape) -> CtaForm:
-        return cta_form(self.hw, layer)
+        """``layer``'s CTA form on the tile it launches at its width."""
+        if self.tile_hw is None:
+            return cta_form(self.hw, layer)
+        return self._tile_form(layer, self.tile(layer))
+
+    def _tile_form(self, layer: LayerShape, tile) -> CtaForm:
+        from repro_torch.kernels.autotune import tile_rate
+        return dataclasses.replace(
+            cta_form(self.hw, layer, tile), rate=tile_rate(
+                layer.tokens, ceil_div(layer.d_in, layer.shard_in), tile))
 
     def width_quantum(self, shard_out: int) -> int:
         """Widths that are multiples of this leave no partly filled CTA
@@ -824,9 +897,25 @@ class CtaWaveModel(_StackedSweep):
         return ceil_div(self.blocks(layer), self.form(layer).slots)
 
     # ---- columns and the stacked core ------------------------------------
-    def _stack_columns(self, layers: Sequence[LayerShape]) -> _CtaColumns:
+    def _stack_columns(self, layers: Sequence[LayerShape]):
+        if self.tile_hw is None:
+            return self._columns(layers, [self.form(l) for l in layers])
+        from repro_torch.kernels.autotune import gemm_candidates
+        picks, cands = [], []
+        for l in layers:
+            k_dev = ceil_div(l.d_in, l.shard_in)
+            picks.append(("matmul" if l.experts == 1 else "moe_gmm",
+                          l.experts, l.tokens, k_dev, l.dtype_bits))
+            cands.append(gemm_candidates(self.tile_hw, l.tokens, k_dev))
+        n_slots = max((len(c) for c in cands), default=1)
+        slots = tuple(self._columns(layers, [
+            self._tile_form(l, c[min(i, len(c) - 1)])
+            for l, c in zip(layers, cands)]) for i in range(n_slots))
+        return _TiledColumns(slots, tuple(picks))
+
+    def _columns(self, layers: Sequence[LayerShape],
+                 forms: Sequence[CtaForm]) -> _CtaColumns:
         hw = self.hw
-        forms = [self.form(l) for l in layers]
         bns = {f.block_n for f in forms}
         if len(bns) > 1:
             raise ValueError(f"one block_n per sweep, got {sorted(bns)}")
@@ -843,18 +932,42 @@ class CtaWaveModel(_StackedSweep):
         experts = col([l.experts for l in layers], np.int64)
         shards = col([l.shard_in * l.shard_out for l in layers], np.float64)
         wave = (slots * tile) * fm
+        rate = col([f.rate for f in forms], np.float64)
         useful = ((2.0 * col([l.tokens for l in layers], np.int64))
                   * col([l.d_in for l in layers], np.int64)) * fm * experts
         return _CtaColumns(
             shard_out=col([l.shard_out for l in layers], np.int64),
             g=col([f.g for f in forms], np.int64), slots=slots,
-            dl=wave / hw.peak_flops_bf16, mk=m_pad * k_pad,
+            dl=wave / hw.peak_flops_bf16 / rate, mk=m_pad * k_pad,
             k_plus_m=k_pad + m_pad, bits=bits, experts=experts,
             wave_flops=wave * shards, useful=useful,
             block_n=bns.pop() if bns else hw.lane,
             bytes_aligned=bool((bits % 8 == 0).all()))
 
-    def _core(self, cols: _CtaColumns, w: np.ndarray):
+    def _core(self, cols, w: np.ndarray):
+        """(latency, waves, tiles, one wave's FLOPs on all shards) over a
+        (rows, C) width block; with ``tile_hw`` every tile slot in one
+        pass, then the autotuner's pick at each width."""
+        if isinstance(cols, _CtaColumns):
+            return self._tile_core(cols, w) + (cols.wave_flops,)
+        from repro_torch.kernels.autotune import gemm_tile_picks
+        n = len(cols.slots)
+        lat, waves, tiles = (a.reshape((n,) + w.shape) for a in
+                             self._tile_core(_CtaColumns.stack(cols.slots),
+                                             np.concatenate([w] * n)))
+        shard_out = cols.slots[0].shard_out
+        pick = np.empty(w.shape, dtype=np.int64)
+        for r, (kernel, e, m, k_dev, bits) in enumerate(cols.picks):
+            pick[r] = gemm_tile_picks(kernel, self.tile_hw, e, m, k_dev,
+                                      -(-w[r] // shard_out[r]), bits)[1]
+        flops = np.stack([np.broadcast_to(c.wave_flops, w.shape)
+                          for c in cols.slots])
+
+        def take(a):
+            return np.take_along_axis(a, pick[None], 0)[0]
+        return take(lat), take(waves), tiles[0], take(flops)
+
+    def _tile_core(self, cols: _CtaColumns, w: np.ndarray):
         """(latency, waves, tiles) over a (rows, C) width block."""
         if self.backend != "numpy" and w.size and cols.bytes_aligned \
                 and int(w.min()) >= 1:
@@ -886,8 +999,11 @@ class CtaWaveModel(_StackedSweep):
     def kernel_columns(self, layers: Sequence[LayerShape]) -> dict:
         """The kernel backend's per-layer columns for ``layers`` (numpy,
         (L, 1)) and its ``block_n``: what ``ops.staircase_cta_latency``
-        takes beside the widths."""
+        takes beside the widths; with ``tile_hw``, the rows of every tile
+        slot, slot after slot."""
         cols = self._stack_columns(layers)
+        if isinstance(cols, _TiledColumns):
+            cols = _CtaColumns.stack(cols.slots)
         return dict(self._kernel_columns(cols), block_n=cols.block_n)
 
     def _kernel_core(self, cols: _CtaColumns, w: np.ndarray):
@@ -911,14 +1027,14 @@ class CtaWaveModel(_StackedSweep):
                 tiles.cpu().numpy().astype(np.int64))
 
     # ---- the blocks ``_StackedSweep`` drives ----------------------------
-    def _latency_block(self, cols: _CtaColumns, w: np.ndarray,
-                       out: np.ndarray) -> None:
+    def _latency_block(self, cols, w: np.ndarray, out: np.ndarray) -> None:
         out[...] = self._core(cols, w)[0]
 
-    def _table_block(self, blk: _CtaColumns, w: np.ndarray):
-        latency, n_waves, _ = self._core(blk, w)
-        useful = blk.useful * w
-        padded_total = n_waves * blk.wave_flops
+    def _table_block(self, blk, w: np.ndarray):
+        latency, n_waves, _, wave_flops = self._core(blk, w)
+        useful = (blk.slots[0] if isinstance(blk, _TiledColumns)
+                  else blk).useful * w
+        padded_total = n_waves * wave_flops
         util = np.divide(useful, padded_total, out=np.zeros_like(useful),
                          where=padded_total != 0.0)
         thr = np.divide(useful, latency, out=np.zeros_like(useful),
@@ -938,12 +1054,18 @@ class CtaWaveModel(_StackedSweep):
         return self.latency_model_batch([layer], [widths])[0]
 
 
-def model_for(hw: HardwareSpec, backend: str = "numpy", device="cuda"):
+def model_for(hw: HardwareSpec, backend: str = "numpy", device="cuda",
+              tile_hw=None):
     """The tail model ``hw`` selects: ``CtaWaveModel`` on a GPU spec
-    (``gpu.GpuSpec``), ``WaveQuantizationModel`` on a TPU's."""
+    (``gpu.GpuSpec``), pricing the tiles the autotuner picks on
+    ``tile_hw`` where that is a GPU spec too (the default tile otherwise);
+    ``WaveQuantizationModel`` on a TPU's."""
     from repro_torch.core.gpu import is_gpu
-    cls = CtaWaveModel if is_gpu(hw) else WaveQuantizationModel
-    return cls(hw, backend=backend, device=device)
+    if not is_gpu(hw):
+        return WaveQuantizationModel(hw, backend=backend, device=device)
+    return CtaWaveModel(hw, backend=backend, device=device,
+                        tile_hw=tile_hw if tile_hw is not None
+                        and is_gpu(tile_hw) else None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,9 +29,13 @@
 //   measured no faster.)
 //
 // Two forms, chosen by the caller from M alone:
-// - prefill (M > DECODE_BLOCK_M): 128 x 64 tiles (m64n128k16), the whole
-//   of K in one CTA, one CTA per SM: the CTA asks for more than half an
-//   SM's shared memory, so a second never shares its SM. Two co-resident
+// - prefill (M > DECODE_BLOCK_M): BM x 64 tiles, BM one of PREFILL_TILES
+//   (64, 128 or 256 rows: m64n64k16, m64n128k16 or m64n256k16), chosen by
+//   the caller (128 unless it asks for another; the tile autotuner,
+//   kernels/autotune.py, scores them by paper Eq. 3), the whole of K in
+//   one CTA, one CTA per SM: the CTA asks for more than half an SM's
+//   shared memory, so a second never shares its SM. A tile changes which
+//   CTA computes an output, not the order of its K sum. Two co-resident
 //   CTAs ran 1.6-1.8x one's time, and the kernel's time then rose inside
 //   every wave of 132 CTAs on an H100 (5-6 us from 11 x 16 to 11 x 17
 //   tiles) instead of stepping at the waves' edges as paper Eq. 3 has it;
@@ -86,7 +90,10 @@ constexpr int BN = 64;             // output columns per CTA
 constexpr int STAGES = 4;
 constexpr int SPLIT_K = 256;       // the decode form's fixed K chunk
 constexpr int DECODE_BLOCK_M = 64; // M at or below this: the decode form
-constexpr int PREFILL_BLOCK_M = 128;
+constexpr int PREFILL_BLOCK_M = 128;   // the prefill tile by default
+// the prefill tiles' rows (each has BN columns), smallest first
+constexpr int PREFILL_TILES[] = {64, 128, 256};
+constexpr int N_PREFILL_TILES = 3;
 constexpr int WG = 128;            // threads of a warpgroup
 // the share of the H100's 50 MB L2 that one band of w may fill (without
 // the bands a wave took longer once w outgrew about half the L2)
@@ -96,20 +103,23 @@ constexpr long long W_L2_BYTES = 24ll << 20;
 constexpr int SM_SMEM = 227 * 1024;
 static_assert(SPLIT_K % BK == 0, "a chunk is whole K tiles");
 
-// BM: the rows of x (tokens) a CTA covers, wgmma's N
-template <int BM>
+// BM: the rows of x (tokens) a CTA covers, wgmma's N; SOLO: a prefill
+// tile, one CTA an SM (else the decode form, three)
+template <int BM, bool SOLO>
 struct Tile {
   static constexpr int THREADS = 2 * WG;                // consumer, producer
-  static constexpr int MIN_BLOCKS = BM == 128 ? 1 : 3;  // per SM
+  static constexpr int MIN_BLOCKS = SOLO ? 1 : 3;       // per SM
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int B_BYTES = BK * BN * 2;
   // 1024 for aligning the swizzled tiles, the ring, 2 x STAGES barriers
   // and the last-CTA flag
   static constexpr int USED = 1024 + STAGES * (A_BYTES + B_BYTES) +
                               2 * STAGES * 8 + 16;
-  // the prefill form's request keeps its SM to itself
+  // a prefill tile's request keeps its SM to itself
   static constexpr int SMEM =
-      BM == 128 && USED <= SM_SMEM / 2 ? SM_SMEM / 2 + 1024 : USED;
+      SOLO && USED <= SM_SMEM / 2 ? SM_SMEM / 2 + 1024 : USED;
+  static_assert(SMEM <= SM_SMEM, "the ring fits an SM");
+  static_assert(!SOLO || SMEM > SM_SMEM / 2, "a prefill CTA owns its SM");
 };
 
 struct Args {
@@ -183,6 +193,56 @@ __device__ __forceinline__ void wgmma_tn(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 256, fp32) += A (64 x 16, MN-major) * B (16 x 256, K-major).
+__device__ __forceinline__ void wgmma_tn(float (&d)[128], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127 "
+      "}, %128, %129, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // Byte offset of element (r, c) in a tile of 64-element (128-byte) rows
 // under the 128-byte swizzle: TMA's layout, and wgmma's B128.
 __device__ __forceinline__ uint32_t swz(int r, int c) {
@@ -192,11 +252,12 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
-template <int BM>
-__global__ void __launch_bounds__(Tile<BM>::THREADS, Tile<BM>::MIN_BLOCKS)
+template <int BM, bool SOLO>
+__global__ void __launch_bounds__(Tile<BM, SOLO>::THREADS,
+                                  Tile<BM, SOLO>::MIN_BLOCKS)
 gemm_kernel(__grid_constant__ const CUtensorMap map_x,
             __grid_constant__ const CUtensorMap map_w, const Args a) {
-  using T = Tile<BM>;
+  using T = Tile<BM, SOLO>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -380,22 +441,22 @@ gemm_kernel(__grid_constant__ const CUtensorMap map_x,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-template <int BM>
+template <int BM, bool SOLO>
 cudaError_t launch_form(const CUtensorMap& mx, const CUtensorMap& mw,
                         const Args& a, int E, int device, cudaStream_t s) {
-  using T = Tile<BM>;
+  using T = Tile<BM, SOLO>;
   // above 48 KB of dynamic shared memory needs the attribute, once per
   // device (setting it twice from two threads is harmless)
   static bool attr_set[64];
   if (device < 0 || device >= 64 || !attr_set[device]) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        gemm_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_kernel<BM, SOLO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::SMEM);
     if (attr != cudaSuccess) return attr;
     if (device >= 0 && device < 64) attr_set[device] = true;
   }
   const dim3 grid((a.N + BN - 1) / BN, ((a.M + BM - 1) / BM) * a.splits, E);
-  gemm_kernel<BM><<<grid, T::THREADS, T::SMEM, s>>>(mx, mw, a);
+  gemm_kernel<BM, SOLO><<<grid, T::THREADS, T::SMEM, s>>>(mx, mw, a);
   return cudaGetLastError();
 }
 
@@ -403,19 +464,19 @@ cudaError_t launch_form(const CUtensorMap& mx, const CUtensorMap& mw,
 // thread, dynamic shared memory bytes, CTAs an SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), local (spilled) bytes a
 // thread. Returns 0 or a cudaError_t.
-template <int BM>
+template <int BM, bool SOLO>
 int form_bm(int* out) {
-  using T = Tile<BM>;
+  using T = Tile<BM, SOLO>;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, gemm_kernel<BM>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, gemm_kernel<BM, SOLO>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(gemm_kernel<BM>,
+  err = cudaFuncSetAttribute(gemm_kernel<BM, SOLO>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<BM>,
-                                                      T::THREADS, T::SMEM);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gemm_kernel<BM, SOLO>, T::THREADS, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = T::THREADS;
   out[1] = attr.numRegs;
@@ -425,22 +486,38 @@ int form_bm(int* out) {
   return 0;
 }
 
-// The decode (decode != 0) or the prefill form on `device`, as form_bm.
-inline int form(int decode, int device, int* out) {
+// True for the decode form's tile (decode != 0) or one of PREFILL_TILES.
+inline bool known_tile(int decode, int block_m) {
+  if (decode) return block_m == DECODE_BLOCK_M;
+  for (int t : PREFILL_TILES)
+    if (t == block_m) return true;
+  return false;
+}
+
+// The decode form (decode != 0; block_m must be DECODE_BLOCK_M) or the
+// prefill tile of block_m rows on `device`, as form_bm; an unknown tile is
+// cudaErrorInvalidValue.
+inline int form(int decode, int block_m, int device, int* out) {
+  if (!known_tile(decode, block_m))
+    return static_cast<int>(cudaErrorInvalidValue);
   int current = -1;
   if (cudaGetDevice(&current) != cudaSuccess) current = -1;
   if (current != device) {
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return static_cast<int>(set);
   }
-  const int err = decode ? form_bm<DECODE_BLOCK_M>(out)
-                         : form_bm<PREFILL_BLOCK_M>(out);
+  const int err = decode            ? form_bm<DECODE_BLOCK_M, false>(out)
+                  : block_m == 64   ? form_bm<64, true>(out)
+                  : block_m == 128  ? form_bm<128, true>(out)
+                                    : form_bm<256, true>(out);
   if (current != device && current >= 0) cudaSetDevice(current);
   return err;
 }
 
 // Launches one product on `device`'s `stream`. decode != 0 takes the
-// decode form with `splits` chunks of SPLIT_K (the caller's schedule); ws
+// decode form with `splits` chunks of SPLIT_K (the caller's schedule;
+// block_m must be DECODE_BLOCK_M), else the prefill tile of block_m rows
+// (one of PREFILL_TILES; another is cudaErrorInvalidValue); ws
 // holds splits x E x M x N floats when splits > 1, counters one zeroed int
 // per (e, n tile). vec != 0 promises 16-byte aligned x and w, K, N, sx_r
 // and sx_e multiples of 8: then the loads go through TMA, else element by
@@ -449,7 +526,9 @@ inline int form(int decode, int device, int* out) {
 inline int launch(const void* x, const void* w, void* out, void* ws,
                   void* counters, int E, int M, int N, int K, long long sx_e,
                   long long sx_r, int decode, int splits, int vec,
-                  int device, void* stream) {
+                  int block_m, int device, void* stream) {
+  if (!known_tile(decode, block_m))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int current = -1;
   if (cudaGetDevice(&current) != cudaSuccess) current = -1;
   if (current != device) {
@@ -481,7 +560,7 @@ inline int launch(const void* x, const void* w, void* out, void* ws,
   memset(&mw, 0, sizeof(mw));
   if (vec) {
     const EncodeTiled fn = encode_tiled();
-    const uint32_t bm = decode ? DECODE_BLOCK_M : PREFILL_BLOCK_M;
+    const uint32_t bm = block_m;
     const uint64_t row = (uint64_t)sx_r * 2;
     a.tma = fn &&
             encode_3d(fn, &mx, x, K, M, a.x_bcast ? 1 : E, row,
@@ -491,8 +570,11 @@ inline int launch(const void* x, const void* w, void* out, void* ws,
   }
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      decode ? launch_form<DECODE_BLOCK_M>(mx, mw, a, E, device, s)
-             : launch_form<PREFILL_BLOCK_M>(mx, mw, a, E, device, s);
+      decode          ? launch_form<DECODE_BLOCK_M, false>(mx, mw, a, E,
+                                                           device, s)
+      : block_m == 64  ? launch_form<64, true>(mx, mw, a, E, device, s)
+      : block_m == 128 ? launch_form<128, true>(mx, mw, a, E, device, s)
+                       : launch_form<256, true>(mx, mw, a, E, device, s);
   if (current != device && current >= 0) cudaSetDevice(current);
   return err == cudaSuccess ? a.tma : -static_cast<int>(err);
 }

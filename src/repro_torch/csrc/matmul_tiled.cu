@@ -11,8 +11,9 @@
 //
 // Bound: at the MLP's prefill shapes (M = 512) the product does about 300
 // operations per byte it must move, at the H100's ridge of ~295 bf16
-// ops/byte, and takes the prefill form: 128 x 64 tiles (m64n128k16), the
-// whole of K in each CTA, one CTA per SM (gemm_sm90.cuh says why). At
+// ops/byte, and takes the prefill form: BM x 64 tiles, BM 64, 128 (the
+// default, m64n128k16) or 256 as the caller asks, the whole of K in each
+// CTA, one CTA per SM (gemm_sm90.cuh says why). At
 // decode (M = batch = 4) reading the weight bounds it; the decode form
 // (64 x 64 tiles) cuts K into fixed chunks of SPLIT_K = 256, so
 // qwen1.5-0.5b's products launch 176 CTAs and recurrentgemma-2b's 1200,
@@ -29,29 +30,39 @@ extern "C" {
 // The tiles and the chunk, so the Python side computes the schedule and
 // the grid (paper Eq. 3's B) from the kernel itself.
 int matmul_tiled_block_m() { return gemm_sm90::PREFILL_BLOCK_M; }
+// The prefill tiles' rows, smallest first, into out (at most cap); returns
+// their number.
+int matmul_tiled_tiles(int* out, int cap) {
+  for (int i = 0; i < gemm_sm90::N_PREFILL_TILES && i < cap; ++i)
+    out[i] = gemm_sm90::PREFILL_TILES[i];
+  return gemm_sm90::N_PREFILL_TILES;
+}
 int matmul_tiled_block_n() { return gemm_sm90::BN; }
 int matmul_tiled_decode_block_m() { return gemm_sm90::DECODE_BLOCK_M; }
 int matmul_tiled_split_k() { return gemm_sm90::SPLIT_K; }
 int matmul_tiled_block_k() { return gemm_sm90::BK; }
 
-// The kernel's form on `device` (decode != 0: the decode form) into out[5]:
-// threads a CTA, registers a thread, dynamic shared memory bytes, CTAs an
-// SM holds at once, local (spilled) bytes a thread. Returns 0 or a
-// cudaError_t: the occupancy that paper Eq. 3's wave count divides by.
-int matmul_tiled_form(int decode, int device, int* out) {
-  return gemm_sm90::form(decode, device, out);
+// The kernel's form on `device` (decode != 0: the decode form, block_m
+// its 64; else the prefill tile of block_m rows) into out[5]: threads a
+// CTA, registers a thread, dynamic shared memory bytes, CTAs an SM holds
+// at once, local (spilled) bytes a thread. Returns 0 or a cudaError_t: the
+// occupancy that paper Eq. 3's wave count divides by.
+int matmul_tiled_form(int decode, int block_m, int device, int* out) {
+  return gemm_sm90::form(decode, block_m, device, out);
 }
 
 // decode != 0: the decode form over `splits` chunks (ws: splits x M x N
-// floats when splits > 1; counters: ceil(N / 64) zeroed ints). vec != 0
+// floats when splits > 1; counters: ceil(N / 64) zeroed ints), block_m 64;
+// else the prefill tile of block_m rows (matmul_tiled_tiles). vec != 0
 // promises K % 8 == 0, N % 8 == 0 and 16-byte aligned x and w. Launches
 // on `device`'s `stream`. Returns 1 (TMA loads) or 0 (element-wise loads),
-// or minus a cudaError_t.
+// or minus a cudaError_t (cudaErrorInvalidValue for an unknown tile).
 int matmul_tiled_bf16(const void* x, const void* w, void* out, void* ws,
                       void* counters, int M, int N, int K, int decode,
-                      int splits, int vec, int device, void* stream) {
+                      int splits, int vec, int block_m, int device,
+                      void* stream) {
   return gemm_sm90::launch(x, w, out, ws, counters, 1, M, N, K, 0, K, decode,
-                           splits, vec, device, stream);
+                           splits, vec, block_m, device, stream);
 }
 
 const char* matmul_tiled_error_string(int err) {

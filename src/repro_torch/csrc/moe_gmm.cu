@@ -18,8 +18,8 @@
 //
 // Bound: at granite's dense prefill (E = 32, C = 512, D x F = 1024 x 512)
 // gate and up do 17.2 GFLOP against 51 MB, above the H100's ridge of ~295
-// bf16 ops/byte, and take the prefill form (128 x 64 tiles, m64n128k16;
-// 1024 CTAs); down writes a 33.5 MB output and is bound by bytes. At decode (C = 4) every product is bound by reading the 33.5 MB of
+// bf16 ops/byte, and take the prefill form (128 x 64 tiles by default,
+// m64n128k16, 1024 CTAs; 64 or 256 rows where the caller asks); down writes a 33.5 MB output and is bound by bytes. At decode (C = 4) every product is bound by reading the 33.5 MB of
 // expert weights and takes the decode form: 64 x 64 tiles over D chunks of
 // SPLIT_K = 256 (1024 CTAs for gate/up and for down), summed in chunk order
 // by each tile's last CTA. The capacity buffers (C = 161) take the prefill
@@ -32,32 +32,42 @@ extern "C" {
 // The tiles and the chunk, so the Python side computes the schedule and
 // the grid (paper Eq. 3's B) from the kernel itself.
 int moe_gmm_block_c() { return gemm_sm90::PREFILL_BLOCK_M; }
+// The prefill tiles' rows (of C), smallest first, into out (at most cap);
+// returns their number.
+int moe_gmm_tiles(int* out, int cap) {
+  for (int i = 0; i < gemm_sm90::N_PREFILL_TILES && i < cap; ++i)
+    out[i] = gemm_sm90::PREFILL_TILES[i];
+  return gemm_sm90::N_PREFILL_TILES;
+}
 int moe_gmm_block_f() { return gemm_sm90::BN; }
 int moe_gmm_decode_block_c() { return gemm_sm90::DECODE_BLOCK_M; }
 int moe_gmm_split_k() { return gemm_sm90::SPLIT_K; }
 int moe_gmm_block_k() { return gemm_sm90::BK; }
 
-// The kernel's form on `device` (decode != 0: the decode form) into out[5]:
-// threads a CTA, registers a thread, dynamic shared memory bytes, CTAs an
-// SM holds at once, local (spilled) bytes a thread. Returns 0 or a
-// cudaError_t: the occupancy that paper Eq. 3's wave count divides by.
-int moe_gmm_form(int decode, int device, int* out) {
-  return gemm_sm90::form(decode, device, out);
+// The kernel's form on `device` (decode != 0: the decode form, block_m
+// its 64; else the prefill tile of block_m rows) into out[5]: threads a
+// CTA, registers a thread, dynamic shared memory bytes, CTAs an SM holds
+// at once, local (spilled) bytes a thread. Returns 0 or a cudaError_t: the
+// occupancy that paper Eq. 3's wave count divides by.
+int moe_gmm_form(int decode, int block_m, int device, int* out) {
+  return gemm_sm90::form(decode, block_m, device, out);
 }
 
 // x: expert stride sx_e and row stride sx_r in elements, unit D stride;
 // w (E, D, F) and out (E, C, F) contiguous. decode != 0: the decode form
 // over `splits` chunks of D (ws: splits x E x C x F floats when splits > 1;
-// counters: E x ceil(F / 64) zeroed ints). vec != 0 promises D % 8 == 0,
+// counters: E x ceil(F / 64) zeroed ints), block_c 64; else the prefill
+// tile of block_c rows (moe_gmm_tiles). vec != 0 promises D % 8 == 0,
 // F % 8 == 0, strides that are multiples of 8 and 16-byte aligned x and w.
 // Launches on `device`'s `stream`. Returns 1 (TMA loads) or 0 (element-wise
-// loads), or minus a cudaError_t.
+// loads), or minus a cudaError_t (cudaErrorInvalidValue for an unknown
+// tile).
 int moe_gmm_bf16(const void* x, const void* w, void* out, void* ws,
                  void* counters, int E, int C, int D, int F, long long sx_e,
                  long long sx_r, int decode, int splits, int vec,
-                 int device, void* stream) {
+                 int block_c, int device, void* stream) {
   return gemm_sm90::launch(x, w, out, ws, counters, E, C, F, D, sx_e, sx_r,
-                           decode, splits, vec, device, stream);
+                           decode, splits, vec, block_c, device, stream);
 }
 
 const char* moe_gmm_error_string(int err) {

@@ -27,7 +27,15 @@ from repro_torch.kernels import build
 
 NAME = "flash_attention"
 BLOCK_Q = 64
+BLOCK_KV = 64         # keys per ring stage
 HEAD_DIMS = (64, 128)
+# Each head dim's CTA as csrc/flash_attention.cu builds it: K/V ring
+# stages, threads, dynamic shared memory bytes and the CTAs an SM holds
+# (the tile autotuner's c). :func:`form` reads the same on the card.
+FORMS = {64: {"stages": 4, "threads": 160, "smem_bytes": 74888,
+              "ctas_per_sm": 3},
+         128: {"stages": 2, "threads": 160, "smem_bytes": 83016,
+               "ctas_per_sm": 2}}
 _MASKS = {"none": 0, "causal": 1, "local": 2}
 
 

@@ -7,8 +7,12 @@ shared-memory stages filled by TMA and drained by ``wgmma`` on the tensor
 cores, fp32 accumulation, bf16 output. :func:`schedule` picks one of two
 forms from M alone:
 
-- prefill (M > ``DECODE_BLOCK_M``): one CTA per (128, 64) output tile,
-  the whole of K looped inside it;
+- prefill (M > ``DECODE_BLOCK_M``): one CTA per output tile of one of
+  ``PREFILL_TILES`` ((64, 64), (128, 64) or (256, 64) rows x columns; the
+  caller's ``tile``, (128, 64) when it names none), the whole of K looped
+  inside it, one CTA an SM whatever the tile. The tile autotuner
+  (``kernels.autotune``) picks one by paper Eq. 3 over the card's SMs. A
+  tile changes which CTA computes an output, not the order of its K sum;
 - decode (M <= ``DECODE_BLOCK_M``): one CTA per (64, 64) tile and K chunk
   of the fixed length ``SPLIT_K``; each chunk's fp32 partial goes to a
   workspace and the tile's last CTA sums them in chunk order. The chunks
@@ -32,22 +36,34 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "matmul_tiled"
-BLOCK_M = 128         # the prefill tile; csrc/matmul_tiled.cu checks it
+BLOCK_M = 128         # the default prefill tile; csrc/matmul_tiled.cu checks
 BLOCK_N = 64
 DECODE_BLOCK_M = 64   # M at or below this takes the decode form
 SPLIT_K = 256         # the decode form's K chunk
 BLOCK_K = 64          # K per ring stage
-# Each form's CTA as ``csrc/gemm_sm90.cuh`` builds it: threads, dynamic
-# shared memory bytes, and the CTAs an SM holds at once (a prefill CTA asks
-# for more than half of the SM's 228 KiB, so it runs alone on its SM, the
-# one CTA an SM of paper Eq. 3; the 4-stage ring of the decode form leaves
-# room for three). :func:`form` reads the same on the card, where it is
-# checked against these; on the CPU it returns them.
-FORMS = {"prefill": {"threads": 256, "smem_bytes": 117248, "ctas_per_sm": 1},
-         "decode": {"threads": 256, "smem_bytes": 66640, "ctas_per_sm": 3}}
+# (rows, columns) of the output tile a CTA computes: the prefill tiles,
+# smallest first (csrc/gemm_sm90.cuh's PREFILL_TILES; the library is
+# checked against them), the default one, and the decode form's one tile
+PREFILL_TILES = ((64, BLOCK_N), (128, BLOCK_N), (256, BLOCK_N))
+DEFAULT_TILE = (BLOCK_M, BLOCK_N)
+DECODE_TILE = (DECODE_BLOCK_M, BLOCK_N)
+# Each form's CTA, per (form, tile), as ``csrc/gemm_sm90.cuh`` builds it:
+# threads, dynamic shared memory bytes, and the CTAs an SM holds at once
+# (every prefill tile asks for more than half of the SM's 228 KiB, so it
+# runs alone on its SM, the one CTA an SM of paper Eq. 3; the 4-stage ring
+# of the decode form leaves room for three). :func:`form` reads the same on
+# the card, where it is checked against these; on the CPU it returns them.
+FORMS = {("prefill", (64, 64)): {"threads": 256, "smem_bytes": 117248,
+                                 "ctas_per_sm": 1},
+         ("prefill", (128, 64)): {"threads": 256, "smem_bytes": 117248,
+                                  "ctas_per_sm": 1},
+         ("prefill", (256, 64)): {"threads": 256, "smem_bytes": 164944,
+                                  "ctas_per_sm": 1},
+         ("decode", (64, 64)): {"threads": 256, "smem_bytes": 66640,
+                                "ctas_per_sm": 3}}
 
-# the loads the last launch took: "tma", or "elementwise" where the base or
-# the strides are not 16-byte aligned
+# the loads the last launch took ("tma", or "elementwise" where the base or
+# the strides are not 16-byte aligned); ``ops.TILES`` records its tile
 LAST = {"loads": None}
 # per device: the decode form's fp32 partials and its tile counters (zero
 # between launches: the last CTA of a tile resets its own), shared by the
@@ -80,12 +96,30 @@ def schedule(m: int, n: int, k: int) -> Tuple[str, List[Tuple[int, int]]]:
     return "prefill", [(0, k)] * splits
 
 
-def grid_blocks(m: int, n: int, k: int) -> int:
-    """CTAs the kernel launches for (m, k) @ (k, n): paper Eq. 3's B, the
-    decode form's K chunks included."""
-    form, chunks = schedule(m, n, k)
-    bm = DECODE_BLOCK_M if form == "decode" else BLOCK_M
-    return -(-m // bm) * -(-n // BLOCK_N) * len(chunks)
+def launch_tile(m: int, tile=None) -> Tuple[int, int]:
+    """The output tile an (m, k) @ (k, n) product launches with: in the
+    decode form (m <= ``DECODE_BLOCK_M``) its one tile, ``DECODE_TILE``;
+    else ``tile``, ``DEFAULT_TILE`` when None. Raises for a tile the form
+    does not have."""
+    if m <= DECODE_BLOCK_M:
+        if tile is not None and tuple(tile) != DECODE_TILE:
+            raise ValueError(f"the decode form (M={m}) has the one tile "
+                             f"{DECODE_TILE}, not {tuple(tile)}")
+        return DECODE_TILE
+    t = DEFAULT_TILE if tile is None else tuple(int(v) for v in tile)
+    if t not in PREFILL_TILES:
+        raise ValueError(f"no prefill tile {t}: the kernel has "
+                         f"{PREFILL_TILES}")
+    return t
+
+
+def grid_blocks(m: int, n: int, k: int, tile=None) -> int:
+    """CTAs the kernel launches for (m, k) @ (k, n) on ``tile`` (as
+    :func:`launch_tile` resolves it): paper Eq. 3's B, the decode form's K
+    chunks included."""
+    _, chunks = schedule(m, n, k)
+    bm, bn = launch_tile(m, tile)
+    return -(-m // bm) * -(-n // bn) * len(chunks)
 
 
 def workspace(device: int, floats: int, tiles: int
@@ -125,12 +159,13 @@ def raw_stream(device: int) -> int:
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.matmul_tiled_bf16.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                      ci, ci, vp]
+                                      ci, ci, ci, vp]
     lib.matmul_tiled_bf16.restype = ci
     lib.matmul_tiled_error_string.argtypes = [ci]
     lib.matmul_tiled_error_string.restype = ctypes.c_char_p
-    lib.matmul_tiled_form.argtypes = [ci, ci, vp]
+    lib.matmul_tiled_form.argtypes = [ci, ci, ci, vp]
     lib.matmul_tiled_form.restype = ci
+    check_tiles(lib, "matmul_tiled")
     got = []
     for fn in (lib.matmul_tiled_block_m, lib.matmul_tiled_block_n,
                lib.matmul_tiled_decode_block_m, lib.matmul_tiled_split_k,
@@ -144,41 +179,74 @@ def _bind(lib: ctypes.CDLL) -> None:
                            f"BLOCK_K")
 
 
-def read_form(name: str, bind, kind: str, device) -> dict:
-    """Form ``kind`` ("prefill" or "decode") of the GEMM library ``name``
-    (``matmul_tiled`` or ``moe_gmm``, bound by ``bind``) on ``device``:
-    :data:`FORMS` on the CPU; on a CUDA device what ``<name>_form`` reads
-    there, with registers and spilled bytes a thread."""
-    if kind not in FORMS:
-        raise ValueError(f"form kind {kind!r} not in {tuple(FORMS)}")
+def check_tiles(lib: ctypes.CDLL, name: str) -> None:
+    """Raise unless the library ``name``'s prefill tiles (``<name>_tiles``)
+    are :data:`PREFILL_TILES`' rows."""
+    fn = getattr(lib, f"{name}_tiles")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_int * 8)()
+    n = fn(buf, 8)
+    got = list(buf[:min(n, 8)])
+    if got != [t[0] for t in PREFILL_TILES]:
+        raise RuntimeError(f"{name}.cu prefill tiles {got} differ from "
+                           f"PREFILL_TILES {PREFILL_TILES}")
+
+
+def form_key(kind: str, tile=None) -> Tuple[str, Tuple[int, int]]:
+    """The :data:`FORMS` key of form ``kind`` on ``tile`` (the form's
+    default tile when None)."""
+    if kind == "decode":
+        t = DECODE_TILE if tile is None else tuple(tile)
+    elif kind == "prefill":
+        t = DEFAULT_TILE if tile is None else tuple(tile)
+    else:
+        raise ValueError(f"form kind {kind!r} not in ('prefill', 'decode')")
+    if (kind, t) not in FORMS:
+        raise ValueError(f"the {kind} form has no tile {t}")
+    return kind, t
+
+
+def read_form(name: str, bind, kind: str, device, tile=None) -> dict:
+    """Form ``kind`` ("prefill" or "decode") on ``tile`` of the GEMM
+    library ``name`` (``matmul_tiled`` or ``moe_gmm``, bound by ``bind``)
+    on ``device``: its :data:`FORMS` entry on the CPU; on a CUDA device
+    what ``<name>_form`` reads there, with registers and spilled bytes a
+    thread."""
+    key = form_key(kind, tile)
     dev = torch.device(device)
     if dev.type == "cpu":
-        return dict(FORMS[kind])
+        return dict(FORMS[key])
     if dev.type != "cuda":
         raise ValueError(f"no GEMM form for device {dev}")
     lib = build.load(name, bind)
     out = (ctypes.c_int * 5)()
-    err = getattr(lib, f"{name}_form")(int(kind == "decode"),
+    err = getattr(lib, f"{name}_form")(int(kind == "decode"), key[1][0],
                                        dev.index or 0, out)
     if err:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name}_form({kind}) failed: {msg}")
+        raise RuntimeError(f"{name}_form({kind}, {key[1]}) failed: {msg}")
     return dict(zip(("threads", "registers", "smem_bytes", "ctas_per_sm",
                      "spill_bytes"), out))
 
 
-def form(kind: str, device="cuda") -> dict:
-    """The kernel's form ``kind`` ("prefill" or "decode") on ``device``:
-    threads a CTA, dynamic shared memory bytes and CTAs an SM holds (paper
-    Eq. 3's CTAs an SM), plus registers and spilled bytes a thread on a
-    CUDA device; :data:`FORMS` on the CPU."""
-    return read_form(NAME, _bind, kind, device)
+def form(kind: str, device="cuda", tile=None) -> dict:
+    """The kernel's form ``kind`` ("prefill" or "decode") on ``tile`` (the
+    form's default when None) on ``device``: threads a CTA, dynamic shared
+    memory bytes and CTAs an SM holds (paper Eq. 3's CTAs an SM), plus
+    registers and spilled bytes a thread on a CUDA device; :data:`FORMS`
+    on the CPU."""
+    return read_form(NAME, _bind, kind, device, tile)
 
 
-def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_tiled(x: torch.Tensor, w: torch.Tensor,
+                 tile=None) -> torch.Tensor:
     """Launch the kernel: x (M, K) bf16 @ w (K, N) bf16 -> (M, N) bf16,
-    on CUDA tensors, on the current stream. Launches on one stream at a
-    time per device: the decode form's scratch is shared."""
+    on CUDA tensors, on the current stream, on ``tile`` (one of
+    ``PREFILL_TILES``, ``DEFAULT_TILE`` when None; the decode form's one
+    tile at M <= ``DECODE_BLOCK_M``). A tile the kernel does not have
+    raises. Launches on one stream at a time per device: the decode form's
+    scratch is shared."""
     if not (x.is_cuda and w.is_cuda) or x.device != w.device:
         raise ValueError(f"matmul_tiled: x and w must lie on one CUDA "
                          f"device, got {x.device} and {w.device}")
@@ -193,7 +261,8 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
     decode, splits = kernel_form(m, k)
-    if -(-m // (DECODE_BLOCK_M if decode else BLOCK_M)) * splits > 65535:
+    bm = launch_tile(m, tile)[0]
+    if -(-m // bm) * splits > 65535:
         raise ValueError(f"matmul_tiled: M={m}, K={k} exceed the grid's y "
                          f"limit")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -211,7 +280,7 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = build.load(NAME, _bind)
     r = lib.matmul_tiled_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                               ws_p, cnt_p, m, n, k, int(decode), splits, vec,
-                              dev, raw_stream(dev))
+                              bm, dev, raw_stream(dev))
     if r < 0:
         raise RuntimeError(f"matmul_tiled launch failed: "
                            f"{lib.matmul_tiled_error_string(-r).decode()}")

@@ -11,10 +11,12 @@ expert) or an expert's capacity buffer (the capacity strategy).
 ``matmul_tiled``'s mainloop (``csrc/gemm_sm90.cuh``: a TMA ring drained by
 ``wgmma``, fp32 accumulation, bf16 output) with an expert grid axis, and
 takes its schedule (``matmul_tiled.schedule``) with C as M and D as K: the
-prefill form, one CTA per (expert, 128-row C tile, 64-column F tile) over
-all of D, for C > 64; else the decode form, one CTA per (expert, 64 x 64
-tile, D chunk of ``SPLIT_K``), the chunks' fp32 partials summed in chunk
-order. It reads x through its expert and row strides, so a broadcast x
+prefill form, one CTA per (expert, C tile, 64-column F tile) over all of
+D, for C > 64, on one of ``matmul_tiled.PREFILL_TILES`` (64, 128 or 256
+rows of C; the caller's ``tile``, 128 rows when it names none; the tile
+autotuner picks one by paper Eq. 3); else the decode form, one CTA per
+(expert, 64 x 64 tile, D chunk of ``SPLIT_K``), the chunks' fp32 partials
+summed in chunk order. It reads x through its expert and row strides, so a broadcast x
 (``x.expand(E, T, D)``, expert stride 0) costs no copy. Ragged C, D and F
 are masked in the kernel, so unlike ``repro``'s ``ops.moe_gmm`` nothing is
 padded on the host. The grid is not persistent: its CTA count
@@ -29,7 +31,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.matmul_tiled import (BLOCK_K, DECODE_BLOCK_M,
-                                              SPLIT_K, kernel_form,
+                                              SPLIT_K, check_tiles,
+                                              kernel_form, launch_tile,
                                               raw_stream, read_form,
                                               schedule, workspace)
 from repro_torch.kernels.matmul_tiled import BLOCK_M as BLOCK_C
@@ -37,7 +40,8 @@ from repro_torch.kernels.matmul_tiled import BLOCK_N as BLOCK_F
 
 NAME = "moe_gmm"
 DECODE_BLOCK_C = DECODE_BLOCK_M
-# the loads the last launch took: "tma" or "elementwise"
+# the loads the last launch took ("tma" or "elementwise"); ``ops.TILES``
+# records its tile
 LAST = {"loads": None}
 
 
@@ -47,23 +51,25 @@ def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def grid_blocks(e: int, c: int, f: int, d: int) -> int:
-    """CTAs the kernel launches for an (e, c, f) output over D = d: paper
-    Eq. 3's B, the decode form's D chunks included."""
-    form, chunks = schedule(c, f, d)
-    bc = DECODE_BLOCK_C if form == "decode" else BLOCK_C
-    return e * -(-c // bc) * -(-f // BLOCK_F) * len(chunks)
+def grid_blocks(e: int, c: int, f: int, d: int, tile=None) -> int:
+    """CTAs the kernel launches for an (e, c, f) output over D = d on
+    ``tile`` (``matmul_tiled.launch_tile`` resolves it): paper Eq. 3's B,
+    the decode form's D chunks included."""
+    _, chunks = schedule(c, f, d)
+    bc, bf = launch_tile(c, tile)
+    return e * -(-c // bc) * -(-f // bf) * len(chunks)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.moe_gmm_bf16.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ll, ll,
-                                 ci, ci, ci, ci, vp]
+                                 ci, ci, ci, ci, ci, vp]
     lib.moe_gmm_bf16.restype = ci
     lib.moe_gmm_error_string.argtypes = [ci]
     lib.moe_gmm_error_string.restype = ctypes.c_char_p
-    lib.moe_gmm_form.argtypes = [ci, ci, ctypes.c_void_p]
+    lib.moe_gmm_form.argtypes = [ci, ci, ci, ctypes.c_void_p]
     lib.moe_gmm_form.restype = ci
+    check_tiles(lib, "moe_gmm")
     got = []
     for fn in (lib.moe_gmm_block_c, lib.moe_gmm_block_f,
                lib.moe_gmm_decode_block_c, lib.moe_gmm_split_k,
@@ -76,19 +82,21 @@ def _bind(lib: ctypes.CDLL) -> None:
                            f"BLOCK_F, DECODE_BLOCK_C, SPLIT_K, BLOCK_K")
 
 
-def form(kind: str, device="cuda") -> dict:
-    """The kernel's form ``kind`` ("prefill" or "decode") on ``device``,
-    as ``matmul_tiled.form``: the same mainloop, so the same
+def form(kind: str, device="cuda", tile=None) -> dict:
+    """The kernel's form ``kind`` ("prefill" or "decode") on ``tile`` on
+    ``device``, as ``matmul_tiled.form``: the same mainloop, so the same
     ``matmul_tiled.FORMS`` on the CPU."""
-    return read_form(NAME, _bind, kind, device)
+    return read_form(NAME, _bind, kind, device, tile)
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, tile=None) -> torch.Tensor:
     """Launch the kernel: x (E, C, D) bf16 @ w (E, D, F) bf16 -> (E, C, F)
-    bf16, on CUDA tensors, on the current stream. x may have any expert
-    and row strides (0 included) but a unit D stride; w is contiguous.
-    Launches on one stream at a time per device: the decode form's scratch
-    is shared with ``matmul_tiled``."""
+    bf16, on CUDA tensors, on the current stream, on ``tile`` (rows of C,
+    columns of F: one of ``matmul_tiled.PREFILL_TILES``, (128, 64) when
+    None; the decode form's one tile at C <= 64; another raises). x may
+    have any expert and row strides (0 included) but a unit D stride; w is
+    contiguous. Launches on one stream at a time per device: the decode
+    form's scratch is shared with ``matmul_tiled``."""
     if not (x.is_cuda and w.is_cuda) or x.device != w.device:
         raise ValueError(f"moe_gmm: x and w must lie on one CUDA device, "
                          f"got {x.device} and {w.device}")
@@ -106,8 +114,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     e, c, d = x.shape
     f = w.shape[2]
     decode, splits = kernel_form(c, d)
-    if e > 65535 or -(-c // (DECODE_BLOCK_C if decode else BLOCK_C)) \
-            * splits > 65535:
+    bc = launch_tile(c, tile)[0]
+    if e > 65535 or -(-c // bc) * splits > 65535:
         raise ValueError(f"moe_gmm: E={e}, or C={c} and D={d}, exceed the "
                          f"grid's limits")
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
@@ -126,7 +134,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = build.load(NAME, _bind)
     r = lib.moe_gmm_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_p,
                          cnt_p, e, c, d, f, sx_e, sx_r, int(decode), splits,
-                         vec, dev, raw_stream(dev))
+                         vec, bc, dev, raw_stream(dev))
     if r < 0:
         raise RuntimeError(f"moe_gmm launch failed: "
                            f"{lib.moe_gmm_error_string(-r).decode()}")

@@ -6,18 +6,37 @@ version. ``force="plain"`` takes the plain version on any device: it exists
 so that tests and ``chip_smoke.py`` can hold a kernel against it on the
 card, and neither the model nor the planner sets it on its own.
 ``LAUNCHES`` counts the kernels' launches by name.
+
+Tile selection, as in ``repro``: ``matmul``, ``moe_gmm`` and
+``flash_attention`` take an explicit ``tile=``, or ``hw=`` (a GPU spec,
+``core.gpu.GpuSpec``), whose tile comes from the tail-aware autotuner
+(``kernels.autotune``: Eq. 3 over the card's SMs, memoized per spec and
+shape, persisted through ``cache=``). Model code that cannot thread them
+through every call runs inside :func:`kernel_context`, whose ``hw`` and
+``cache`` fill the unset arguments. With neither, a launch takes the
+kernel's default tile ((128, 64) at prefill). A TPU spec's tiles are
+``repro``'s Pallas blocks, which the CUDA kernels do not have, so a TPU
+spec leaves the default tile too. The choice is made on the host before
+the launch, so a CUDA graph captured inside a context keeps its tiles. The
+plain versions compute the same values whatever the tile; ``TILES``
+records, per kernel, the tile of the last call, the one its launch took
+or, on the CPU, would take.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import dataclasses
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention as flash_attention_kernel)
-from repro_torch.kernels.matmul_tiled import matmul_ref, matmul_tiled
+from repro_torch.kernels.matmul_tiled import launch_tile, matmul_ref, \
+    matmul_tiled
 from repro_torch.kernels.moe_gmm import moe_gmm as moe_gmm_kernel, \
     moe_gmm_ref
 from repro_torch.kernels.rglru import rglru_ref, rglru_scan as rglru_kernel
@@ -27,6 +46,63 @@ from repro_torch.kernels.staircase_fused import staircase_cta, \
 
 LAUNCHES = build.LAUNCHES
 reset_launches = build.reset_launches
+# per kernel, the tile of the last call (launched, or on the CPU the one a
+# launch would take)
+TILES = {"matmul": None, "moe_gmm": None, "flash_attention": None}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelContext:
+    """Ambient tile-selection state for model code that cannot thread
+    ``hw=`` / ``cache=`` through every call (the forward a step cache
+    captures). Installed with :func:`kernel_context`; the wrappers below
+    fall back to it when their own ``hw`` / ``cache`` are unset."""
+
+    hw: Any = None
+    cache: Any = None
+
+
+_KERNEL_CTX: Optional[KernelContext] = None
+
+
+def get_kernel_context() -> Optional[KernelContext]:
+    return _KERNEL_CTX
+
+
+@contextlib.contextmanager
+def kernel_context(hw=None, cache=None):
+    """Install a :class:`KernelContext` for the duration of the block."""
+    global _KERNEL_CTX
+    prev = _KERNEL_CTX
+    _KERNEL_CTX = KernelContext(hw=hw, cache=cache)
+    try:
+        yield _KERNEL_CTX
+    finally:
+        _KERNEL_CTX = prev
+
+
+def _ctx_fallback(hw, cache):
+    """Fill unset hw/cache from the ambient context, if any."""
+    ctx = _KERNEL_CTX
+    if ctx is None:
+        return hw, cache
+    return (hw if hw is not None else ctx.hw,
+            cache if cache is not None else ctx.cache)
+
+
+def _tuned(tile, hw, cache, tune):
+    """The tile a call asks for: ``tile`` when given, else the autotuner's
+    (``tune(hw, cache)``) on a GPU spec from the arguments or the context,
+    else None (the kernel's default)."""
+    if tile is not None:
+        return tuple(tile)
+    hw, cache = _ctx_fallback(hw, cache)
+    if hw is None:
+        return None
+    from repro_torch.core.gpu import is_gpu
+    if not is_gpu(hw):
+        return None
+    return tuple(tune(hw, cache).blocks)
 
 
 def _use_plain(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -41,27 +117,54 @@ def _use_plain(t: torch.Tensor, force: Optional[str]) -> bool:
     raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, *,
-           force: Optional[str] = None) -> torch.Tensor:
-    """(M, K) @ (K, N) with fp32 accumulation, in x.dtype."""
+def matmul(x: torch.Tensor, w: torch.Tensor, *, tile=None, hw=None,
+           cache=None, force: Optional[str] = None) -> torch.Tensor:
+    """(M, K) @ (K, N) with fp32 accumulation, in x.dtype, on ``tile`` (or
+    the autotuner's for ``hw``; see the module docstring)."""
+    from repro_torch.kernels.autotune import autotune_matmul
+    m, k = x.shape
+    n = w.shape[1]
+    tile = _tuned(tile, hw, cache, lambda h, c: autotune_matmul(
+        h, m, n, k, dtype_bits=x.element_size() * 8, cache=c))
+    TILES["matmul"] = launch_tile(m, tile)
     if _use_plain(x, force):
         return matmul_ref(x, w)
-    return matmul_tiled(x, w)
+    return matmul_tiled(x, w, tile)
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor, *,
-            force: Optional[str] = None) -> torch.Tensor:
-    """Per expert (E, C, D) @ (E, D, F) with fp32 accumulation, in x.dtype.
-    x may be a broadcast view (expert stride 0): the kernel reads it as it
-    is."""
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, *, tile=None, hw=None,
+            cache=None, force: Optional[str] = None) -> torch.Tensor:
+    """Per expert (E, C, D) @ (E, D, F) with fp32 accumulation, in x.dtype,
+    on ``tile`` (or the autotuner's for ``hw``). x may be a broadcast view
+    (expert stride 0): the kernel reads it as it is."""
+    from repro_torch.kernels.autotune import autotune_moe_gmm
+    e, c, d = x.shape
+    f = w.shape[2]
+    tile = _tuned(tile, hw, cache, lambda h, cc: autotune_moe_gmm(
+        h, e, c, d, f, dtype_bits=x.element_size() * 8, cache=cc))
+    TILES["moe_gmm"] = launch_tile(c, tile)
     if _use_plain(x, force):
         return moe_gmm_ref(x, w)
-    return moe_gmm_kernel(x, w)
+    return moe_gmm_kernel(x, w, tile)
 
 
 def flash_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
+                    tile=None, hw=None, cache=None,
                     force: Optional[str] = None) -> torch.Tensor:
-    """Attention over (B, S, H, dh) q and (B, S, KV, dh) k, v."""
+    """Attention over (B, S, H, dh) q and (B, S, KV, dh) k, v. The kernel
+    has one tile, (``BLOCK_Q``, ``BLOCK_KV``); the autotuner scores it, and
+    another raises."""
+    from repro_torch.kernels.autotune import autotune_flash_attention
+    b, sq, h, dh = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    tile = _tuned(tile, hw, cache, lambda hh, c: autotune_flash_attention(
+        hh, b, sq, skv, h, kv, dh, dtype_bits=q.element_size() * 8,
+        cache=c))
+    one = (fa.BLOCK_Q, fa.BLOCK_KV)
+    if tile is not None and tile != one:
+        raise ValueError(f"flash_attention has the one tile {one}, not "
+                         f"{tile}")
+    TILES["flash_attention"] = one
     if _use_plain(q, force):
         return attention_ref(q, k, v, mask_kind=mask_kind, window=window)
     return flash_attention_kernel(q, k, v, mask_kind=mask_kind,

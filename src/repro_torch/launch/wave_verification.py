@@ -86,9 +86,10 @@ def stairs(waves: np.ndarray) -> list[tuple[int, int]]:
     return list(zip(bounds[:-1], bounds[1:]))
 
 
-def slot_waves(m: int, k: int, widths, slots: int) -> np.ndarray:
-    """ceil(B / slots) of the GEMM's grid at each width."""
-    return np.array([ceil_div(mt.grid_blocks(m, int(n), k), slots)
+def slot_waves(m: int, k: int, widths, slots: int,
+               tile=None) -> np.ndarray:
+    """ceil(B / slots) of the GEMM's grid on ``tile`` at each width."""
+    return np.array([ceil_div(mt.grid_blocks(m, int(n), k, tile), slots)
                      for n in widths], dtype=np.int64)
 
 
@@ -164,24 +165,27 @@ def card_checks(times_us, waves: np.ndarray, edges: int = EDGES) -> dict:
             "max_inner_rise_us": top[1], "flat_fails": flat_fails}
 
 
-def card_sweep(hw, m: int, k: int, widths=WIDTHS, device="cuda") -> dict:
-    """``measured_profile`` across widths at (m, k), with the grid and the
-    predicted waves at S and at S x the form's occupancy beside it."""
+def card_sweep(hw, m: int, k: int, widths=WIDTHS, device="cuda",
+               tile=None) -> dict:
+    """``measured_profile`` across widths at (m, k) on ``tile`` (the
+    default when None), with the grid and the predicted waves at S and at
+    S x the form's occupancy beside it."""
     from repro_torch.core.profiler import measured_profile
 
     kind = "decode" if mt.kernel_form(m, k)[0] else "prefill"
-    occ = mt.form(kind, device)["ctas_per_sm"]
+    occ = mt.form(kind, device, tile)["ctas_per_sm"]
     torch.cuda.synchronize(device)
     time.sleep(SETTLE_S)
     prof = measured_profile(LayerShape("fig5", tokens=m, d_in=k,
                                        width=int(widths[0])),
-                            widths, hw=hw, device=device)
+                            widths, hw=hw, device=device, tile=tile)
     s = hw.cores_per_chip
     return {"m": m, "k": k, "form": kind, "ctas_per_sm_occupancy": occ,
+            "tile": mt.launch_tile(m, tile),
             "widths": [int(n) for n in widths],
-            "blocks": [mt.grid_blocks(m, int(n), k) for n in widths],
-            "waves_S": slot_waves(m, k, widths, s).tolist(),
-            "waves_Sc": slot_waves(m, k, widths, s * occ).tolist(),
+            "blocks": [mt.grid_blocks(m, int(n), k, tile) for n in widths],
+            "waves_S": slot_waves(m, k, widths, s, tile).tolist(),
+            "waves_Sc": slot_waves(m, k, widths, s * occ, tile).tolist(),
             "us": (prof.latency_s * 1e6).tolist(),
             "spread_us": (prof.spread_s * 1e6).tolist()}
 

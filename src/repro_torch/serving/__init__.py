@@ -9,6 +9,9 @@ from repro_torch.serving.engine import (
 from repro_torch.serving.width_swap import (
     SWAP_STEPS, SwapEvent, WidthSwapper, serving_templates,
 )
+from repro_torch.serving.degradation import (
+    DegradationController, DegradationLadder, LadderRung, Shift,
+)
 from repro_torch.serving.continuous import (
     Arrival, BoundaryEvent, ChunkEvent, ContinuousServeEngine, Ledger,
 )
@@ -17,7 +20,9 @@ from repro_torch.serving import chaos
 __all__ = [
     "AdmissionControl", "BatchStats", "Request", "Result", "ServeEngine",
     "ServingWidthPlanner", "TrafficClass", "WidthPlan", "SWAP_STEPS",
-    "SwapEvent", "WidthSwapper", "serving_templates", "COMPILE_STEPS",
+    "SwapEvent", "WidthSwapper", "serving_templates",
+    "DegradationController", "DegradationLadder", "LadderRung", "Shift",
+    "COMPILE_STEPS",
     "CompileEvent", "TraceCounter", "WidthVariantCompileCache",
     "pow2_bucket", "realized_exec_key", "Arrival", "BoundaryEvent",
     "ChunkEvent", "ContinuousServeEngine", "Ledger", "chaos",

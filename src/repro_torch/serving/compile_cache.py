@@ -76,9 +76,14 @@ one entry serves every chunk position of every request that is
 prefilling. Each request keeps its own checkpoint: :meth:`chunk` copies
 the request's states in, replays, and copies the updated states back out
 into the request's tensors (two batch-1 cache copies per chunk), so the
-next request's chunk cannot overwrite them. ``repro``'s kernel context
-with the autotuner's tiles (``tile_cache=``) waits for the autotuner
-(``ROADMAP.md`` §1 item 4).
+next request's chunk cannot overwrite them.
+
+Every step, captured or eager, runs inside ``ops.kernel_context(hw=hw,
+cache=tile_cache)``, as ``repro`` traces it: on a GPU spec its GEMMs take
+the tile autotuner's tiles (``kernels.autotune``, persisted through
+``tile_cache``, a ``ProfileTableCache``). The choice is made on the host
+at capture, so a graph keeps its tiles; ``hw=None`` keeps the kernels'
+default tiles.
 """
 
 from __future__ import annotations
@@ -95,7 +100,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan_address import plan_key
 from repro_torch.core.table_cache import hardware_fingerprint
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 from repro_torch.models import transformer as tfm
 
 # Fault-hook checkpoints, mirroring width_swap.SWAP_STEPS: "lower" and
@@ -269,12 +274,13 @@ class WidthVariantCompileCache:
     lookups address the right variant.
     """
 
-    def __init__(self, cfg: ModelConfig, *, hw=None,
+    def __init__(self, cfg: ModelConfig, *, hw=None, tile_cache=None,
                  compile_cost_s: float = 0.25, horizon_batches: int = 32,
                  fault_hook: "Callable[[str], None] | None" = None,
                  max_entries: int = 64):
         self.cfg = cfg
         self.hw = hw
+        self.tile_cache = tile_cache
         self.fingerprint = "" if hw is None else hardware_fingerprint(hw)
         self.compile_cost_s = float(compile_cost_s)
         self.horizon_batches = max(int(horizon_batches), 1)
@@ -294,15 +300,20 @@ class WidthVariantCompileCache:
         self.full_key = ((cfg.d_ff,) * n_refs, (cfg.n_heads,) * n_refs)
         self._active_key: tuple = self.full_key
 
-        # The eager steps: what a capture records, and the fallback.
+        # The eager steps: what a capture records, and the fallback; both
+        # run under the kernel context, so a GPU spec's autotuned tiles
+        # are what a graph records.
         def prefill_fn(p, toks):
-            return tfm.forward(p, cfg, tokens=toks, mode="prefill")
+            with ops.kernel_context(hw=self.hw, cache=self.tile_cache):
+                return tfm.forward(p, cfg, tokens=toks, mode="prefill")
 
         def decode_fn(p, t, pos, st):
-            return tfm.decode_step(p, cfg, t, pos, st)
+            with ops.kernel_context(hw=self.hw, cache=self.tile_cache):
+                return tfm.decode_step(p, cfg, t, pos, st)
 
         def chunk_fn(p, toks, pos, st):
-            return tfm.prefill_chunk(p, cfg, toks, pos, st)
+            with ops.kernel_context(hw=self.hw, cache=self.tile_cache):
+                return tfm.prefill_chunk(p, cfg, toks, pos, st)
 
         self._fns = {"prefill": prefill_fn, "decode": decode_fn,
                      "chunk": chunk_fn}

@@ -23,7 +23,11 @@ plan's sliced params (``swap_log``; a warm swap is a cache lookup).
 ``AdmissionControl`` sheds requests whose projected completion misses
 their deadline; ``clock`` and ``batch_cost_fn`` let a run advance a
 virtual clock by modeled batch costs, so shed sets and deadline misses
-are reproducible.
+are reproducible. A ``degradation.DegradationController`` (``degrader=``,
+which needs an ``AdmissionControl`` as its signal source) replaces
+``planner.select`` at batch boundaries: under a sustained overload signal
+it downshifts to narrower, faster plans and recovers to full width when
+the burst passes (``BatchStats.level``).
 
 With a ``compile_cache.WidthVariantCompileCache`` attached
 (``compile_cache=``), every prefill and decode step goes through it: a
@@ -32,8 +36,11 @@ cache. ``warm_compile`` captures the steps of given plans and batch shapes
 ahead of serving, and each boundary points the cache at the realized
 plan, as in ``repro``.
 
-The degrader and the planner's kernel-grid tie-break (``tile_hw``) of
-``repro``'s engine are later slices of the port.
+With ``tile_hw`` (a spec), the planner's ``select`` breaks log-distance
+ties toward plans whose autotuned GEMM grids are tail-free
+(``candidates.kernel_tail_free``: on a GPU spec the port's CUDA tiles over
+the card's SMs), then toward plans whose steps are already captured; on a
+GPU spec its tail model then prices every width on the autotuned tile.
 """
 
 from __future__ import annotations
@@ -164,6 +171,7 @@ class BatchStats:
     latency_s: float    # batch wall time, ending in a device-to-host copy,
     #                     or the simulated cost from ``batch_cost_fn``
     plan_name: str      # traffic class served, "" without a planner
+    level: int          # degradation level, -1 without a degrader
     signal: float       # overload signal after this batch
 
 
@@ -216,16 +224,20 @@ class ServingWidthPlanner:
     when a ``table_cache.ProfileTableCache`` is supplied, tables persist
     across planner restarts (a warm planner performs zero model sweeps).
 
-    ``compile_cache``, when given, answers :meth:`plan_is_warm`. ``repro``
-    also breaks ``select``'s ties toward warm, tail-free plans when given
-    a ``tile_hw``; that tie-break waits for the port's tile autotuner
-    (``ROADMAP.md`` §1 item 4), so ``select`` keeps the first-planned one.
+    ``compile_cache``, when given, answers :meth:`plan_is_warm`. With a
+    ``tile_hw`` spec, ``select`` breaks log-distance ties toward plans
+    whose autotuned matmul grids are tail-free (:meth:`plan_tail_free`),
+    then toward warm ones; without it the first-planned class wins. On a
+    GPU spec a GPU ``tile_hw`` also makes the model price each width on
+    the tile the autotuner picks for it on ``tile_hw`` (the tile a step
+    cache with ``hw=tile_hw`` launches; ``CtaWaveModel``), so a plan's
+    reduction is that of the grids that run.
     """
 
     def __init__(self, hw, layers: Sequence, *, cache=None,
                  tau_frac: float = 0.02,
                  modules: "dict[str, ModuleRef] | None" = None,
-                 device="cuda", compile_cache=None):
+                 tile_hw=None, device="cuda", compile_cache=None):
         from repro_torch.core.gpu import is_gpu
         from repro_torch.core.tail_model import model_for
         from repro_torch.core.tail_optimizer import TailEffectOptimizer
@@ -238,9 +250,21 @@ class ServingWidthPlanner:
         # kernel, or that kernel's fp64 plain version on the CPU
         backend = "numpy" if is_gpu(hw) and device.type == "cpu" \
             else "kernel"
-        self.model = model_for(hw, backend=backend, device=device)
+        # on a GPU spec with a GPU tile_hw, the model prices each width on
+        # the tile the autotuner picks for it (what a step cache with
+        # hw=tile_hw launches); it keeps the tiles it is built with
+        self.model = model_for(hw, backend=backend, device=device,
+                               tile_hw=tile_hw)
         self.opt = TailEffectOptimizer(self.model, cache=cache)
         self.tau_frac = tau_frac
+        # Kernel-grid tail awareness (optional): with a tile_hw spec,
+        # `select` breaks log-distance ties toward plans whose autotuned
+        # matmul grids are tail-free (core.candidates.kernel_tail_free)
+        # and, with a compile cache attached, whose steps are captured.
+        # With tile_hw=None the first-planned tie-break is unchanged.
+        self.tile_hw = tile_hw
+        self._layer_by_name = {tl.layer.name: tl.layer
+                               for tl in self.layers}
         self.compile_cache = compile_cache
         # name -> pytree address; stamped on every WidthPlan so a
         # WidthSwapper can materialize it (width_swap.serving_templates
@@ -279,6 +303,23 @@ class ServingWidthPlanner:
                 modules=self.modules)
         return self.plans
 
+    def plan_tail_free(self, plan: WidthPlan) -> bool:
+        """True when every planned width's autotuned matmul grid is
+        tail-free on ``tile_hw`` (trivially True without one).  Widths
+        naming layers outside the template set are skipped — a hand
+        -injected plan can't be scored, only compared by distance."""
+        if self.tile_hw is None:
+            return True
+        from repro_torch.core.candidates import kernel_tail_free
+        for name, w in plan.widths.items():
+            layer = self._layer_by_name.get(name)
+            if layer is None:
+                continue
+            if not kernel_tail_free(self.tile_hw, plan.traffic.tokens,
+                                    layer.d_in, w):
+                return False
+        return True
+
     def plan_is_warm(self, plan: WidthPlan) -> bool:
         """True when a compile cache is attached and holds captured steps
         for the plan's widths."""
@@ -289,14 +330,24 @@ class ServingWidthPlanner:
         """The planned class nearest (log-scale) to a batch's token
         volume — the boundary-time lookup ``ServeEngine`` performs.
         ``tokens`` is clamped to >= 1 (an empty batch selects the
-        smallest class); an exact log-distance tie resolves to the class
-        planned first (``min`` is stable over insertion order)."""
+        smallest class).  Without ``tile_hw``, an exact log-distance tie
+        resolves to the class planned first (``min`` is stable over
+        insertion order).  With ``tile_hw``, ties instead prefer plans
+        whose autotuned kernel grids are tail-free, then plans whose steps
+        are already captured."""
         if not self.plans:
             raise ValueError("no plans yet: call plan() first")
         log_t = np.log(max(tokens, 1))
-        return min(self.plans.values(),
-                   key=lambda p: abs(log_t
-                                     - np.log(max(p.traffic.tokens, 1))))
+        if self.tile_hw is None:
+            return min(self.plans.values(),
+                       key=lambda p: abs(log_t
+                                         - np.log(max(p.traffic.tokens,
+                                                      1))))
+        return min(
+            self.plans.values(),
+            key=lambda p: (abs(log_t - np.log(max(p.traffic.tokens, 1))),
+                           not self.plan_tail_free(p),
+                           not self.plan_is_warm(p)))
 
 
 def require_device(device) -> torch.device:
@@ -338,6 +389,7 @@ class ServeEngine:
                  batch_slots: int = 4, rng_seed: int = 0, device="cuda",
                  planner: "ServingWidthPlanner | None" = None,
                  swapper=None, admission: "AdmissionControl | None" = None,
+                 degrader=None,
                  clock: Callable[[], float] = time.monotonic,
                  batch_cost_fn=None, compile_cache=None):
         self.device = require_device(device)
@@ -354,10 +406,17 @@ class ServeEngine:
                 "as WidthSwapper(engine.params, cfg), or pass "
                 "transformer.cast_params(params, device) to both")
         self.swapper = swapper
-        # `clock` is any time.monotonic-like callable; `batch_cost_fn(plan,
-        # tokens)`, when set, replaces the measured batch wall time with a
-        # simulated cost (advancing the clock if it has .advance).
+        # A degradation controller walks width plans under the admission
+        # controller's overload signal, so it needs one. `clock` is any
+        # time.monotonic-like callable; `batch_cost_fn(plan, tokens)`, when
+        # set, replaces the measured batch wall time with a simulated cost
+        # (advancing the clock if it has .advance).
+        if degrader is not None and admission is None:
+            raise ValueError(
+                "a degradation controller needs an AdmissionControl as "
+                "its overload-signal source; pass admission= too")
         self.admission = admission
+        self.degrader = degrader
         self.clock = clock
         self.batch_cost_fn = batch_cost_fn
         self.plan_log: List[WidthPlan] = []
@@ -468,8 +527,9 @@ class ServeEngine:
     def _account_batch(self, plan, reqs: List[Request], t0: float,
                        *, queue_len: int) -> float:
         """Close out one batch: latency (measured, or simulated through
-        ``batch_cost_fn`` + a virtual clock), the admission EWMA and the
-        batch log."""
+        ``batch_cost_fn`` + a virtual clock), the admission EWMA, the
+        degradation controller's overload observation and the batch
+        log."""
         plen = max(len(r.prompt) for r in reqs)
         tokens = len(reqs) * (plen + max(r.max_new_tokens for r in reqs))
         if self.batch_cost_fn is not None:
@@ -484,9 +544,12 @@ class ServeEngine:
             self.admission.observe(dt)
             sig = self.admission.signal(
                 (queue_len + self.slots - 1) // self.slots)
+            if self.degrader is not None:
+                self.degrader.observe(sig)
         self.batch_log.append(BatchStats(
             tokens=tokens, latency_s=dt,
             plan_name=plan.traffic.name if plan is not None else "",
+            level=self.degrader.level if self.degrader is not None else -1,
             signal=sig))
         return dt
 
@@ -496,9 +559,13 @@ class ServeEngine:
         params = self.params
         plan = None
         cache = self.compile_cache
-        if self.planner is not None:
-            plan = self.planner.select(
-                len(reqs) * max(len(r.prompt) for r in reqs))
+        tokens = len(reqs) * max(len(r.prompt) for r in reqs)
+        if self.degrader is not None:
+            # the active ladder rung picks the plan for this token volume
+            plan = self.degrader.select(tokens)
+        elif self.planner is not None:
+            plan = self.planner.select(tokens)
+        if plan is not None:
             self.plan_log.append(plan)
             if self.swapper is not None:
                 # Guarded: a mid-swap failure rolls back to the full-width

@@ -210,6 +210,7 @@ def test_flash_kernel_form(gen, dh, stages):
     f = fa.form(dh)
     assert f["threads"] == 160 and f["stages"] == stages
     assert f["ctas_per_sm"] >= 2 and f["spill_bytes"] == 0
+    assert {k: f[k] for k in fa.FORMS[dh]} == fa.FORMS[dh]
 
 
 def test_flash_kernel_refusals(gen):
@@ -375,12 +376,18 @@ def test_staircase_cta_dispatch_checks_and_casts(gen):
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 @pytest.mark.parametrize("module", [mt, mg])
 def test_gemm_forms_read_on_the_card(gen, module, kind):
-    """Each GEMM library's form on the card: the threads, shared bytes
-    and CTAs an SM of ``matmul_tiled.FORMS``, no spills."""
-    got = module.form(kind)
-    assert {k: got[k] for k in mt.FORMS[kind]} == mt.FORMS[kind]
-    assert got["spill_bytes"] == 0 and 0 < got["registers"] <= 255
-    assert module.form(kind, "cpu") == mt.FORMS[kind]
+    """Each GEMM library's form on the card, on every tile of the form:
+    the threads, shared bytes and CTAs an SM of ``matmul_tiled.FORMS``
+    (one CTA an SM on every prefill tile), no spills."""
+    for (k, tile), want in mt.FORMS.items():
+        if k != kind:
+            continue
+        got = module.form(kind, tile=tile)
+        assert {n: got[n] for n in want} == want, (tile, got)
+        assert got["spill_bytes"] == 0 and 0 < got["registers"] <= 255
+        assert kind == "decode" or got["ctas_per_sm"] == 1
+        assert module.form(kind, "cpu", tile) == want
+    assert module.form(kind) == module.form(kind, tile=None)
 
 
 def test_cta_model_kernel_backend_equals_numpy(gen):
@@ -784,6 +791,112 @@ def test_moe_gmm_kernel_refusals(gen):
     assert torch.equal(mg.moe_gmm(x[:, :, :0], w[:, :0]),
                        torch.zeros(2, 8, 8, dtype=torch.bfloat16,
                                    device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# the GEMMs' prefill tiles (the tile autotuner's candidates)
+# ---------------------------------------------------------------------------
+NEW_TILES = [t for t in mt.PREFILL_TILES if t != mt.DEFAULT_TILE]
+
+
+@pytest.mark.parametrize("tile", NEW_TILES)
+@pytest.mark.parametrize("m,k,n", [
+    (65, 129, 63), (128, 600, 200), (129, 600, 200), (257, 520, 136),
+    (100, 130, 70), (512, 1024, 2816), (512, 2816, 1024), (512, 1024, 2112),
+    (300, 4096, 6400), (129, 4097, 6401)])
+def test_matmul_tile_vs_plain_and_default(gen, tile, m, k, n):
+    """Each prefill tile on ragged M, N, K, element-wise loads, w in bands
+    and the main path's shapes: held against the plain version, and bit
+    for bit against the default tile (a tile changes which CTA computes
+    an output, not its K order)."""
+    x, w = randn(gen, m, k), randn(gen, k, n)
+    before = ops.LAUNCHES["matmul_tiled"]
+    got = ops.matmul(x, w, tile=tile)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["matmul_tiled"] == before + 1
+    assert ops.TILES["matmul"] == tile
+    assert mt.LAST["loads"] == ("tma" if k % 8 == 0 and n % 8 == 0
+                                else "elementwise")
+    want = mt.matmul_ref(x, w).float()
+    tol = 2.0 ** -7 * max(want.abs().max().item(), 1.0)
+    assert (got.float() - want).abs().max().item() <= tol
+    assert torch.equal(got, ops.matmul(x, w))
+    assert ops.TILES["matmul"] == mt.DEFAULT_TILE
+    assert torch.equal(got, mt.matmul_tiled(x, w, tile))
+
+
+@pytest.mark.parametrize("tile", NEW_TILES)
+def test_matmul_tile_unaligned_input(gen, tile):
+    """A 16-byte-misaligned x takes the element-wise loads on each tile."""
+    m, k, n = 300, 600, 72
+    x = randn(gen, m * k + 1)[1:].view(m, k)
+    w = randn(gen, k, n)
+    got = mt.matmul_tiled(x, w, tile)
+    assert mt.LAST["loads"] == "elementwise"
+    want = mt.matmul_ref(x, w).float()
+    assert (got.float() - want).abs().max().item() <= \
+        2.0 ** -7 * want.abs().max()
+    assert torch.equal(got, mt.matmul_tiled(x, w))
+
+
+@pytest.mark.parametrize("tile", NEW_TILES)
+@pytest.mark.parametrize("e,c,d,f,broadcast", [
+    (2, 65, 64, 63, False), (3, 300, 520, 136, True),
+    (32, 512, 1024, 512, True), (32, 512, 512, 1024, False),
+    (32, 161, 1024, 512, False)])
+def test_moe_gmm_tile_vs_plain_and_default(gen, tile, e, c, d, f,
+                                           broadcast):
+    """Each prefill tile of the grouped matmul, a broadcast x among them
+    (granite's dense prefill), against the plain version and bit for bit
+    against the default tile."""
+    x = randn(gen, c, d).expand(e, c, d) if broadcast else randn(gen, e, c, d)
+    w = randn(gen, e, d, f)
+    got = ops.moe_gmm(x, w, tile=tile)
+    torch.cuda.synchronize()
+    assert ops.TILES["moe_gmm"] == tile
+    want = mg.moe_gmm_ref(x, w)
+    assert (got.float() - want.float()).abs().max().item() <= moe_tol(want)
+    assert torch.equal(got, mg.moe_gmm(x, w))
+
+
+def test_gemm_tile_refusals(gen):
+    """A tile the kernel lacks raises; the decode form has one tile."""
+    x, w = randn(gen, 128, 64), randn(gen, 64, 64)
+    with pytest.raises(ValueError, match="no prefill tile"):
+        mt.matmul_tiled(x, w, (32, 64))
+    with pytest.raises(ValueError, match="decode form"):
+        mt.matmul_tiled(x[:4], w, (128, 64))
+    assert mt.matmul_tiled(x[:4], w, mt.DECODE_TILE).shape == (4, 64)
+    with pytest.raises(ValueError, match="no prefill tile"):
+        mg.moe_gmm(x.expand(2, 128, 64), w.expand(2, 64, 64).contiguous(),
+                   (128, 128))
+
+
+def test_autotuned_sliced_equals_masked(gen):
+    """Under the autotuner's tiles (``ops.kernel_context(hw=H100_SXM)``)
+    the planner's narrowed products equal their zero-padded full shapes
+    bit for bit, though the two may take other tiles: an FFN's up cut
+    from 2816 to 2112 columns, its down from 2816 to 2112 rows."""
+    from repro_torch.core import H100_SXM
+    x, w = randn(gen, 512, 1024), randn(gen, 1024, 2816)
+    cut = 2112
+    wp = w.clone()
+    wp[:, cut:] = 0
+    with ops.kernel_context(hw=H100_SXM):
+        full = ops.matmul(x, wp)
+        tiles = [ops.TILES["matmul"]]
+        sliced = ops.matmul(x, w[:, :cut].contiguous())
+        tiles.append(ops.TILES["matmul"])
+        assert torch.equal(full[:, :cut], sliced)
+        h, wd = randn(gen, 512, 2816), randn(gen, 2816, 1024)
+        hp, wdp = h.clone(), wd.clone()
+        hp[:, cut:], wdp[cut:] = 0, 0
+        down_full = ops.matmul(hp, wdp)
+        tiles.append(ops.TILES["matmul"])
+        down_cut = ops.matmul(h[:, :cut].contiguous(),
+                              wd[:cut].contiguous())
+        tiles.append(ops.TILES["matmul"])
+    assert torch.equal(down_full, down_cut), tiles
 
 
 @pytest.mark.parametrize("strategy", ["auto", "capacity"])

@@ -82,7 +82,12 @@ def test_gpu_spec_is_the_sxm5_data_sheet():
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 @pytest.mark.parametrize("module", [mt, mg])
 def test_gemm_forms_on_the_cpu_are_the_constant(module, kind):
-    assert module.form(kind, "cpu") == mt.FORMS[kind]
+    assert module.form(kind, "cpu") == mt.FORMS[mt.form_key(kind)]
+    tiles = [t for k, t in mt.FORMS if k == kind]
+    assert tiles == (list(mt.PREFILL_TILES) if kind == "prefill"
+                     else [mt.DECODE_TILE])
+    for tile in tiles:
+        assert module.form(kind, "cpu", tile) == mt.FORMS[kind, tile]
     with pytest.raises(ValueError, match="form kind"):
         module.form("both", "cpu")
 

@@ -349,7 +349,8 @@ def test_port_imports_neither_jax_nor_repro():
         "print(len(names), bad)\n"
         "new = {'repro_torch.models.recurrent', 'repro_torch.kernels.rglru',"
         " 'repro_torch.kernels.rwkv6', 'repro_torch.models.moe',"
-        " 'repro_torch.kernels.moe_gmm'}\n"
+        " 'repro_torch.kernels.moe_gmm', 'repro_torch.kernels.autotune',"
+        " 'repro_torch.serving.degradation'}\n"
         "sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
