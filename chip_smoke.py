@@ -130,6 +130,23 @@ the target) and ``nvcc``:
    joins, seeded chunk faults, a shrink boundary), recurrentgemma, rwkv6
    and granite through the engine on the card against the CPU on virtual
    clocks: equal ledgers, logs and outcomes, tokens under the margin rule;
+   then the hedged fleet (``ReplicaRouter``, built as
+   ``launch.serve_resilient`` builds it): two replicas of full-width
+   qwen1.5-0.5b, each a continuous engine with a warm step cache of its
+   own, on virtual clocks, replica 0 stalled 8x, 48 arrivals 1 ms apart;
+   (a) unhedged, hedged at rung 0 and hedged at rung 1 of the GPU-form
+   ladder planned at the fleet's own traffic class (pinned per backup),
+   then rung 0 again, (b) rung 0 with 64-token chunks and replica 0
+   crashing mid-prefill, each with the counts set to 0 just before and
+   read just after: complete ledgers, only the injected death logged,
+   hedges won by backups, pins released, migrations, tokens held to each
+   request served alone (in the rung-1 run only if no replica narrowed;
+   a rung 1 that cuts nothing must make rung 0's decisions), no capture,
+   miss or fallback while serving, hedged p99.9 below unhedged, the
+   repeat identical; (c) the reduced qwen fleet on the card against the
+   CPU, at rung 0 and at rung 1 of one ladder (the narrowed replays);
+   ledgers, virtual p50 / p99 / p99.9, wall seconds, decode replay ms,
+   capture seconds, peak memory;
 7. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -161,6 +178,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -235,6 +253,15 @@ CONT_NEW = (16, 8, 24, 16, 8, 32, 16, 12)
 CONT_MAX_LEN = 512
 CONT_CHUNK, CONT_BUDGET = 64, 68
 CONT_TOL = 4e-2
+# the fleet phase: two replicas behind ReplicaRouter, replica 0 stalled 8x,
+# a burst of BURST_N = 48 arrivals 1 ms apart (benchmarks/optimizer_scale.py)
+# with the CONT prompt lengths and new tokens cycled; (b) crashes replica 0
+# at its third costed step, where the hedged schedule with 64-token chunks
+# holds a 200-token prompt with one chunk committed (the schedule is the
+# same at any width: a CPU run of it on a tiny model shows it)
+FLEET_N = 48
+FLEET_GAP_S = 1e-3
+FLEET_CRASH_AT = 2
 
 
 # checks whose failure ends the run only after every phase has run, so
@@ -2412,14 +2439,22 @@ class StepRecorder:
         return out
 
 
-def solo_reference(torch, np, mods, params, cfg, reqs) -> list:
+def solo_reference(torch, np, mods, params, cfg, reqs, *,
+                   cached: bool = False) -> list:
     """Each request alone through ServeEngine(batch_slots=1) on the card:
     its tokens, its prefill's last logits row (the solo engine's first
     token's), and the top-2 margins and largest |logit| of one forward
-    along its own tokens."""
+    along its own tokens. ``cached``: the engine serves through a step
+    cache warmed for every prompt length (the cached static path gives
+    the eager path's tokens, phase 4)."""
     tfm, v = mods["tfm"], cfg.vocab_size
+    cache = mods["serving"].WidthVariantCompileCache(
+        cfg, hw=mods["H100_SXM"]) if cached else None
     solo = mods["ServeEngine"](params, cfg, max_len=CONT_MAX_LEN,
-                               batch_slots=1, rng_seed=SEED, device="cuda")
+                               batch_slots=1, rng_seed=SEED, device="cuda",
+                               compile_cache=cache)
+    if cached:
+        solo.warm_compile([], sorted({(1, len(r.prompt)) for r in reqs}))
     out = []
     for r in reqs:
         [res] = solo.generate([r])
@@ -2704,6 +2739,330 @@ def continuous_small_vs_cpu(torch, np, mods, arch: str, *,
         f"rule), all equal")
 
 
+# ---------------------------------------------------------------------------
+# the hedged fleet (serving/router.py)
+# ---------------------------------------------------------------------------
+def fleet_summary(out: dict) -> tuple:
+    """What two runs of one fleet must share: the router ledger, the hedge
+    and health logs, every engine's ledger and every result's signature
+    (latencies on the virtual clocks)."""
+    router = out["router"]
+    return (dataclasses.astuple(out["ledger"]),
+            [dataclasses.astuple(h) for h in router.hedge_log],
+            [dataclasses.astuple(h) for h in router.health_log],
+            [dataclasses.astuple(r.engine.ledger())
+             for r in router.replicas],
+            [(len(r.tokens), r.latency_s, r.shed, r.failed, r.hedged,
+              r.won_by, r.migrations) for r in out["results"]])
+
+
+def fleet_run(torch, mods, params, cfg, caches, arrivals, name: str, *,
+              hedge, ladder=None, crash_at=None, chunk=None,
+              budget=None) -> dict:
+    """One fleet run on the card through ``launch.serve_resilient``'s
+    builders, with the launch counts set to 0 just before serving and read
+    just after. Checks a complete ledger with nothing failed or shed, and
+    no capture, miss or fallback on any replica while serving. Reads from
+    the engines' own records whether any replica crossed onto a narrowed
+    plan (``plan_log``) and how many requests replica 0 handed on
+    (``Ledger.evicted``)."""
+    sr, ops = mods["serve_resilient"], mods["ops"]
+    reps = sr.build_fleet(params, cfg, device="cuda", slots=4,
+                          max_len=CONT_MAX_LEN, prefill_chunk=chunk,
+                          step_token_budget=budget, ladder=ladder,
+                          crash_at=crash_at, caches=caches,
+                          warm_lengths=CONT_LENS)
+    counts = [c.tracer.count for c in caches]
+    before = [(c.stats["misses"], c.stats["fallbacks"]) for c in caches]
+    warm_bytes = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    out = sr.serve_fleet(reps, arrivals, hedge=hedge)
+    launches = dict(ops.LAUNCHES)
+    led = out["ledger"]
+    check_at_end(led.complete and led.failed == 0 and led.shed == 0
+                 and led.finished == len(arrivals),
+                 f"fleet {name}: router ledger {led}")
+    check_at_end([c.tracer.count for c in caches] == counts and [
+        (c.stats["misses"], c.stats["fallbacks"]) for c in caches] == before,
+                 f"fleet {name}: captures, misses or fallbacks while "
+                 f"serving: {[c.stats for c in caches]}")
+    router = out["router"]
+    pins = [] if ladder is None else [
+        list(r.engine.degrader._pins) for r in router.replicas]
+    # no reference to the router or its engines outlives the run: the next
+    # run's engines claim the same step caches
+    return {"out": {k: out[k] for k in ("results", "ledger", "wall_s",
+                                        "tokens", "tail", "p999_s")},
+            "summary": fleet_summary(out), "launches": launches,
+            "warm_bytes": warm_bytes,
+            "evicted": router.replicas[0].engine.ledger().evicted,
+            "narrowed": any(w < cfg.d_ff for r in router.replicas
+                            for p in r.engine.plan_log
+                            for w in p.widths.values()),
+            "pins": pins, "health": [(h.replica, h.state, h.reason)
+                                     for h in router.health_log]}
+
+
+def fleet_held_to_solo(np, name: str, results, solo, vocab: int,
+                       tokens: bool = True) -> int:
+    """Each request's token count and vocabulary range; with ``tokens``,
+    its tokens equal to the same request served alone up to the solo run's
+    first top-2 margin within twice the bound (``held_to_solo``'s token
+    rule). Returns the tokens compared."""
+    compared = 0
+    for i, (res, ref) in enumerate(zip(results, solo)):
+        toks = np.asarray(res.tokens)
+        check_at_end(len(toks) == len(ref["tokens"]) and bool(
+            ((toks >= 0) & (toks < vocab)).all()),
+            f"fleet {name}: request {i} has {len(toks)} tokens (solo "
+            f"{len(ref['tokens'])}) or one outside the vocabulary")
+        if not tokens:
+            continue
+        tol = CONT_TOL * ref["scale"]
+        for k in range(len(toks)):
+            if ref["margin"][k] <= 2 * tol:
+                break
+            if toks[k] != ref["tokens"][k]:
+                check_at_end(False, f"fleet {name}: request {i} token {k} "
+                             f"{toks[k]} != solo {ref['tokens'][k]}")
+                break
+            compared += 1
+    return compared
+
+
+def fleet_line(card: str, name: str, run: dict, solo_n: int) -> None:
+    out = run["out"]
+    led, tail = out["ledger"], out["tail"]
+    log(f"fleet {name} {card}: router ledger {dataclasses.astuple(led)} "
+        f"(submitted, finished, shed, failed, hedged, backup wins, "
+        f"migrated, in flight); virtual p50 {tail.p50_s * 1e3:.4f} ms, p99 "
+        f"{tail.p99_s * 1e3:.4f} ms, p99.9 {out['p999_s'] * 1e3:.4f} ms; "
+        f"wall {out['wall_s']:.3f} s, {out['tokens']} tokens; health "
+        f"{run['health']}; {solo_n} tokens held to solo, all equal; "
+        f"launches {run['launches']}")
+
+
+def rung_widths(ladder, level: int):
+    """The MLP widths a rung's plans set, or "full"."""
+    return sorted({w for p in ladder.rung(level).plans.values()
+                   for w in p.widths.values()}) or "full"
+
+
+def same_decisions(a: tuple, b: tuple) -> bool:
+    """Two fleet summaries agree in their router ledgers, hedge logs (but
+    the rung pinned), health logs and result signatures."""
+    def hedges(x):
+        return [h[:3] + h[4:] for h in x[1]]
+    return (a[0], hedges(a), a[2], a[4]) == (b[0], hedges(b), b[2], b[4])
+
+
+def fleet_phase(torch, np, mods, card: str) -> dict:
+    """The hedged fleet: two replicas of full-width qwen1.5-0.5b (random
+    weights, seed 0) behind ``ReplicaRouter``, each a continuous engine
+    with a step cache of its own (``hw=H100_SXM``) warmed before serving,
+    4 slots, max_len 512, a VirtualClock each advanced by
+    ``modeled_batch_cost(1e-4, overhead_s=1e-4)``, replica 0 stalled 8x;
+    48 arrivals 1 ms apart. (a) whole-prompt joins: 1 unhedged, 2 hedged
+    at rung 0, 3 hedged at rung 1 of the GPU-form ladder planned at the
+    fleet's own traffic class (``fleet_tokens``; each replica with
+    admission, a controller only the pins move, a swapper; the ladder's
+    plans warmed), then run 2 again; (b) run 2 with 64-token chunks and
+    replica 0 crashing mid-prefill; (c) the reduced qwen fleet on the card
+    against the same fleet on the CPU, at rung 0 and at rung 1 of one
+    ladder. Checks at the run's end: complete ledgers with nothing shed or
+    failed, only the injected death in the health logs, hedges and backup
+    wins in 2 and 3, pins balanced, a migration in (b), tokens held to
+    each request served alone (in 3 only if no replica narrowed), run 3
+    narrowed if its rung 1 cuts and else made run 2's decisions, no
+    capture, miss or fallback while serving, hedged p99.9 below unhedged,
+    run 2 repeated identically, (c) equal to the CPU."""
+    cfg = mods["configs"].get_config(ARCH)
+    tfm, sv, sr = mods["tfm"], mods["serving"], mods["serve_resilient"]
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tfm.cast_params(tfm.init_params(cfg, gen, "cuda"), "cuda")
+    arrivals = sr.fleet_arrivals(cfg, n=FLEET_N, prompt_lens=CONT_LENS,
+                                 new_tokens=CONT_NEW, gap_s=FLEET_GAP_S,
+                                 seed=SEED)
+    reqs = [a.request for a in arrivals]
+    t0 = time.perf_counter()
+    solo = solo_reference(torch, np, mods, params, cfg, reqs, cached=True)
+    solo_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    gc.collect()            # the solo engine's step cache and its graphs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    caches = [sv.WidthVariantCompileCache(cfg, hw=mods["H100_SXM"])
+              for _ in range(2)]
+    runs = {}
+    runs["1"] = fleet_run(torch, mods, params, cfg, caches, arrivals,
+                          "1 (unhedged)", hedge=None)
+    peak = torch.cuda.max_memory_allocated()
+    capture_s = [sum(e.wall_s for e in c.events if e.outcome == "compiled")
+                 for c in caches]
+    dev = [graph_ms(torch, c) for c in caches]
+    decode_ms = [d[("decode", (4,))] for d in dev]
+    runs["2"] = fleet_run(torch, mods, params, cfg, caches, arrivals,
+                          "2 (hedged, rung 0)", hedge=0)
+    ladder_tokens = sr.fleet_tokens(arrivals, slots=4)
+    _, ladder = sr.ladder_for(cfg, torch.device("cuda"), tokens=ladder_tokens)
+    cut = ladder.rung(1).reduction
+    runs["3"] = fleet_run(torch, mods, params, cfg, caches, arrivals,
+                          "3 (hedged, rung 1)", hedge=1, ladder=ladder)
+    again = fleet_run(torch, mods, params, cfg, caches, arrivals,
+                      "2 again", hedge=0)
+    runs["b"] = fleet_run(torch, mods, params, cfg, caches, arrivals,
+                          "(b) (hedged, crash)", hedge=0,
+                          crash_at=FLEET_CRASH_AT, chunk=CONT_CHUNK,
+                          budget=CONT_BUDGET)
+    check_at_end(again["summary"] == runs["2"]["summary"],
+                 "fleet: run 2 repeated gave another ledger, log or latency")
+    for k in ("1", "2", "3"):
+        check_at_end(runs[k]["health"] == [],
+                     f"fleet {k}: health log {runs[k]['health']} without an "
+                     f"injected fault")
+        check_at_end(runs[k]["launches"]["matmul_tiled"] > 0
+                     and runs[k]["launches"]["flash_attention"] > 0,
+                     f"fleet {k}: launches {runs[k]['launches']}")
+    for k in ("2", "3"):
+        led = runs[k]["out"]["ledger"]
+        check_at_end(led.hedged >= 1 and led.hedge_wins_backup >= 1,
+                     f"fleet {k}: {led.hedged} hedges, "
+                     f"{led.hedge_wins_backup} backup wins")
+    check_at_end(all(p == [] for p in runs["3"]["pins"]),
+                 f"fleet 3: pins left {runs['3']['pins']}")
+    narrowed = runs["3"]["narrowed"]
+    if cut > 0:
+        check_at_end(narrowed, f"fleet 3: rung 1 cuts {cut:.4f} at "
+                     f"{ladder_tokens} tokens, yet no replica narrowed")
+    else:
+        # a full-width rung 1 is rung 0: no boundary, the modeled cost
+        # unchanged, so run 2's decisions
+        check_at_end(not narrowed and same_decisions(
+            runs["3"]["summary"], runs["2"]["summary"]),
+            f"fleet 3: rung 1 cuts nothing at {ladder_tokens} tokens, yet "
+            f"narrowed {narrowed} or decided otherwise than run 2")
+    hb = runs["b"]["health"]
+    check_at_end(len(hb) == 1 and hb[0][:2] == ("r0", "dead")
+                 and hb[0][2].startswith("InjectedFault"),
+                 f"fleet (b): health log {hb}")
+    check_at_end(runs["b"]["out"]["ledger"].migrated >= 1
+                 and runs["b"]["evicted"] >= 1,
+                 f"fleet (b): migrated {runs['b']['out']['ledger'].migrated}"
+                 f", r0 evicted {runs['b']['evicted']}")
+    p999 = {k: r["out"]["p999_s"] for k, r in runs.items()}
+    check_at_end(p999["2"] < p999["1"] and p999["3"] < p999["1"],
+                 f"fleet: hedged p99.9 not below unhedged: {p999}")
+    held = {}
+    for k, run in runs.items():
+        # a narrowed replica serves other widths by design: run 3's tokens
+        # then meet only count and vocabulary here; (c) holds the narrowed
+        # replay to the CPU's
+        held[k] = fleet_held_to_solo(np, k, run["out"]["results"], solo,
+                                     cfg.vocab_size,
+                                     tokens=not run["narrowed"])
+    for k, name in (("1", "1 unhedged"), ("2", "2 hedged rung 0"),
+                    ("3", "3 hedged rung 1"), ("b", "(b) crash")):
+        fleet_line(card, name, runs[k], held[k])
+    log(f"fleet {card}: the fleet's class {ladder_tokens} tokens; rung 1 "
+        f"widths {rung_widths(ladder, 1)} (predicted reduction "
+        f"{cut:.4f}); run 3 narrowed {narrowed}, {held['3']} of its tokens "
+        f"held to solo; r0 evicted {runs['b']['evicted']} in (b)")
+    log(f"fleet {card}: decode replay (4 slots) {decode_ms[0]:.4f} / "
+        f"{decode_ms[1]:.4f} ms per step on r0 / r1, "
+        f"{decode_ms[0] / 4 * 1e3:.1f} us per token beside the modeled "
+        f"100 us; device ms per replay "
+        f"{ {f'{k} {s}': round(ms, 4) for (k, s), ms in dev[0].items()} }; "
+        f"capture s per replica {[round(x, 3) for x in capture_s]}; memory "
+        f"allocated with both replicas warm "
+        f"{runs['1']['warm_bytes'] / 2**30:.3f} GiB, peak through run 1 "
+        f"{peak / 2**30:.3f} GiB; solo reference {solo_s:.1f}s")
+    del runs, again, caches, params, solo
+    torch.cuda.empty_cache()
+    small = {rung: fleet_small_vs_cpu(torch, np, mods, card, rung=rung)
+             for rung in (0, 1)}
+    log(f"fleet phase {card}: {time.perf_counter() - t_phase:.1f}s")
+    return {"p999_s": p999, "decode_ms": decode_ms, "peak_bytes": peak,
+            "capture_s": capture_s, "small": small}
+
+
+def fleet_small_vs_cpu(torch, np, mods, card: str, *, rung: int) -> tuple:
+    """(c): the reduced qwen of the tests (d_model 128, 2 layers, d_ff 576)
+    as ``launch.serve_resilient``'s fleet, hedged at ``rung`` with replica
+    0 crashing, each replica with a warm step cache, on the card and on the
+    CPU: equal router ledgers, logs, engine ledgers, plan logs and
+    latencies, tokens equal under the margin rule (the CPU run's margins,
+    the smallest of a request's legs). At rung 1 both devices get one
+    ladder object, built once on the CPU (``TPU_V5E``, at the fleet's
+    class): the GPU form cuts nothing at these widths, and one ladder
+    makes the narrowed widths equal by construction, so the card's
+    narrowed replays and the KV reshapes at their boundaries are held to
+    the CPU's."""
+    c, tfm, sv, sr = mods["configs"], mods["tfm"], mods["serving"], \
+        mods["serve_resilient"]
+    cfg = c.reduced_config(c.get_config(ARCH), d_model=128, n_layers=2,
+                           d_ff=576)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED))
+    arrivals = sr.fleet_arrivals(cfg, n=FLEET_N, prompt_lens=13,
+                                 new_tokens=8, gap_s=FLEET_GAP_S,
+                                 seed=SEED + 7)
+    reqs = [a.request for a in arrivals]
+    ladder = None
+    if rung == 1:
+        tokens = sr.fleet_tokens(arrivals, slots=4, prefill_chunk=4)
+        ladder = sr.ladder_for(cfg, torch.device("cpu"), tokens=tokens)[1]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        caches = [sv.WidthVariantCompileCache(cfg) for _ in range(2)]
+        reps = sr.build_fleet(tfm.cast_params(params, dev), cfg, device=dev,
+                              crash_at=FLEET_CRASH_AT, caches=caches,
+                              ladder=ladder, warm_lengths=(13,))
+        counts = [x.tracer.count for x in caches]
+        recs = [StepRecorder(torch, e, reqs) for e in reps.values()] \
+            if dev == "cpu" else []
+        out = sr.serve_fleet(reps, arrivals, hedge=rung)
+        check_at_end([x.tracer.count for x in caches] == counts and all(
+            x.stats["misses"] == x.stats["fallbacks"] == 0 for x in caches),
+            f"fleet small rung {rung} on {dev}: stats "
+            f"{[x.stats for x in caches]}")
+        plans = [[tuple(sorted(p.widths.items())) for p in e.plan_log]
+                 for e in reps.values()]
+        got[dev] = (fleet_summary(out) + (plans,), out["results"], recs)
+    (cpu, cres, recs), (gpu, gres, _) = got["cpu"], got["cuda"]
+    check_at_end(cpu == gpu, f"fleet small rung {rung}: the card's ledger, "
+                 f"logs, plans or latencies differ from the CPU's: "
+                 f"{gpu[:3]} vs {cpu[:3]}")
+    led, plans = cpu[0], cpu[5]
+    narrowed = sum(any(w < cfg.d_ff for _, w in p) for e in plans for p in e)
+    check_at_end(led[1] == FLEET_N and led[4] > 0 and led[6] > 0 and cpu[2]
+                 and (narrowed > 0) == (rung == 1),
+                 f"fleet small rung {rung}: ledger {led}, health {cpu[2]}, "
+                 f"{narrowed} narrowed boundaries")
+    margin, scale = {}, max(r.scale for r in recs)
+    for r in recs:
+        for key, m in r.margin.items():
+            margin[key] = min(m, margin.get(key, m))
+    tol, compared = CONT_TOL * scale, 0
+    for i, (a, b) in enumerate(zip(cres, gres)):
+        for k in range(len(a.tokens)):
+            if not np.array_equal(a.tokens[:k], b.tokens[:k]):
+                break
+            if margin[(i, k)] > 2 * tol:
+                check_at_end(a.tokens[k] == b.tokens[k], f"fleet small rung "
+                             f"{rung}: request {i} token {k} differs on the "
+                             f"card")
+                compared += 1
+    widths = "" if ladder is None else (
+        f", rung 1 widths {rung_widths(ladder, 1)} "
+        f"({narrowed} narrowed boundaries)")
+    log(f"fleet small {cfg.name} rung {rung} card vs CPU {card}: router "
+        f"ledger {led}, {len(cpu[1])} hedges, health "
+        f"{[h[1:3] for h in cpu[2]]}{widths}, all equal; {compared} of "
+        f"{sum(len(r.tokens) for r in cres)} tokens compared (margin "
+        f"rule), all equal")
+    return led
+
+
 def serve_batched_on_card(mods) -> None:
     t0 = time.perf_counter()
     engine = mods["serve_batched_main"]([])
@@ -2765,7 +3124,7 @@ def main() -> None:
     from repro_torch.kernels import staircase_fused as sf
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.serve_batched import main as serve_batched_main
-    from repro_torch.launch import serve_continuous
+    from repro_torch.launch import serve_continuous, serve_resilient
     from repro_torch.serving import chaos
     from repro_torch.models import recurrent
     from repro_torch.models import transformer as tfm
@@ -2781,6 +3140,7 @@ def main() -> None:
             "fused_columns": sf.fused_columns,
             "serve_batched_main": serve_batched_main,
             "serve_continuous": serve_continuous, "chaos": chaos,
+            "serve_resilient": serve_resilient,
             "mt": mt, "mg": mg, "autotune": autotune}
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2903,6 +3263,15 @@ def main() -> None:
                                          n_experts=16))):
         continuous_small_vs_cpu(torch, np, mods, arch, boundary=False,
                                 **reduce)
+    # the hedged fleet: full-width qwen replicas behind the router, (a)
+    # unhedged, hedged at rung 0 and at rung 1, (b) a crash, (c) a small
+    # fleet on the card against the CPU
+    fleet = fleet_phase(torch, np, mods, card)
+    log(f"fleet summary {card}: virtual p99.9 ms "
+        f"{ {k: round(v * 1e3, 4) for k, v in fleet['p999_s'].items()} } "
+        f"(1 unhedged, 2 hedged rung 0, 3 rung 1, b crash); decode replay "
+        f"{fleet['decode_ms'][0]:.4f} ms; peak "
+        f"{fleet['peak_bytes'] / 2**30:.3f} GiB")
     runs = continuous["runs"]
     log(f"continuous summary {card}: tok/s (a) {runs['a']['tok_s']:.1f}, "
         f"(b) {runs['b']['tok_s']:.1f}, (c) eager "

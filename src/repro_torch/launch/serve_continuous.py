@@ -1,7 +1,6 @@
 """Continuous-batching serving CLI: an open stream of requests through
 ``ContinuousServeEngine``, with random weights from a seed (the serving
-part of ``examples/serve_continuous.py``; its degradation controller
-comes with the resilience slice, ``ROADMAP.md`` §1 item 5).
+part of ``examples/serve_continuous.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_continuous \
         --arch qwen1.5-0.5b --requests 16 --slots 4 --cached

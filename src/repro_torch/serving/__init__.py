@@ -15,6 +15,10 @@ from repro_torch.serving.degradation import (
 from repro_torch.serving.continuous import (
     Arrival, BoundaryEvent, ChunkEvent, ContinuousServeEngine, Ledger,
 )
+from repro_torch.serving.hedging import HedgeEvent, HedgePolicy
+from repro_torch.serving.router import (
+    HealthEvent, Replica, ReplicaRouter, RouterLedger,
+)
 from repro_torch.serving import chaos
 
 __all__ = [
@@ -25,5 +29,7 @@ __all__ = [
     "COMPILE_STEPS",
     "CompileEvent", "TraceCounter", "WidthVariantCompileCache",
     "pow2_bucket", "realized_exec_key", "Arrival", "BoundaryEvent",
-    "ChunkEvent", "ContinuousServeEngine", "Ledger", "chaos",
+    "ChunkEvent", "ContinuousServeEngine", "Ledger", "HedgeEvent",
+    "HedgePolicy", "HealthEvent", "Replica", "ReplicaRouter",
+    "RouterLedger", "chaos",
 ]

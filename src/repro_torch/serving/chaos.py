@@ -1,6 +1,5 @@
 """Seeded fault injection and open-loop load for the serving stack
-(``repro.serving.chaos``'s counterpart, the parts the continuous engine and
-its tests use).
+(``repro.serving.chaos``'s counterpart).
 
   * :class:`SwapFailureInjector` — a ``WidthSwapper.fault_hook`` raising
     :class:`InjectedFault` at the named swap checkpoints
@@ -12,24 +11,34 @@ its tests use).
     ``fault_hook`` breaking capture or the serve-time lookup.
   * :class:`ChunkFaultInjector` — a ``ContinuousServeEngine``
     ``chunk_fault_hook`` faulting a prefill chunk.
+  * :class:`SlowBatchInjector` — wraps a batch cost; a seeded fraction of
+    batches pay an extra latency (straggler batches).
+  * :class:`ReplicaStallInjector` / :class:`ReplicaCrashInjector` — wrap
+    one replica's batch cost: every step in a window pays ``factor`` x (a
+    machine going slow), or a costed step raises :class:`InjectedFault`
+    (a replica dying mid-step), the failures ``serving/router.py`` turns
+    into latency rather than loss.
+  * :class:`CacheCorruptor` — overwrites a seeded fraction of a
+    ``core.table_cache.ProfileTableCache``'s entries with garbage, driving
+    its retry-then-quarantine path.
   * :class:`VirtualClock` + :func:`modeled_batch_cost` — a simulated time
     base that advances only by modeled step costs, so shed sets, deadline
     misses and percentiles are exactly reproducible from the seed.
   * :func:`burst_requests`, :class:`TrafficLoad` +
     :func:`open_loop_arrivals` — seeded open-loop traffic, reported per
-    class by :class:`TailReport` via :func:`class_tail_reports`.
+    class by :class:`TailReport` via :func:`class_tail_reports`, or as a
+    whole by :class:`LoadReport`.
 
 Every injector and schedule draws from its own ``numpy`` Generator
 (``np.random.default_rng``, as ``repro`` does), so for one seed the
-arrivals and the injectors' decisions are bit-equal to ``repro``'s. The
-straggler, replica and table-cache injectors and ``LoadReport`` come with
-the router (``ROADMAP.md`` §1 item 5).
+arrivals and the injectors' decisions are bit-equal to ``repro``'s.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from pathlib import Path
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -163,6 +172,23 @@ class CompileFailureInjector:
                 f"at {step!r}")
 
 
+class SlowBatchInjector:
+    """Seeded straggler batches: wraps a base batch cost, adding
+    ``extra_s`` with probability ``rate`` per batch."""
+
+    def __init__(self, rate: float, extra_s: float, *, seed: int = 0):
+        self.rate = float(rate)
+        self.extra_s = float(extra_s)
+        self.rng = np.random.default_rng(seed)
+        self.injected = 0
+
+    def __call__(self, base_s: float) -> float:
+        if self.rng.random() < self.rate:
+            self.injected += 1
+            return base_s + self.extra_s
+        return base_s
+
+
 def modeled_batch_cost(per_token_s: float, *, overhead_s: float = 0.0,
                        slow: "Callable[[float], float] | None" = None
                        ) -> Callable:
@@ -187,6 +213,65 @@ def modeled_batch_cost(per_token_s: float, *, overhead_s: float = 0.0,
     return cost
 
 
+class ReplicaStallInjector:
+    """Gray-failure straggler replica: wraps one replica's base batch
+    cost (compose via ``modeled_batch_cost(..., slow=...)``), multiplying
+    every costed step inside a deterministic step window by ``factor``
+    (optionally thinned by a seeded ``rate``). Unlike
+    :class:`SlowBatchInjector` (an occasional straggler *batch*) this
+    models a *machine* going slow: every step of one replica pays, the
+    failure that replica routing and hedging exist to bound."""
+
+    def __init__(self, factor: float, *, start_step: int = 0,
+                 n_steps: int = 10 ** 9, rate: float = 1.0, seed: int = 0):
+        if factor < 1.0:
+            raise ValueError(f"stall factor must be >= 1 (got {factor})")
+        self.factor = float(factor)
+        self.start_step = max(int(start_step), 0)
+        self.n_steps = max(int(n_steps), 0)
+        self.rate = float(rate)
+        self.rng = np.random.default_rng(seed)
+        self.calls = 0          # costed steps evaluated
+        self.injected = 0       # steps actually slowed
+
+    def __call__(self, base_s: float) -> float:
+        i = self.calls
+        self.calls += 1
+        if self.start_step <= i < self.start_step + self.n_steps \
+                and self.rng.random() < self.rate:
+            self.injected += 1
+            return base_s * self.factor
+        return base_s
+
+
+class ReplicaCrashInjector:
+    """Replica death: raises :class:`InjectedFault` out of the replica's
+    batch-cost call (mid-step: after the step's tokens were appended,
+    before the clock advanced, the worst spot) on the ``at_step``-th
+    costed step and/or at a seeded ``rate``. The router's contract is to
+    mark the replica dead, evict its in-flight work and hand it to healthy
+    replicas with generated tokens intact: zero lost requests. Compose via
+    ``modeled_batch_cost(..., slow=...)``."""
+
+    def __init__(self, *, at_step: Optional[int] = None, rate: float = 0.0,
+                 seed: int = 0):
+        self.at_step = None if at_step is None else int(at_step)
+        self.rate = float(rate)
+        self.rng = np.random.default_rng(seed)
+        self.calls = 0          # costed steps evaluated
+        self.injected = 0       # crashes raised
+
+    def __call__(self, base_s: float) -> float:
+        i = self.calls
+        self.calls += 1
+        if (self.at_step is not None and i == self.at_step) or (
+                self.rate > 0 and self.rng.random() < self.rate):
+            self.injected += 1
+            raise InjectedFault(
+                f"injected replica crash at costed step {i}")
+        return base_s
+
+
 class ChunkFaultInjector:
     """Seeded ``ContinuousServeEngine.chunk_fault_hook`` — faults a
     prefill *chunk* mid-prefill.  The engine's contract is that chunk
@@ -206,6 +291,36 @@ class ChunkFaultInjector:
             self.injected += 1
             raise InjectedFault(
                 f"injected prefill-chunk failure #{self.injected}")
+
+
+class CacheCorruptor:
+    """Seeded on-disk corruption of ``ProfileTableCache`` entries.
+
+    ``strike()`` walks the live ``*.npz`` entries in sorted order (so the
+    seed fully determines which files are hit) and, at ``rate``,
+    overwrites each with garbage bytes: the torn-write or bit-rot case the
+    cache's quarantine path exists for. Returns the corrupted paths."""
+
+    def __init__(self, cache, rate: float = 1.0, *, seed: int = 0):
+        self.cache = cache
+        self.rate = float(rate)
+        self.rng = np.random.default_rng(seed)
+        self.corrupted: List[Path] = []
+
+    def strike(self) -> List[Path]:
+        hit = []
+        for path in sorted(self.cache.root.glob("??/*.npz")):
+            if self.rng.random() >= self.rate:
+                continue
+            garbage = self.rng.integers(0, 256, size=64,
+                                        dtype=np.uint8).tobytes()
+            try:
+                path.write_bytes(b"\x00CHAOS" + garbage)
+            except OSError:
+                continue
+            hit.append(path)
+        self.corrupted.extend(hit)
+        return hit
 
 
 def burst_requests(vocab_size: int, *, n: int, prompt_len: int = 8,
@@ -340,3 +455,27 @@ def class_tail_reports(arrivals, results) -> dict:
     for a, r in zip(arrivals, results):
         by_class.setdefault(a.klass, []).append(r)
     return {k: TailReport.build(k, rs) for k, rs in by_class.items()}
+
+
+@dataclasses.dataclass
+class LoadReport:
+    """Tail summary of one open-loop run (non-shed request latencies)."""
+
+    completed: int
+    shed: int
+    deadline_missed: int
+    p50_s: float
+    p99_s: float
+
+    @classmethod
+    def from_results(cls, results) -> "LoadReport":
+        lats = np.array([r.latency_s for r in results if not r.shed])
+        if lats.size == 0:
+            return cls(0, len(results), 0, float("nan"), float("nan"))
+        return cls(
+            completed=int(lats.size),
+            shed=sum(r.shed for r in results),
+            deadline_missed=sum(r.deadline_missed for r in results),
+            p50_s=float(np.percentile(lats, 50)),
+            p99_s=float(np.percentile(lats, 99)),
+        )

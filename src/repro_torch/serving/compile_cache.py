@@ -78,6 +78,19 @@ the request's states in, replays, and copies the updated states back out
 into the request's tensors (two batch-1 cache copies per chunk), so the
 next request's chunk cannot overwrite them.
 
+**One continuous engine a cache.** A decode entry's static states are
+the slot state of the continuous engine that replays it: the engine keeps
+them as its own ``states`` and writes each join into them in place. A
+second engine replaying the same entry would copy its own KV caches over
+the first one's, and both would then decode on one tree. So every engine
+claims its cache at construction (:meth:`~WidthVariantCompileCache.claim`),
+and a cache held by a live ``ContinuousServeEngine`` refuses any other
+engine, continuous or static (it holds engines by weak references). Static
+engines may share a cache with each other and with a planner: a static
+batch keeps no state across ``generate`` calls. ``repro``'s fleet may
+share one executable table, since its arrays are immutable; the port's
+gives each replica its own cache (``serving/router.py``).
+
 Every step, captured or eager, runs inside ``ops.kernel_context(hw=hw,
 cache=tile_cache)``, as ``repro`` traces it: on a GPU spec its GEMMs take
 the tile autotuner's tiles (``kernels.autotune``, persisted through
@@ -89,7 +102,9 @@ default tiles.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional
 
@@ -293,6 +308,10 @@ class WidthVariantCompileCache:
         self.stats = {"aot_compiles": 0, "hits": 0, "misses": 0,
                       "fallbacks": 0}
         self.tracer = TraceCounter()
+        # the continuous engine whose slot state the decode entries hold,
+        # and the static engines serving on the cache (claim())
+        self._holder: Optional[weakref.ref] = None
+        self._static: "weakref.WeakSet" = weakref.WeakSet()
 
         n_refs = len(tfm.decoder_layer_refs(cfg))
         # Canonical full-width key — what masked realizations and the
@@ -329,6 +348,50 @@ class WidthVariantCompileCache:
     @property
     def active_key(self) -> tuple:
         return self._active_key
+
+    # ------------------------------------------------------------------
+    # who serves on the cache
+    # ------------------------------------------------------------------
+    def _holder_engine(self):
+        return None if self._holder is None else self._holder()
+
+    def claim(self, engine, *, continuous: bool) -> None:
+        """Register ``engine`` as serving on this cache. A continuous
+        engine holds its slot state in the decode entries' static states,
+        so it must be the cache's only live engine; static engines may
+        share. Raises ``ValueError`` where the claim would put a live
+        continuous engine beside another engine. An engine that is gone
+        no longer counts (weak references; a collection runs first, so an
+        engine kept only by a reference cycle does not either)."""
+        def conflict() -> Optional[str]:
+            # holds no strong reference to another engine once it returns
+            holder = self._holder_engine()
+            if holder is not None and holder is not engine:
+                return "continuous"
+            if continuous and any(e is not engine for e in self._static):
+                return "static"
+            return None
+
+        why = conflict()
+        if why is not None:
+            gc.collect()
+            why = conflict()
+        if why == "continuous":
+            raise ValueError(
+                "this step cache already serves a live ContinuousServeEngine, "
+                "whose slot state its decode entries hold: a second engine "
+                "would decode on that engine's KV caches. Give each engine a "
+                "WidthVariantCompileCache of its own")
+        if why == "static":
+            raise ValueError(
+                "this step cache already serves a live ServeEngine, whose "
+                "decode steps would overwrite a continuous engine's slot "
+                "state in the decode entries. Give the continuous engine a "
+                "WidthVariantCompileCache of its own")
+        if continuous:
+            self._holder = weakref.ref(engine)
+        else:
+            self._static.add(engine)
 
     def _entry_key(self, kind: str, key: tuple, shape_key: tuple) -> tuple:
         return (self.fingerprint, kind, key, tuple(shape_key))

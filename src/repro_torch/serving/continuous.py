@@ -39,7 +39,15 @@ chunk shapes of every plan). The shared slot state stays the decode
 entry's static states: a join writes its rows into it in place, so a
 decode step copies no KV cache, and each prefilling request keeps a
 checkpoint of its own (the cache copies it in and out around a chunk's
-replay).
+replay). So the cache serves this engine alone while it lives
+(``WidthVariantCompileCache.claim``): a fleet gives each replica its own.
+
+Behind ``serving/router.py``'s ``ReplicaRouter`` the engine is one replica:
+``cancel`` frees a hedge's losing leg slot-exactly, ``evict_in_flight`` and
+``adopt`` move requests (tokens and chunk checkpoints intact) off a dead or
+slow replica, and with a ``planner`` every finished request's latency is
+recorded per traffic class (``ServingWidthPlanner.record``), the telemetry
+the hedge delay is read from.
 
 Determinism: with a ``chaos.VirtualClock`` and a ``batch_cost_fn`` every
 join, shed, boundary crossing and requeue is a function of the seeds, as
@@ -58,7 +66,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.serving.compile_cache import pow2_bucket, realized_exec_key
+from repro_torch.serving.compile_cache import (
+    leaves, pow2_bucket, realized_exec_key)
 from repro_torch.serving.engine import (
     Request, Result, WidthPlan, _same_leaves, require_device)
 
@@ -301,6 +310,9 @@ class ContinuousServeEngine:
             if compile_cache.cfg is not cfg and compile_cache.cfg != cfg:
                 raise ValueError("compile_cache was built for a different "
                                  "ModelConfig than this engine")
+            # the decode entries' static states become this engine's slot
+            # state: the cache serves no other engine while this one lives
+            compile_cache.claim(self, continuous=True)
             self._decode = compile_cache.decode
             self._prefill = compile_cache.prefill
             self._chunk = compile_cache.chunk
@@ -468,7 +480,18 @@ class ContinuousServeEngine:
         """Accept a request evicted from another engine: a fresh local
         rid, its original arrival time (deadlines and latency keep counting
         from it), generated tokens and chunk checkpoint carried over; the
-        checkpoint's head vectors revalidate at join time."""
+        checkpoint's head vectors revalidate at join time. The checkpoint
+        must already be on this engine's device (the router's replicas
+        share one): a mismatch raises rather than copying it across."""
+        if tr.chunk_state is not None:
+            for x in leaves(tr.chunk_state):
+                if x.device.type != self.device.type or (
+                        self.device.index is not None
+                        and x.device.index != self.device.index):
+                    raise ValueError(
+                        f"request {tr.rid}'s chunk checkpoint is on "
+                        f"{x.device}, this engine on {self.device}: "
+                        f"adopt() moves no tensors across devices")
         rid = self._next_rid
         self._next_rid += 1
         self._submitted += 1
@@ -520,9 +543,13 @@ class ContinuousServeEngine:
         return res
 
     def _finish(self, tr: _Tracked) -> None:
-        self._terminal(tr)
+        res = self._terminal(tr)
         if self.admission is not None:
             self.admission.observe(self.clock() - tr.join_t)
+        if self.planner is not None:
+            name = (self._plan_active.traffic.name
+                    if self._plan_active is not None else tr.klass)
+            self.planner.record(name or "default", res.latency_s)
 
     # ------------------------------------------------------------------
     # queue movement

@@ -83,11 +83,16 @@ class Result:
     # continuous engine (serving/continuous.py): boundary or chunk-fault
     # requeues survived, whether the request finished after one, terminal
     # failure (retries exhausted, or it cannot fit max_len), and
-    # cancellation (ContinuousServeEngine.cancel)
+    # cancellation (ContinuousServeEngine.cancel, a hedge's losing leg)
     retries: int = 0
     recovered: bool = False
     failed: bool = False
     cancelled: bool = False
+    # router (serving/router.py): served as a hedge pair, the leg that won
+    # ("primary" | "backup"), and the replica failovers survived
+    hedged: bool = False
+    won_by: str = ""
+    migrations: int = 0
 
 
 def _shed_result() -> "Result":
@@ -271,6 +276,31 @@ class ServingWidthPlanner:
         # builds layers and modules as a matched pair).
         self.modules = modules
         self.plans: dict[str, WidthPlan] = {}
+        # Telemetry: observed per-class latencies, fed by the engines
+        # (`record`: a static batch's, a continuous request's); the hedge
+        # policy reads its delay from them (`observed_percentile`). A
+        # sliding window bounds the memory of a long-running server.
+        self.telemetry: dict[str, List[float]] = {}
+        self.telemetry_window = 4096
+
+    def record(self, class_name: str, latency_s: float) -> None:
+        """Observe one latency for a traffic class; only the latest
+        ``telemetry_window`` samples per class are kept."""
+        lats = self.telemetry.setdefault(class_name, [])
+        lats.append(float(latency_s))
+        if len(lats) > self.telemetry_window:
+            del lats[:-self.telemetry_window]
+
+    def observed_percentile(self, class_name: str,
+                            q: float) -> Optional[float]:
+        """q-th percentile (numpy's linear rule) of a class's observed
+        latencies, or None before any observation; ``q`` is clamped to
+        [0, 100]."""
+        lats = self.telemetry.get(class_name)
+        if not lats:
+            return None
+        q = min(max(float(q), 0.0), 100.0)
+        return float(np.percentile(np.asarray(lats), q))
 
     def _retokened(self, tokens: int) -> list:
         out = []
@@ -431,6 +461,7 @@ class ServeEngine:
             if compile_cache.cfg is not cfg and compile_cache.cfg != cfg:
                 raise ValueError("compile_cache was built for a different "
                                  "ModelConfig than this engine")
+            compile_cache.claim(self, continuous=False)
             self._prefill = compile_cache.prefill
             self._decode = compile_cache.decode
         else:
@@ -546,6 +577,8 @@ class ServeEngine:
                 (queue_len + self.slots - 1) // self.slots)
             if self.degrader is not None:
                 self.degrader.observe(sig)
+        if self.planner is not None and plan is not None:
+            self.planner.record(plan.traffic.name, dt)
         self.batch_log.append(BatchStats(
             tokens=tokens, latency_s=dt,
             plan_name=plan.traffic.name if plan is not None else "",

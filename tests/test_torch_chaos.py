@@ -6,17 +6,21 @@ faults under open-loop load) against ``repro``'s engine (CPU).
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
+import torch
 
+from repro import serving as jserving
 from repro.serving import Result as JResult
 from repro.serving import chaos as jchaos
+from repro_torch import serving as tserving
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import Result
 from repro_torch.serving import chaos as tchaos
 from test_torch_continuous import (  # noqa: F401 — the model fixture
-    Scripted, _hw, model, reqs_for, run_both, virtual)
+    Scripted, _hw, model, port_side, reqs_for, run_both, virtual)
 
 LOADS = [dict(name="steady", rate_rps=50.0, duration_s=2.0, prompt_len=5,
               max_new_tokens=3, deadline_s=1.5),
@@ -291,3 +295,419 @@ def test_seeded_faults_under_open_loop_load(model):
     (jengs, _), (tengs, _) = run_both(model, sc, min_frac=0.3)
     assert tengs[0].reports == jengs[0].reports
     assert any(b.outcome != "ok" for b in tengs[0].boundary_log)
+
+
+# ---------------------------------------------------------------------------
+# the fleet's injectors, reports and the table cache's corruptor
+# ---------------------------------------------------------------------------
+def cost_trace(inj, n=48) -> list:
+    """An injector wrapping batch costs, called ``n`` times: each cost or
+    the fault's message, then its counters."""
+    out = []
+    for i in range(n):
+        try:
+            out.append(inj(1e-3 * (i + 1)))
+        except (tchaos.InjectedFault, jchaos.InjectedFault) as e:
+            out.append(f"{type(e).__name__}: {e}")
+    return out + [getattr(inj, "calls", None), inj.injected]
+
+
+@pytest.mark.parametrize("seed,rate", [(0, 0.3), (2, 0.5), (7, 1.0),
+                                       (1, 0.0)])
+def test_straggler_and_replica_injectors_bit_equal(seed, rate):
+    for name, args, kw in (
+            ("SlowBatchInjector", (rate, 0.25), {}),
+            ("ReplicaStallInjector", (4.0,),
+             {"start_step": 3, "n_steps": 20, "rate": rate}),
+            ("ReplicaStallInjector", (8.0,), {}),
+            ("ReplicaCrashInjector", (), {"at_step": 5, "rate": rate / 5}),
+            ("ReplicaCrashInjector", (), {"rate": rate})):
+        got = cost_trace(getattr(tchaos, name)(*args, seed=seed, **kw))
+        want = cost_trace(getattr(jchaos, name)(*args, seed=seed, **kw))
+        assert got == want, name
+    for ch in (tchaos, jchaos):
+        with pytest.raises(ValueError, match="stall factor"):
+            ch.ReplicaStallInjector(0.5)
+
+
+def test_load_report_bit_equal():
+    got, want = _results(Result), _results(JResult)
+    for rs in (got, want):
+        for r in rs[::7]:
+            r.deadline_missed = True
+    assert dataclasses.astuple(tchaos.LoadReport.from_results(got)) == \
+        dataclasses.astuple(jchaos.LoadReport.from_results(want))
+    shed = [Result(tokens=np.zeros(0, np.int32), steps=0, shed=True)] * 3
+    assert dataclasses.astuple(tchaos.LoadReport.from_results(shed))[:3] \
+        == (0, 3, 0)
+
+
+def test_cache_corruptor_hits_as_repro_and_quarantines(tmp_path):
+    """Six table entries on each side; the same seed strikes the same
+    positions of the sorted entries, and the port's cache quarantines
+    exactly those (tests/test_chaos.py's partial corruption)."""
+    from repro.core import LayerShape as JLayerShape
+    from repro.core import TPU_V5E as J_HW
+    from repro.core.table_cache import ProfileTableCache as JCache
+    from repro_torch.core import TPU_V5E, LayerShape
+    from repro_torch.core.table_cache import ProfileTableCache
+
+    def fill(Cache, LS, hw, root):
+        cache = Cache(root)
+        layers = [LS(f"l{i}", tokens=64 * (i + 1), d_in=64, width=100)
+                  for i in range(6)]
+        for i, layer in enumerate(layers):
+            cache.put(hw, layer, np.array([128, 256]),
+                      {"latency_s": np.array([1.0, 2.0 + i])})
+        return layers
+
+    sides = {}
+    for tag, Cache, LS, hw, ch in (("t", ProfileTableCache, LayerShape,
+                                    TPU_V5E, tchaos),
+                                   ("j", JCache, JLayerShape, J_HW, jchaos)):
+        root = tmp_path / tag
+        layers = fill(Cache, LS, hw, root)
+        files = sorted(Cache(root).root.glob("??/*.npz"))
+        assert len(files) == 6
+        hit = ch.CacheCorruptor(Cache(root), rate=0.5, seed=1).strike()
+        cache = Cache(root)
+        got = [cache.get(hw, layer, np.array([128, 256]))
+               for layer in layers]
+        sides[tag] = ([files.index(p) for p in hit],
+                      sum(g is None for g in got), cache.stats.corrupted,
+                      len(cache.quarantined()))
+    assert sides["t"] == sides["j"]
+    positions, missed, corrupted, quarantined = sides["t"]
+    assert 0 < len(positions) < 6
+    assert missed == corrupted == quarantined == len(positions)
+
+
+# ---------------------------------------------------------------------------
+# the planner's telemetry and the hedge policy
+# ---------------------------------------------------------------------------
+def telemetry_planners():
+    from repro.core import TPU_V5E as J_HW
+    from repro_torch.core import TPU_V5E
+    return (tserving.ServingWidthPlanner(TPU_V5E, [], device="cpu"),
+            jserving.ServingWidthPlanner(J_HW, []))
+
+
+def test_planner_telemetry_as_repro():
+    tp, jp = telemetry_planners()
+    assert tp.telemetry_window == jp.telemetry_window == 4096
+    for p in (tp, jp):
+        assert p.observed_percentile("a", 95) is None
+    rng = np.random.default_rng(4)
+    for x in rng.exponential(0.2, size=5000):
+        for p in (tp, jp):
+            p.record("a", x)
+    for x in rng.exponential(0.5, size=7):
+        for p in (tp, jp):
+            p.record("b", x)
+    assert tp.telemetry == jp.telemetry and len(tp.telemetry["a"]) == 4096
+    for cls in ("a", "b"):
+        for q in (-5.0, 0.0, 50.0, 95.0, 99.9, 100.0, 150.0):
+            assert tp.observed_percentile(cls, q) == \
+                jp.observed_percentile(cls, q)
+    assert tp.observed_percentile("c", 50) is None
+
+
+def test_continuous_run_records_latencies_as_repro(model):
+    """With a planner, each finished request's latency is recorded under
+    its class (or "default"): the same samples as repro's engine."""
+    from test_torch_degradation import serving_ladder
+
+    def sc(S, m):
+        planner, _ = serving_ladder(S)
+        eng = S.sv.ContinuousServeEngine(
+            S.params, S.cfg, **S.kw, max_len=48, batch_slots=3,
+            planner=planner, **virtual(S))
+        if m is not None:
+            m.attach(eng)
+        loads = [S.ch.TrafficLoad(**kw) for kw in (
+            dict(name="steady", rate_rps=40.0, duration_s=0.3,
+                 prompt_len=7, max_new_tokens=4),
+            dict(name="spike", rate_rps=0.0, duration_s=0.3, burst_at=0.1,
+                 burst_n=4, prompt_len=5, max_new_tokens=3))]
+        arrivals = S.ch.open_loop_arrivals(loads, S.cfg.vocab_size, seed=2)
+        bare = reqs_for(S, (6, 4), max_new=3, seed=9)
+        res = eng.run(arrivals + bare)
+        return [eng], [a.request for a in arrivals] + bare, res
+
+    (jengs, _), (tengs, _) = run_both(model, sc, min_frac=0.3)
+    got, want = tengs[0].planner.telemetry, jengs[0].planner.telemetry
+    assert got == want and set(got) == {"steady", "spike", "default"}
+
+
+def test_hedge_policy_as_repro():
+    tp, jp = telemetry_planners()
+    for x in np.random.default_rng(1).exponential(0.05, size=40):
+        tp.record("small", x)
+        jp.record("small", x)
+    for kw in (dict(), dict(quantile=50.0, min_delay_s=0.02),
+               dict(quantile=99.9, default_delay_s=0.01, rung=0,
+                    max_outstanding=1, hedge_deadline_only=True)):
+        tpol, jpol = tserving.HedgePolicy(**kw), jserving.HedgePolicy(**kw)
+        for klass in ("small", "", "other"):
+            for tpl, jpl in ((tp, jp), (None, None)):
+                delay = tpol.hedge_delay(tpl, klass)
+                assert delay == jpol.hedge_delay(jpl, klass)
+                for elapsed in (0.0, delay * 0.5, delay, delay * 3):
+                    for out in (0, 1, 4):
+                        for dl in (None, 1.0):
+                            args = dict(elapsed_s=elapsed, delay_s=delay,
+                                        outstanding=out)
+                            assert tpol.should_hedge(
+                                **args, request=tserving.Request(
+                                    prompt=np.zeros(2, np.int32),
+                                    deadline_s=dl)) == jpol.should_hedge(
+                                **args, request=jserving.Request(
+                                    prompt=np.zeros(2, np.int32),
+                                    deadline_s=dl))
+    for bad, match in ((dict(quantile=0.0), "quantile"),
+                       (dict(quantile=100.5), "quantile"),
+                       (dict(rung=-1), "rung"),
+                       (dict(max_outstanding=0), "max_outstanding")):
+        for sv in (tserving, jserving):
+            with pytest.raises(ValueError, match=match):
+                sv.HedgePolicy(**bad)
+
+
+# ---------------------------------------------------------------------------
+# the router's device-fault rule
+# ---------------------------------------------------------------------------
+class StubEngine:
+    """A replica stand-in: each step finishes its oldest request on a
+    VirtualClock, or raises ``fault``."""
+
+    def __init__(self, fault=None):
+        self.clock = tchaos.VirtualClock()
+        self.fault = fault
+        self.pending, self.results, self.next = [], {}, 0
+        self.boundary_log, self.degrader = [], None
+
+    def submit(self, request, *, arrival_t=None, klass=""):
+        rid, self.next = self.next, self.next + 1
+        self.pending.append((rid, request))
+        return rid
+
+    def result(self, rid):
+        return self.results.get(rid)
+
+    def _outstanding(self):
+        return bool(self.pending)
+
+    def ledger(self):
+        return types.SimpleNamespace(in_flight=len(self.pending), queued=0)
+
+    def step(self):
+        if self.fault is not None:
+            raise self.fault
+        self.clock.advance(1e-3)
+        rid, _ = self.pending.pop(0)
+        self.results[rid] = Result(tokens=np.zeros(1, np.int32), steps=1,
+                                   latency_s=self.clock())
+        return self._outstanding()
+
+    def evict_in_flight(self):
+        out = [types.SimpleNamespace(rid=r, request=q, generated=[],
+                                     retries=0) for r, q in self.pending]
+        self.pending = []
+        return out
+
+    def adopt(self, tr):
+        return self.submit(tr.request)
+
+    def cancel(self, rid):
+        return False
+
+
+DEVICE_FAULTS = [
+    RuntimeError("CUDA error: an illegal memory access was encountered"),
+    RuntimeError("matmul_tiled launch failed: unspecified launch failure"),
+    torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate"),
+    RuntimeError("CUDA driver error: device-side assert triggered"),
+]
+HOST_FAULTS = [tchaos.InjectedFault("injected replica crash at costed "
+                                    "step 0"),
+               RuntimeError("boom"), ValueError("a host-side bug")]
+
+
+@pytest.mark.parametrize("fault", DEVICE_FAULTS + HOST_FAULTS,
+                         ids=lambda e: type(e).__name__ + ":" + str(e)[:16])
+def test_router_reraises_device_faults_and_demotes_host_faults(fault):
+    """One CUDA context under every replica: a device fault fails the run
+    loudly; any other exception out of step() is that replica's death, and
+    its work moves to the sibling."""
+    from repro_torch.serving.router import is_device_fault
+
+    router = tserving.ReplicaRouter(
+        {"r0": StubEngine(fault), "r1": StubEngine()}, slow_factor=None)
+    reqs = [tserving.Request(prompt=np.zeros(3, np.int32))
+            for _ in range(4)]
+    if fault in DEVICE_FAULTS:
+        assert is_device_fault(fault)
+        with pytest.raises(type(fault)) as got:
+            router.run(reqs)
+        assert got.value is fault and router.health_log == []
+        wrapped = RuntimeError("step failed")
+        wrapped.__cause__ = fault
+        assert is_device_fault(wrapped)
+    else:
+        assert not is_device_fault(fault)
+        res = router.run(reqs)
+        assert router.ledger().complete and router.ledger().finished == 4
+        [ev] = router.health_log
+        assert ev.replica == "r0" and ev.state == "dead"
+        assert ev.reason.startswith(type(fault).__name__)
+        assert all(r.migrations == 1 for r in res[::2])
+
+
+def test_adopt_refuses_a_checkpoint_on_another_device(model):
+    """A migrated chunk checkpoint must already be on the adopter's
+    device: adopt() raises rather than copying it across."""
+    t = port_side(model)
+    eng = tserving.ContinuousServeEngine(t.params, t.cfg, device="cpu",
+                                         max_len=32, prefill_chunk=4)
+    tr = eng._fresh_states(eng._full_heads, batch=1)
+    tracked = types.SimpleNamespace(
+        rid=7, request=reqs_for(t, (9,))[0], klass="", arrival_t=0.0,
+        generated=[], retries=0, prefill_done=4, chunk_state=tr,
+        chunk_heads=eng._full_heads.copy(), chunk_eff=eng._full_heads.copy())
+    assert eng.adopt(tracked) == 0
+    meta = {g: {k: {n: x.to("meta") for n, x in d.items()}
+                for k, d in grp.items()} for g, grp in tr.items()}
+    tracked.chunk_state = meta
+    with pytest.raises(ValueError, match="adopt\\(\\) moves no tensors"):
+        eng.adopt(tracked)
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+def repro_example_burst():
+    """examples/serve_resilient.py's three LoadReports, its shift log and
+    its level after the lull, run through the example's own engine."""
+    import importlib.util
+    from pathlib import Path
+
+    import jax
+    from repro.configs import get_config as jget, reduced_config as jred
+    from repro.core import TPU_V5E as J_HW
+    from repro.models import init_params as jinit
+
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "serve_resilient.py"
+    spec = importlib.util.spec_from_file_location("_serve_resilient", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cfg = jred(jget("qwen1.5-0.5b"), d_model=128, n_layers=2, d_ff=576)
+    params = jinit(jax.random.PRNGKey(0), cfg)
+    templates, modules = jserving.serving_templates(cfg, J_HW, tokens=96,
+                                                    sites=("mlp",))
+    planner = jserving.ServingWidthPlanner(J_HW, templates, modules=modules)
+    traffic = [jserving.TrafficClass("burst", 96)]
+    planner.plan(traffic)
+    ladder = jserving.DegradationLadder.build(planner, traffic,
+                                              deltas=(0.8, 0.6))
+    eng, inj = ex.build_engine(cfg, params, planner, ladder, degrade=True)
+    tight = jchaos.LoadReport.from_results(eng.generate(jchaos.burst_requests(
+        cfg.vocab_size, n=ex.BURST_N, prompt_len=16, max_new_tokens=8,
+        deadline_s=0.6, seed=3)))
+    light = jchaos.burst_requests(cfg.vocab_size, n=2, prompt_len=16,
+                                  max_new_tokens=8, seed=4)
+    for _ in range(6):
+        eng.generate(light)
+    shifts = [(s.direction, s.level, s.batch_index)
+              for s in eng.degrader.shift_log]
+    relaxed = jchaos.burst_requests(cfg.vocab_size, n=ex.BURST_N,
+                                    prompt_len=16, max_new_tokens=8,
+                                    deadline_s=100.0, seed=3)
+    full, deg = (jchaos.LoadReport.from_results(ex.build_engine(
+        cfg, params, planner, ladder, degrade=d)[0].generate(relaxed))
+        for d in (False, True))
+    return {"tight": tight, "full": full, "degraded": deg, "shifts": shifts,
+            "level_after": eng.degrader.level, "injected": inj.injected,
+            "ladder": ladder}
+
+
+def test_cli_burst_matches_the_example(capsys):
+    """``--scenario burst`` on the CPU: the ladder, every LoadReport, the
+    shifts and the injected rollbacks of examples/serve_resilient.py (the
+    virtual clock sets them; the weights differ)."""
+    from repro_torch.launch.serve_resilient import main as cli_main
+    out = cli_main(["--device", "cpu", "--reduced", "--scenario", "burst"])
+    want = repro_example_burst()
+    for k in ("tight", "full", "degraded"):
+        assert dataclasses.astuple(out[k]) == dataclasses.astuple(want[k]), k
+    assert out["shifts"] == want["shifts"]
+    assert out["level_after"] == want["level_after"] == 0
+    assert out["injected"] == want["injected"] >= 1
+    assert [(r.level, sorted({w for p in r.plans.values()
+                              for w in p.widths.values()}))
+            for r in out["ladder"].rungs] == \
+        [(r.level, sorted({w for p in r.plans.values()
+                           for w in p.widths.values()}))
+         for r in want["ladder"].rungs]
+    assert out["tight"].deadline_missed == 0
+    assert out["degraded"].p99_s < out["full"].p99_s
+    text = capsys.readouterr().out
+    assert "4x burst, 0.6s deadlines" in text and "no shedding" in text
+
+
+@pytest.mark.parametrize("args", [
+    ["--hedge", "none"], ["--hedge", "0", "--cached"],
+    ["--hedge", "1", "--cached", "--crash-at", "2"]])
+def test_cli_fleet_runs_on_cpu(capsys, args):
+    from repro_torch.launch.serve_resilient import main as cli_main
+    out = cli_main(["--device", "cpu", "--reduced", "--requests", "16",
+                    *args])
+    led = out["ledger"]
+    assert led.complete and led.finished == 16 and led.failed == 0
+    assert (led.hedged > 0) == (args[1] != "none")
+    text = capsys.readouterr().out
+    assert "router ledger 16 submitted = 16 finished" in text
+    assert "p99.9" in text and "health log" in text
+    if "--cached" in args:
+        assert "'misses': 0" in text
+    if args[1] == "1":
+        assert "ladder at 4 tokens: rung 1 modeled -" in text
+    if "--crash-at" in args:
+        [ev] = out["router"].health_log
+        assert ev.replica == "r0" and "InjectedFault" in ev.reason
+        assert led.migrated >= 1
+
+
+def test_fleet_tokens_sits_where_the_tokens_are():
+    """The fleet ladder's class is the step size that serves the median
+    token: prompts as whole joins or chunks, decode tokens ``slots`` to a
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_resilient import fleet_arrivals, fleet_tokens
+    cfg = get_config("qwen1.5-0.5b")
+
+    def arrivals(lens, new):
+        return fleet_arrivals(cfg, n=len(lens), prompt_lens=lens,
+                              new_tokens=new, gap_s=1e-3, seed=0)
+    # joins 100 and 10, 18 decode tokens in 5 steps (4, 4, 4, 4, 2):
+    # 128 tokens, the 64th (smallest steps first) in the 100-token join
+    assert fleet_tokens(arrivals((100, 10), 10), slots=4) == 100
+    # the same in 8-token chunks: steps 2 x 2, 4 x 5 and 8 x 13
+    assert fleet_tokens(arrivals((100, 10), 10), slots=4,
+                        prefill_chunk=8) == 8
+    # long outputs: decode steps carry most tokens
+    assert fleet_tokens(arrivals((100, 10), 200), slots=4) == 4
+    lens = (128, 97, 64, 33, 200, 17, 150, 80)
+    new = (16, 8, 24, 16, 8, 32, 16, 12)
+    burst = fleet_arrivals(cfg, n=48, prompt_lens=lens, new_tokens=new,
+                           gap_s=1e-3, seed=0)
+    assert fleet_tokens(burst, slots=4) == 128
+    assert fleet_tokens(burst, slots=4, prefill_chunk=64) == 64
+
+
+def test_cli_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    from repro_torch.launch.serve_resilient import main as cli_main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["--reduced"])

@@ -693,6 +693,93 @@ def test_cached_chunks_keep_each_requests_checkpoint(model):
                 assert torch.equal(a[u][n], b[u][n])
 
 
+@pytest.fixture(scope="module")
+def unscaled():
+    """The reduced qwen of tests/test_hedged_serving.py with repro's own
+    initialization: no spread embedding, so that a decode step on another
+    request's KV cache shows in the tokens (with the spread, each greedy
+    token repeats the last one, whatever the cache holds)."""
+    jc = jax_reduced(jax_get_config("qwen1.5-0.5b"), d_model=128,
+                     n_layers=2, d_ff=576)
+    tc = reduced_config(get_config("qwen1.5-0.5b"), d_model=128,
+                        n_layers=2, d_ff=576)
+    host = jax.device_get(jtfm.init_params(jax.random.PRNGKey(0), jc))
+    return tc, params_from_jax(host)
+
+
+def alternating_engines(tc, params, caches) -> list:
+    """One continuous engine per cache, each warmed for a 9-token prompt
+    and given two requests of its own (12 new tokens each); the engines
+    step alternately, as a router steps its replicas. Returns each
+    engine's tokens."""
+    engs, rids = [], []
+    for k, cache in enumerate(caches):
+        eng = tserving.ContinuousServeEngine(
+            params, tc, device="cpu", max_len=48, batch_slots=2,
+            compile_cache=cache)
+        eng.warm_compile([], (9,))
+        rng = np.random.default_rng(20 + k)
+        rids.append([eng.submit(tserving.Request(
+            prompt=rng.integers(1, tc.vocab_size, size=(9,))
+            .astype(np.int32), max_new_tokens=12)) for _ in range(2)])
+        engs.append(eng)
+    while any(e._outstanding() for e in engs):
+        for e in engs:
+            if e._outstanding():
+                e.step()
+    return [[e.result(r).tokens.tolist() for r in rs]
+            for e, rs in zip(engs, rids)]
+
+
+def test_two_engines_on_one_step_cache(unscaled):
+    """A decode entry's static states are the slot state of the engine
+    that replays it. Two continuous engines on one step cache must not
+    decode on each other's KV caches: either the second one is refused,
+    or each serves the tokens it serves on a cache of its own."""
+    tc, params = unscaled
+    own = alternating_engines(
+        tc, params, [tserving.WidthVariantCompileCache(tc) for _ in "ab"])
+    assert own[0] != own[1]
+    shared = tserving.WidthVariantCompileCache(tc)
+    try:
+        got = alternating_engines(tc, params, [shared, shared])
+    except ValueError as e:
+        assert "step cache" in str(e), e
+    else:
+        assert got == own
+
+
+def test_a_step_cache_serves_one_live_continuous_engine(unscaled):
+    """The cache refuses a second live continuous engine, and a static
+    engine beside one (its decode would overwrite the slot state); once
+    the holder is gone the cache passes on; static engines share one."""
+    tc, params = unscaled
+    cache = tserving.WidthVariantCompileCache(tc)
+
+    def cont():
+        return tserving.ContinuousServeEngine(params, tc, device="cpu",
+                                              max_len=48, compile_cache=cache)
+
+    def static():
+        return tserving.ServeEngine(params, tc, device="cpu", max_len=48,
+                                    compile_cache=cache)
+
+    first = cont()
+    with pytest.raises(ValueError, match="live ContinuousServeEngine"):
+        cont()
+    with pytest.raises(ValueError, match="live ContinuousServeEngine"):
+        static()
+    del first
+    second = cont()
+    assert cache._holder_engine() is second
+    del second
+    statics = [static(), static()]
+    with pytest.raises(ValueError, match="live ServeEngine"):
+        cont()
+    del statics
+    assert cont().compile_cache is cache
+
+
 # ---------------------------------------------------------------------------
 # the other families
 # ---------------------------------------------------------------------------

@@ -1249,3 +1249,56 @@ def test_small_continuous_run_replays_every_step(gen, chunk):
         assert np.array_equal(a.tokens, b.tokens)
     assert cache.stats["misses"] == cache.stats["fallbacks"] == 0
     assert cache.tracer.count == count and warm.ledger().complete
+
+
+# ---------------------------------------------------------------------------
+# the hedged fleet (serving/router.py) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("hedge,crash_at", [(None, None), (0, 2), (1, 2)])
+def test_small_fleet_equals_the_cpu_run(gen, hedge, crash_at):
+    """Two replicas of a reduced qwen, each with a warm step cache of its
+    own, replica 0 stalled 8x (and crashing): the router ledger, hedge and
+    health logs, every engine's ledger and plan log and every result's
+    latency equal the same fleet's on the CPU, and no capture happens
+    while serving. At rung 1 both devices get one ladder object (built on
+    the CPU, ``TPU_V5E``, at the fleet's class), so the backups' narrowed
+    widths are equal by construction and the card's narrowed replays are
+    held to the CPU's."""
+    import dataclasses
+    from repro_torch.launch import serve_resilient as sr
+    from repro_torch.serving import WidthVariantCompileCache
+    cfg, params = cached_family("qwen1.5-0.5b")
+    arrs = sr.fleet_arrivals(cfg, n=16, prompt_lens=13, new_tokens=8,
+                             gap_s=0.001, seed=7)
+    ladder = None
+    if hedge == 1:
+        tokens = sr.fleet_tokens(arrs, slots=4, prefill_chunk=4)
+        ladder = sr.ladder_for(cfg, torch.device("cpu"), tokens=tokens)[1]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        caches = [WidthVariantCompileCache(cfg) for _ in range(2)]
+        reps = sr.build_fleet(tfm.cast_params(params, dev), cfg, device=dev,
+                              max_len=48, crash_at=crash_at, caches=caches,
+                              ladder=ladder, warm_lengths=(13,))
+        counts = [c.tracer.count for c in caches]
+        out = sr.serve_fleet(reps, arrs, hedge=hedge)
+        router = out["router"]
+        assert [c.tracer.count for c in caches] == counts
+        assert all(c.stats["misses"] == c.stats["fallbacks"] == 0
+                   for c in caches)
+        runs[dev] = (dataclasses.astuple(out["ledger"]),
+                     [dataclasses.astuple(h) for h in router.hedge_log],
+                     [dataclasses.astuple(h) for h in router.health_log],
+                     [dataclasses.astuple(r.engine.ledger())
+                      for r in router.replicas],
+                     [(len(r.tokens), r.latency_s, r.shed, r.failed,
+                       r.hedged, r.won_by, r.migrations)
+                      for r in out["results"]],
+                     [[sorted(p.widths.items()) for p in r.engine.plan_log]
+                      for r in router.replicas])
+    assert runs["cuda"] == runs["cpu"]
+    led = runs["cuda"][0]
+    assert led[1] == 16 and (led[4] > 0) == (hedge is not None)
+    assert any(w < cfg.d_ff for plans in runs["cuda"][5] for p in plans
+               for _, w in p) == (hedge == 1)
+    assert bool(runs["cuda"][2]) == (crash_at is not None)

@@ -350,7 +350,9 @@ def test_port_imports_neither_jax_nor_repro():
         "new = {'repro_torch.models.recurrent', 'repro_torch.kernels.rglru',"
         " 'repro_torch.kernels.rwkv6', 'repro_torch.models.moe',"
         " 'repro_torch.kernels.moe_gmm', 'repro_torch.kernels.autotune',"
-        " 'repro_torch.serving.degradation'}\n"
+        " 'repro_torch.serving.degradation', 'repro_torch.serving.hedging',"
+        " 'repro_torch.serving.router',"
+        " 'repro_torch.launch.serve_resilient'}\n"
         "sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
