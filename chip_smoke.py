@@ -147,7 +147,27 @@ the target) and ``nvcc``:
    CPU, at rung 0 and at rung 1 of one ladder (the narrowed replays);
    ledgers, virtual p50 / p99 / p99.9, wall seconds, decode replay ms,
    capture seconds, peak memory;
-7. prints one JSON line with every kernel's numbers, then, last,
+7. the paper's Table 2 (``launch.pruning_opt``, after the MoE family),
+   with the counts set to 0 just before and read just after: (a)
+   ``--hw tpu_lite`` at ``repro``'s constants (150 train and 80
+   finetune steps, batch 32, image 16), its widths, params, FLOPs and
+   modeled latency equal to a CPU run's in the same process, its
+   accuracies printed, and HRank's scores of the probe batch on the card
+   (cuSOLVER) against the CPU's, the differing ones counted; (b) the
+   GPU form on the card's own spec at latency batch and image (1, 16),
+   (32, 16) and (64, 32) (trained at that image), its widths, params,
+   FLOPs and modeled latency equal to a CPU run's on the same spec,
+   every net (full width, HRank, HRank+Ours, SOFT, SOFT+Ours) timed in
+   bf16 on ``matmul_tiled`` (the whole forward, each conv product alone
+   with its grid, the model's B and its loads) beside its modeled
+   latency and ``F.conv2d``'s time for the same net; (c) each kernel
+   forward within 4e-2 of the plain versions' largest logit, 4 launches
+   a forward, every product on TMA loads with its grid the model's B,
+   and every sweep that Algorithm 2 ran on ``staircase_fused`` (a) or
+   ``staircase_cta`` (b) held against its fp64 plain version on the same
+   inputs (waves and tiles exact, rtol 1e-6); the measured reductions of
+   Ours are printed, not checked;
+8. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --parent SRC
@@ -167,6 +187,11 @@ products are fp32.
 runs only the GEMM forms and the tiles phase (the tiles, the picks, the
 per-tile Fig. 5 sweeps), prints them as one JSON line, and no result line.
 
+    python3 chip_smoke.py --table2
+
+runs only the Table 2 phase and prints it as one JSON line, and no
+result line.
+
     python3 chip_smoke.py --host-us [SRC]
 
 measures only the GEMM wrappers' host us per call, of the package under
@@ -176,6 +201,7 @@ two trees compared on one card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -262,6 +288,12 @@ CONT_TOL = 4e-2
 FLEET_N = 48
 FLEET_GAP_S = 1e-3
 FLEET_CRASH_AT = 2
+# the Table 2 phase's (latency batch, image): repro's (1, 16), a batch of
+# 32 at 16, and 64 at 32 (CIFAR's size); each bf16 kernel forward held to
+# the plain versions' within 4e-2 of the largest logit (the bf16 pair of
+# tests/test_kernels.py:23)
+TABLE2_SETTINGS = ((1, 16), (32, 16), (64, 32))
+TABLE2_TOL = 4e-2
 
 
 # checks whose failure ends the run only after every phase has run, so
@@ -3063,6 +3095,182 @@ def fleet_small_vs_cpu(torch, np, mods, card: str, *, rung: int) -> tuple:
     return led
 
 
+# ---------------------------------------------------------------------------
+# Table 2: the paper's CNN pruning workload
+# ---------------------------------------------------------------------------
+def table2_rows(out: dict) -> list:
+    return [out["base"]] + out["rows"]
+
+
+def table2_equal_to_cpu(out: dict, cpu: dict, what: str) -> str:
+    """Whether the rows' values that see widths only (not training) equal
+    a CPU run's, as a word for the log."""
+    equal = True
+    for got, want in zip(table2_rows(out), table2_rows(cpu), strict=True):
+        for key in ("method", "widths", "params", "flops", "latency_us",
+                    "tflops"):
+            equal &= got[key] == want[key]
+            check_at_end(got[key] == want[key],
+                         f"table2 {what} {got['method']} {key}: card "
+                         f"{got[key]} != CPU {want[key]}")
+    return "equal" if equal else "NOT equal"
+
+
+SWEEPS = ("staircase_latency", "staircase_cta_latency")
+
+
+@contextlib.contextmanager
+def recorded_sweeps(ops):
+    """Records each call of the staircase kernels' wrappers (``SWEEPS``)
+    as (wrapper, args, kwargs, outputs) while the block runs."""
+    calls, real = [], {n: getattr(ops, n) for n in SWEEPS}
+
+    def spy(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return call
+    for n in SWEEPS:
+        setattr(ops, n, spy(n))
+    try:
+        yield calls
+    finally:
+        for n in SWEEPS:
+            setattr(ops, n, real[n])
+
+
+def hold_sweeps(torch, ops, calls: list, what: str) -> dict:
+    """Each recorded sweep against its fp64 plain version on the same fp32
+    inputs, as the kernels' own cases: integer outputs (waves, tiles)
+    exact, the others within rtol 1e-6. Returns its sweeps, cells and
+    largest relative error per kernel."""
+    kernel = {"staircase_latency": "staircase_fused",
+              "staircase_cta_latency": "staircase_cta"}
+    out = {}
+    for name, args, kw, got in calls:
+        ins = tuple(a.float() if a.is_floating_point() else a for a in args)
+        want = getattr(ops, name)(*ins, **kw, force="plain")
+        rel, exact = 0.0, True
+        for g, w in zip(got, want, strict=True):
+            if w.is_floating_point():
+                rel = max(rel, ((g.double() - w).abs()
+                                / w.abs().clamp_min(1e-300)).max().item())
+            else:
+                exact &= bool(torch.equal(g.long(), w.long()))
+        row = out.setdefault(kernel[name], {"sweeps": 0, "cells": 0,
+                                            "shapes": [], "max_rel_err": 0.0})
+        row["sweeps"] += 1
+        row["cells"] += args[0].numel()
+        row["shapes"].append(list(args[0].shape))
+        row["max_rel_err"] = max(row["max_rel_err"], rel)
+        check_at_end(exact, f"table2 {what} {kernel[name]} "
+                            f"{tuple(args[0].shape)}: integer outputs differ "
+                            f"from plain")
+        check_at_end(rel <= 1e-6, f"table2 {what} {kernel[name]} "
+                                  f"{tuple(args[0].shape)}: relative error "
+                                  f"{rel} > 1e-6")
+    log(f"table2 {what} Algorithm 2's sweeps against plain (waves and tiles "
+        f"exact, rtol 1e-6): " + "; ".join(
+            f"{k} {r['sweeps']} sweeps of shapes {r['shapes']}, max_rel_err "
+            f"{r['max_rel_err']:.3g}" for k, r in out.items()))
+    return out
+
+
+def table2_phase(torch, np, mods, card: str) -> dict:
+    """``launch.pruning_opt`` on the card, with the counts set to 0 just
+    before and read just after: (a) ``--hw tpu_lite`` at ``repro``'s
+    constants, its widths, params, FLOPs and modeled latency equal to a CPU
+    run's (they see widths only, so the CPU trains 1 step), HRank's scores
+    of the probe batch on the card against the CPU's; (b) the GPU form on
+    the card's spec at each of ``TABLE2_SETTINGS``, held to a CPU run on
+    the same spec as (a) is, every net timed; (c) each timed forward on
+    the kernels within ``TABLE2_TOL`` of the plain versions' largest
+    logit, 4 ``matmul_tiled`` launches a forward, every conv product on
+    TMA loads with its grid the model's B, every sweep of Algorithm 2 in
+    (a) and (b) against plain (:func:`hold_sweeps`). The measured
+    reductions are printed, not checked."""
+    po, pruning, ops = mods["pruning_opt"], mods["pruning"], mods["ops"]
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with recorded_sweeps(ops) as calls:
+        a = po.run(verbose=True, hw="tpu_lite", device="cuda", timed=False)
+    cpu = po.run(verbose=False, hw="tpu_lite", device="cpu", train_steps=1,
+                 finetune_steps=1, eval_steps=1)
+    same = table2_equal_to_cpu(a, cpu, "(a)")
+    sweeps = {"(a)": hold_sweeps(torch, ops, calls, "(a)")}
+    log(f"table2 (a) tpu_lite {card}: widths, params, FLOPs, modeled us "
+        f"{same} to the CPU's; reductions {a['reductions']['latency_us']}; "
+        f"accuracies "
+        + ", ".join(f"{r['method']} {r['acc']:.4f}" for r in
+                    table2_rows(a)))
+    differ = {}
+    for name, acts in a["acts"].items():
+        on_card = pruning.feature_map_rank_scores(acts)
+        on_cpu = pruning.feature_map_rank_scores(acts.cpu())
+        differ[name] = (int((on_card != on_cpu).sum()), len(on_card),
+                        float(np.abs(on_card - on_cpu).max()))
+    log(f"table2 (a) HRank scores, card (cuSOLVER) vs CPU on the same "
+        f"activations: (differing, of, largest difference) {differ}")
+    settings = {}
+    # the card's own spec, the same object for the card's runs and the CPU's
+    spec = po.resolve_hw(None, "cuda")
+    for batch, image in TABLE2_SETTINGS:
+        t1 = time.perf_counter()
+        with recorded_sweeps(ops) as calls:
+            out = po.run(verbose=True, hw=spec, device="cuda", batch=batch,
+                         image=image)
+        cpu = po.run(verbose=False, hw=spec, device="cpu", batch=batch,
+                     image=image, train_steps=1, finetune_steps=1,
+                     eval_steps=1)
+        what = f"({batch}, {image})"
+        same = table2_equal_to_cpu(out, cpu, what)
+        log(f"table2 {what} {card} on {spec.name}: widths, params, FLOPs, "
+            f"modeled us {same} to a CPU run's on the same spec")
+        sweeps[what] = hold_sweeps(torch, ops, calls, what)
+        for r in table2_rows(out):
+            t = r["timed"]
+            label = f"table2 {what} {r['method']}"
+            check_at_end(t["launches"] == len(r["widths"]),
+                         f"{label}: {t['launches']} matmul_tiled launches a "
+                         f"forward, not {len(r['widths'])}")
+            check_at_end(t["plain_err"] <= TABLE2_TOL,
+                         f"{label}: kernel forward {t['plain_err']:.3e} of "
+                         f"the largest logit from plain")
+            for p in t["products"]:
+                check_at_end(p["loads"] == "tma",
+                             f"{label} {p['name']}: loads {p['loads']}")
+                check_at_end(p["grid"] == p["model_blocks"],
+                             f"{label} {p['name']}: grid {p['grid']} != "
+                             f"the model's B {p['model_blocks']}")
+        red = out["reductions"]
+        settings[f"{batch}x{image}"] = {
+            "hw": out["hw"], "reductions": red,
+            "rows": [{k: r[k] for k in ("method", "widths", "latency_us",
+                                        "acc")}
+                     | {k: r["timed"][k] for k in ("us", "gemm_us",
+                                                   "conv2d_us", "plain_err",
+                                                   "conv2d_err")}
+                     | {"grids": [p["grid"] for p in r["timed"]["products"]],
+                        "products_us": [p["us"] for p in
+                                        r["timed"]["products"]]}
+                     for r in table2_rows(out)]}
+        log(f"table2 ({batch}, {image}) {card} on {out['hw']}: reductions "
+            f"of Ours, modeled / forward / conv products / F.conv2d: "
+            + "; ".join(f"{m} " + " / ".join(
+                f"{red[k][m] * 100:+.2f}%" for k in red)
+                for m in po.METHODS)
+            + f" ({time.perf_counter() - t1:.1f}s)")
+    launches = dict(ops.LAUNCHES)
+    check(all(launches[n] > 0 for n in ("matmul_tiled", "staircase_fused",
+                                        "staircase_cta")),
+          f"the Table 2 path skipped a kernel: {launches}")
+    log(f"table2 phase: {time.perf_counter() - t0:.1f}s, launches "
+        f"{launches}")
+    return {"launches": launches, "settings": settings, "hrank": differ,
+            "sweeps": sweeps}
+
+
 def serve_batched_on_card(mods) -> None:
     t0 = time.perf_counter()
     engine = mods["serve_batched_main"]([])
@@ -3124,7 +3332,9 @@ def main() -> None:
     from repro_torch.kernels import staircase_fused as sf
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.serve_batched import main as serve_batched_main
-    from repro_torch.launch import serve_continuous, serve_resilient
+    from repro_torch.launch import pruning_opt, serve_continuous, \
+        serve_resilient
+    from repro_torch.core import pruning
     from repro_torch.serving import chaos
     from repro_torch.models import recurrent
     from repro_torch.models import transformer as tfm
@@ -3141,7 +3351,8 @@ def main() -> None:
             "serve_batched_main": serve_batched_main,
             "serve_continuous": serve_continuous, "chaos": chaos,
             "serve_resilient": serve_resilient,
-            "mt": mt, "mg": mg, "autotune": autotune}
+            "mt": mt, "mg": mg, "autotune": autotune,
+            "pruning_opt": pruning_opt, "pruning": pruning}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3157,6 +3368,13 @@ def main() -> None:
         gemm_forms(mt, mg)
         tiles = tiles_phase(torch, np, mods, gen)
         print(json.dumps({"tiles": tiles}), flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
+    if "--table2" in argv:
+        # the Table 2 phase alone
+        table2 = table2_phase(torch, np, mods, card)
+        print(json.dumps({"table2": table2}), flush=True)
         if DEFERRED:
             fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
         return
@@ -3179,11 +3397,16 @@ def main() -> None:
             (4, 2048, 2560)]]
     rglru_gates_ms(torch, mods, gen)
     # qwen1.5-0.5b's and recurrentgemma-2b's MLP products at prefill
-    # (M = 4 x 128) and decode (M = 4), and a ragged one
+    # (M = 4 x 128) and decode (M = 4), and a ragged one; the Table 2
+    # convnet's conv products (K and N padded to multiples of 8): the
+    # HRank baseline's conv3 at latency batch 1 (M = 64, the decode form)
+    # and its conv1 at (32, 16) and (64, 32), and Ours' conv1 at (64, 32)
     mm = [compare_matmul(torch, mt, c, gen) for c in
           [(512, 1024, 2816), (512, 2816, 1024), (4, 1024, 2816),
            (4, 2816, 1024), (512, 2560, 7680), (512, 7680, 2560),
-           (4, 2560, 7680), (4, 7680, 2560), (100, 130, 70)]]
+           (4, 2560, 7680), (4, 7680, 2560), (100, 130, 70),
+           (64, 1904, 296), (8192, 760, 128), (65536, 760, 128),
+           (65536, 576, 64)]]
     # attention: qwen1.5-0.5b's and granite-moe-1b-a400m's prefill (the
     # main paths), ragged, GQA and local cases, and two long sequences
     # (bound by operations)
@@ -3291,6 +3514,10 @@ def main() -> None:
     small_model_vs_cpu(torch, np, mods, MOE_ARCH, n_layers=2, d_model=256,
                        n_heads=4, d_ff=512, vocab=250, n_experts=16)
     cli_on_card(mods, MOE_ARCH)
+    # the paper's Table 2 pipeline: (a) repro's configuration against the
+    # CPU, (b) the GPU form at three settings, every net timed, (c) each
+    # kernel forward against plain
+    table2 = table2_phase(torch, np, mods, card)
 
     kernels = []
     # each kernel's launches are read from the main path that runs it: the
@@ -3320,6 +3547,22 @@ def main() -> None:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "case": row["case"]})
+        if name in ("matmul_tiled", "staircase_fused", "staircase_cta"):
+            # the Table 2 path's launches: the conv products, Algorithm 2's
+            # sweeps in the TPU form (a) and the GPU form (b)
+            kernels[-1]["table2_launches"] = table2["launches"][name]
+        if name in ("staircase_fused", "staircase_cta"):
+            # Algorithm 2's sweeps on the Table 2 path, each held against
+            # plain: (a) on the TPU form, (b) on the GPU form
+            kernels[-1]["table2_sweeps"] = {
+                what: rows[name] for what, rows in table2["sweeps"].items()
+                if name in rows}
+        if name == "matmul_tiled":
+            # its cases at the Table 2 convnet's conv products
+            kernels[-1]["table2_cases"] = [
+                {k: r[k] for k in ("case", "ms", "max_abs_err", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in mm[-4:]]
         if name in ("matmul_tiled", "moe_gmm"):
             # a sub-row per tile at each main-path prefill shape (the
             # tiles phase), and the tiles one cached prefill replay of the

@@ -19,6 +19,7 @@ from repro_torch.core.tail_optimizer import (
 from repro_torch.core.table_cache import ProfileTableCache, \
     hardware_fingerprint
 from repro_torch.core.plan_address import ModuleRef, plan_key, snap_heads
+from repro_torch.core import pruning
 
 __all__ = [
     "HardwareSpec", "TPU_V5E", "TPU_V4", "TPU_V5P", "TPU_LITE", "H100_SXM",

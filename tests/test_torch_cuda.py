@@ -1302,3 +1302,70 @@ def test_small_fleet_equals_the_cpu_run(gen, hedge, crash_at):
     assert any(w < cfg.d_ff for plans in runs["cuda"][5] for p in plans
                for _, w in p) == (hedge == 1)
     assert bool(runs["cuda"][2]) == (crash_at is not None)
+
+
+# ---------------------------------------------------------------------------
+# the paper's Table 2 convnet: its conv products on matmul_tiled
+# ---------------------------------------------------------------------------
+TABLE2_NETS = [(128, 192, 320, 448), (84, 127, 211, 296),
+               (64, 64, 211, 296), (64, 64, 192, 256)]
+
+
+@pytest.mark.parametrize("batch,image", [(1, 16), (32, 16), (64, 32)])
+@pytest.mark.parametrize("widths", TABLE2_NETS)
+def test_convnet_forward_on_the_kernel(gen, batch, image, widths):
+    """The bf16 forward with its conv products on ``matmul_tiled`` against
+    the same forward on the plain versions (within 4e-2 of the largest
+    logit); 4 launches a forward; every product, the baseline's unaligned
+    widths included, on TMA loads with its grid the B that
+    ``CtaWaveModel`` prices on the card's spec."""
+    from repro_torch.core.gpu import GpuSpec
+    from repro_torch.core.tail_model import CtaWaveModel
+    from repro_torch.models import convnet as cn
+    params = cn.init_convnet(gen, widths, image=image)
+    x = torch.randn(batch, image, image, 3, generator=gen,
+                    device="cuda").bfloat16()
+    model = CtaWaveModel(GpuSpec.from_device("cuda"))
+    with torch.no_grad():
+        loads = []
+        before = ops.LAUNCHES["matmul_tiled"]
+        got, _ = cn.forward_convnet(params, x, loads=loads)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["matmul_tiled"] == before + len(widths)
+        want, _ = cn.forward_convnet(params, x, force="plain")
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 4e-2 * scale
+    assert loads == ["tma"] * len(widths)
+    shapes = cn.conv_layer_shapes(widths, batch=batch, image=image)
+    for s, wm in zip(shapes, cn.conv_operands(params, torch.bfloat16)):
+        k, n = wm.shape
+        assert k % 8 == 0 and n % 8 == 0
+        assert mt.grid_blocks(s.tokens, n, k) == model.blocks(s)
+
+
+def test_convnet_kernel_route_refuses_grad(gen):
+    from repro_torch.models import convnet as cn
+    kern = torch.randn(3, 3, 3, 8, generator=gen, device="cuda",
+                       requires_grad=True)
+    x = torch.randn(1, 8, 8, 3, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        cn.conv3x3(x, kern)
+
+
+def test_hrank_scores_card_vs_cpu(gen):
+    """HRank's ranks from cuSOLVER against the CPU's on one batch of ReLU
+    maps: a map's count differs only where a singular value lies within a
+    factor 2 of the threshold."""
+    from repro_torch.core import pruning
+    acts = torch.relu(torch.randn(8, 8, 8, 64, generator=gen,
+                                  device="cuda"))
+    acts[..., :4] = 1.0
+    on_card = pruning.feature_map_rank_scores(acts)
+    on_cpu = pruning.feature_map_rank_scores(acts.cpu())
+    b, h, w, c = acts.shape
+    sv = torch.linalg.svdvals(acts.cpu().permute(0, 3, 1, 2).reshape(
+        b * c, h, w))
+    th = sv[:, :1] * max(h, w) * torch.finfo(torch.float32).eps
+    near = ((sv > th / 2) & (sv < th * 2)).any(-1).reshape(b, c).sum(0)
+    assert (np.abs(on_card - on_cpu) <= near.numpy() / b).all()
+    assert on_card[:4].max() < on_card[4:].min()

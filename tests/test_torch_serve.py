@@ -352,7 +352,9 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.kernels.moe_gmm', 'repro_torch.kernels.autotune',"
         " 'repro_torch.serving.degradation', 'repro_torch.serving.hedging',"
         " 'repro_torch.serving.router',"
-        " 'repro_torch.launch.serve_resilient'}\n"
+        " 'repro_torch.launch.serve_resilient',"
+        " 'repro_torch.models.convnet', 'repro_torch.core.pruning',"
+        " 'repro_torch.launch.pruning_opt'}\n"
         "sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
