@@ -75,16 +75,20 @@ the target) and ``nvcc``:
    counts set to 0 just before and read just after: the eager engine's
    tokens, exact counts, one decode step's logits bit-equal, no miss,
    fallback or capture while serving, and the port's kernels that one
-   replay of each step runs on the device (``torch.profiler``) equal to
-   the launches the cache adds for it; then the cached and eager steps'
+   replay of each step launches (the kernel nodes of its CUDA graph, read
+   from the graph's DOT dump in ``build/graphs``) equal to the launches
+   the cache adds for it; then the cached and eager steps'
    wall and device ms, tokens/s of both in alternating bursts, capture
    seconds and peak memory, the graphs freed before the next family (the
    caches have ``hw=H100_SXM``, so their GEMMs take the autotuner's
-   tiles, read from each replay's device trace); for qwen also a cached
+   tiles, read from each graph's kernel nodes); for qwen also a cached
    A/B of the same batch through a step cache with ``hw=None`` (default
    tiles) and one with ``hw=H100_SXM`` (autotuned): tokens equal to the
    eager engine's, prefill and decode replay device ms, the tiles each
-   replay's GEMMs took and tokens/s in alternating bursts;
+   replay's GEMMs took and tokens/s in alternating bursts; and, a reading,
+   the cached replays' device ms with the graphs kept for their DOT dump
+   (as the checks capture them) against graphs captured as the port
+   captures them;
 5. the planner path, with the counts set to 0 just before and read just
    after: plans two traffic classes for qwen1.5-0.5b on ``H100_SXM`` in
    the GPU form (one CTA-wave sweep each; widths, CTAs and modeled waves
@@ -147,7 +151,26 @@ the target) and ``nvcc``:
    CPU, at rung 0 and at rung 1 of one ladder (the narrowed replays);
    ledgers, virtual p50 / p99 / p99.9, wall seconds, decode replay ms,
    capture seconds, peak memory;
-7. the paper's Table 2 (``launch.pruning_opt``, after the MoE family),
+7. M-RoPE and the encoder-decoder (after the MoE family): full-width
+   qwen2-vl-7b (28 layers, GQA 28 on 4, random weights from seed 0) served
+   on text through ``ServeEngine`` and the step cache as the families
+   above are, its prefill logits within 4e-2 of plain; then through the
+   model API, with the counts set to 0 just before and read just after, a
+   (4, 128) prompt opening with an 8 x 8 vision grid (t = 0, h = i // 8,
+   w = i % 8; text after it at max + 1 on all three axes) prefilled and 8
+   greedy decode steps at (4, 1, 3) positions, each step's logits within
+   4e-2 of the plain route's (teacher-forced) and its tokens equal up to
+   a near tie; full-width seamless-m4t-medium (12 encoder and 12 decoder
+   layers) on 150 encoder frames and 4 x 32-token prompts, prefilled (the
+   flash kernel's unmasked form for the encoder and the cross-attention),
+   its self caches grown, 16 greedy decode steps, with the counts set to 0
+   just before and read just after, held to the plain route the same way,
+   then its prefill's and decode step's wall and device ms and peak
+   memory; both reduced (head dim 64) on the card against the CPU, with
+   grid positions and encoder frames; and their kernel shapes (qwen2-vl's
+   MLP products at K or N = 18944, seamless's at d_ff 4096, the GQA-7
+   causal and the unmasked attentions) held against plain and timed;
+8. the paper's Table 2 (``launch.pruning_opt``, after the families),
    with the counts set to 0 just before and read just after: (a)
    ``--hw tpu_lite`` at ``repro``'s constants (150 train and 80
    finetune steps, batch 32, image 16), its widths, params, FLOPs and
@@ -167,7 +190,7 @@ the target) and ``nvcc``:
    ``staircase_cta`` (b) held against its fp64 plain version on the same
    inputs (waves and tiles exact, rtol 1e-6); the measured reductions of
    Ours are printed, not checked;
-8. prints one JSON line with every kernel's numbers, then, last,
+9. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --parent SRC
@@ -192,6 +215,11 @@ per-tile Fig. 5 sweeps), prints them as one JSON line, and no result line.
 runs only the Table 2 phase and prints it as one JSON line, and no
 result line.
 
+    python3 chip_smoke.py --families
+
+runs only phase 7 and its kernel shapes and prints them as one JSON line,
+and no result line.
+
     python3 chip_smoke.py --host-us [SRC]
 
 measures only the GEMM wrappers' host us per call, of the package under
@@ -215,6 +243,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+GRAPH_DUMPS = ROOT / "build" / "graphs"   # the step cache's graphs as DOT
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -223,6 +252,17 @@ L2_BYTES = 50e6
 ARCH = "qwen1.5-0.5b"
 RECURRENT_ARCHS = ("recurrentgemma-2b", "rwkv6-1.6b")
 MOE_ARCH = "granite-moe-1b-a400m"
+# the families phase: qwen2-vl-7b (M-RoPE) served on text and run with a
+# vision grid of VL_GRID x VL_GRID patches opening a (4, 128) prompt, then
+# VL_DECODE steps; seamless-m4t-medium (encoder-decoder) on ENC_FRAMES
+# encoder frames and ENC_PROMPT-token prompts, its self caches grown by
+# NEW_TOKENS rows; logits held to the plain route within FAMILY_TOL of the
+# largest (the bf16 pair of tests/test_kernels.py:23)
+VL_ARCH = "qwen2-vl-7b"
+ENCDEC_ARCH = "seamless-m4t-medium"
+VL_GRID, VL_DECODE = 8, 8
+ENC_FRAMES, ENC_PROMPT = 150, 32
+FAMILY_TOL = 4e-2
 PROMPT_LENS = (128, 97, 64, 33)   # prefill M = 4 x 128 = 512
 NEW_TOKENS = 16
 SEED = 0
@@ -270,6 +310,9 @@ AB_ROUNDS = 6
 # bursts per side when the cached path's tokens/s is held against the
 # eager engine's, alternating which side goes first
 CACHED_ROUNDS = 5
+# rounds of replay timings, per side, when graphs kept for their DOT dump
+# are held against graphs captured as the port captures them
+KEPT_ROUNDS = 5
 # the continuous phase: 8 greedy requests whose slots free at different
 # steps, so that the last four join in flight; 4 slots, max_len 512; (b)'s
 # chunks and step token budget; logits and tokens held to the solo run
@@ -387,28 +430,62 @@ def stream_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(torch, fn) -> "tuple[str, dict]":
-    """The kernels (memcpy and memset included) one call of ``fn`` runs
-    on the device, read from ``torch.profiler``: a summary (their number
-    and summed device ms, or the profiler's error where it reads
-    nothing) and {name: (count, device us)}."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+@contextlib.contextmanager
+def kept_graphs(torch):
+    """Inside the block, every CUDA graph made keeps its cudaGraph_t after
+    capture (``keep_graph=True``, instantiated at the capture's end as
+    without it), so that ``graph_kernels`` can list its kernel nodes; the
+    class is restored on leaving, so only the step caches whose nodes a
+    check reads are captured so."""
+    base = torch.cuda.CUDAGraph
+
+    class Kept(base):
+        keeps_graph = True
+
+        def __new__(cls, keep_graph: bool = True):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph: bool = True):
+            # the bound C++ class takes keep_graph in its __init__
+            super().__init__(True)
+            self.enable_debug_mode()
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+    torch.cuda.CUDAGraph = Kept
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name = {e.key: (e.count, e.device_time_total)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA}
-    except Exception as e:  # noqa: BLE001 — a reading, not a check
-        return f"not measured ({type(e).__name__}: {e})", {}
-    n = sum(c for c, _ in by_name.values())
-    if not n:
-        return "not measured (the profiler saw no device activity)", {}
-    us = sum(t for _, t in by_name.values())
-    return f"{n} kernels, {us / 1e3:.3f} device ms summed", by_name
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
+    """The kernel nodes of a captured CUDA graph (kept by ``kept_graphs``),
+    read from its DOT dump (``cudaGraphDebugDotPrint``, verbose, written
+    to ``path``): (their number, {port kernel trace name: nodes that
+    launch it}, the GEMM nodes by tile as ``gemm_tiles`` names them). A
+    replay launches every node once, so this is what one replay runs,
+    whatever a profiler records of it."""
+    import re
+    import warnings
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # its "DEBUG: calling ..." notes
+        graph.debug_dump(str(path))
+    text = path.read_text()
+    nodes = re.split(r'(?m)^\s*"?graph_\d+_node_\d+"?\s*\[', text)[1:]
+    kernels = [n for n in nodes if 'label="{KERNEL' in n]
+    tiles: dict = {}
+    for n in kernels:
+        hit = re.search(r"gemm_kernelILi(\d+)ELb([01])E", n)
+        if hit:
+            key = (f"{'prefill' if hit.group(2) == '1' else 'decode'} "
+                   f"{hit.group(1)}x64")
+            tiles[key] = tiles.get(key, 0) + 1
+    return len(kernels), {name: sum(name in n for n in kernels)
+                          for name in sorted(set(TRACE_NAMES.values()))}, \
+        dict(sorted(tiles.items()))
 
 
 # each port kernel's name in a device trace: the two GEMM wrappers launch
@@ -417,12 +494,6 @@ def device_kernels(torch, fn) -> "tuple[str, dict]":
 TRACE_NAMES = {"matmul_tiled": "gemm_sm90", "moe_gmm": "gemm_sm90",
                "flash_attention": "flash_attention_kernel",
                "rglru_scan": "rglru_scan_kernel", "rwkv6": "rwkv6_kernel"}
-
-
-def traced_launches(by_name: dict) -> dict:
-    """{trace name: kernels of that name} in ``device_kernels``' table."""
-    return {n: sum(c for k, (c, _) in by_name.items() if n in k)
-            for n in sorted(set(TRACE_NAMES.values()))}
 
 
 def traced_expected(launches: dict) -> dict:
@@ -798,26 +869,35 @@ def requests(cfg, Request, np):
             for n in PROMPT_LENS]
 
 
-def expected_launches(tfm, cfg) -> dict:
-    """Launches of one served batch (a prefill and NEW_TOKENS - 1 decode
-    steps): in every forward, 3 MLP products per layer with a dense MLP
-    and 3 grouped expert products per MoE layer (gate, up, down over every
-    expert: the dense strategy); one flash attention per global layer, one
-    RG-LRU scan per rglru layer and one RWKV6 pass per rwkv layer, in the
-    prefill only (decode runs the single-step forms, as ``repro`` does).
-    Local attention is plain torch, as ``repro`` computes it outside
-    Pallas."""
+def expected_launches(tfm, cfg, forwards: int = NEW_TOKENS) -> dict:
+    """Launches of one prefill and ``forwards - 1`` decode steps (a served
+    batch by default): in every forward, 3 MLP products per decoder layer
+    with a dense gated MLP (2 with a GeLU one) and 3 grouped expert
+    products per MoE layer (gate, up, down over every expert: the dense
+    strategy); one flash attention per global layer, one RG-LRU scan per
+    rglru layer and one RWKV6 pass per rwkv layer, in the prefill only
+    (decode runs the single-step forms, as ``repro`` does). An
+    encoder-decoder's prefill also runs its encoder (the MLP products and
+    one unmasked flash attention per layer) and one unmasked flash
+    cross-attention per decoder layer; decode reads the cached encoder K/V
+    in plain torch. Local attention is plain torch, as ``repro`` computes
+    it outside Pallas."""
     kinds = cfg.layer_kinds()
     mlps = [m for _, m in tfm.layer_plan(cfg)]
-    return {"matmul_tiled": 3 * mlps.count("dense") * NEW_TOKENS,
-            "flash_attention": kinds.count("attn"), "staircase_fused": 0,
-            "staircase_cta": 0, "rglru_scan": kinds.count("rglru"),
-            "rwkv6": kinds.count("rwkv"),
-            "moe_gmm": 3 * mlps.count("moe") * NEW_TOKENS}
+    per_mlp = 3 if cfg.mlp_gated else 2
+    enc = cfg.encoder_layers
+    return {"matmul_tiled": per_mlp * (mlps.count("dense") * forwards + enc),
+            "flash_attention": kinds.count("attn") * (2 if enc else 1) + enc,
+            "staircase_fused": 0, "staircase_cta": 0,
+            "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
+            "moe_gmm": 3 * mlps.count("moe") * forwards}
 
 
-def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
-    """A main path: full-width ``arch`` through ServeEngine."""
+def serve_full_width(torch, np, mods, arch: str = ARCH, then=None,
+                     logit_tol: float = 0.05) -> dict:
+    """A main path: full-width ``arch`` through ServeEngine; ``then``, if
+    given, is called with the engine before it is freed and its result
+    returned under "then"."""
     cfg = mods["configs"].get_config(arch)
     tfm, Request, ServeEngine = mods["tfm"], mods["Request"], \
         mods["ServeEngine"]
@@ -903,15 +983,17 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
           "prefill logits not finite or of the wrong shape")
     err = (got - want_l).abs().max().item()
     scale = want_l.abs().max().item()
-    # 24-26 layers of bf16 activations: the two paths differ by bf16 steps
+    # 24-28 layers of bf16 activations: the two paths differ by bf16 steps
     # (P rounded to bf16 inside the attention kernel, matmul and recurrence
     # sums in another order) that the residual stream carries; allow 5% of
-    # the largest logit. Not for rwkv6 at random weights: two plain
-    # forwards whose RWKV6 sums in fp32 in other orders (chunk 32 and 16)
-    # are already 4.5 % apart there, so its per-layer check above decides.
-    # granite's dense experts hold to it; their floor (order_floor, logged)
-    # read 3.3 % on the H100, from flipped near-tied top-8 choices
-    tol = 0.05 * scale
+    # the largest logit (``logit_tol``; 4 % for the families phase, the
+    # bf16 pair of tests/test_kernels.py:23). Not for rwkv6 at random
+    # weights: two plain forwards whose RWKV6 sums in fp32 in other orders
+    # (chunk 32 and 16) are already 4.5 % apart there, so its per-layer
+    # check above decides. granite's dense experts hold to it; their floor
+    # (order_floor, logged) read 3.3 % on the H100, from flipped near-tied
+    # top-8 choices
+    tol = logit_tol * scale
     agree = (got.argmax(-1) == want_l.argmax(-1)).float().mean().item()
     if cfg.moe:
         floor = order_floor(torch, mods, engine.params, cfg, toks, "auto")
@@ -945,17 +1027,28 @@ def serve_full_width(torch, np, mods, arch: str = ARCH) -> dict:
             log(f"{arch} {name}: wall {wall:.3f} ms, device {dev:.3f} ms, "
                 f"device idle {100 * (1 - dev / wall):.1f}% of the wall time")
     del st
+    # each of the next three frees step caches whose engines hold them in
+    # a reference cycle; a kept graph collected later, during another
+    # capture, would invalidate that capture, so collect them here
     cached = serve_cached(torch, np, mods, engine, arch, second, toks, split)
+    gc.collect()
     torch.cuda.empty_cache()
     tiles_ab = cached_tiles_ab(torch, np, mods, engine, second,
                                mods["card"]) if arch == ARCH else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = kept_vs_plain(torch, mods, engine) if arch == ARCH else None
+    gc.collect()
     torch.cuda.empty_cache()
     if cfg.moe:
         capacity_prefill(torch, mods, engine.params, cfg, toks)
+    after = None if then is None else then(engine)
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "tok_s": n_new / warm_s, "split": split,
-            "cached": cached, "tiles_ab": tiles_ab}
+            "cached": cached, "tiles_ab": tiles_ab, "kept": kept,
+            "then": after}
 
 
 def serve_cached(torch, np, mods, engine, arch: str, eager_out, toks,
@@ -978,7 +1071,8 @@ def serve_cached(torch, np, mods, engine, arch: str, eager_out, toks,
                             batch_slots=engine.slots, rng_seed=SEED,
                             device="cuda", compile_cache=cache)
     b, plen = len(PROMPT_LENS), max(PROMPT_LENS)
-    n = cached.warm_compile([], [(b, plen)])
+    with kept_graphs(torch):
+        n = cached.warm_compile([], [(b, plen)])
     capture_s = {e.kind: e.wall_s for e in cache.events
                  if e.outcome == "compiled"}
     check(n == 2 and sorted(capture_s) == ["decode", "prefill"],
@@ -1029,23 +1123,20 @@ def serve_cached(torch, np, mods, engine, arch: str, eager_out, toks,
             f"ms, device idle {100 * (1 - dev / wall):.1f}% of the wall "
             f"time; eager: wall {e_wall:.3f} ms, device {e_dev:.3f} ms "
             f"(cached device {100 * (dev / e_dev - 1):+.2f}%)")
-    # the launches a replay adds, held against the kernels the device ran
-    # in one replay of each entry (torch.profiler)
+    # the launches a replay adds, held against the kernel nodes of each
+    # entry's graph (a replay launches every node once)
     entries = {k[1]: e for k, e in cache._exec.items()}
     tiles = {}
-    with torch.inference_mode():
-        for kind, fn in (("prefill", steps["prefill"]),
-                         ("decode", steps["decode step"])):
-            summary, by_name = device_kernels(torch, fn)
-            traced = traced_launches(by_name)
-            recorded = traced_expected(entries[kind].launches)
-            tiles[kind] = gemm_tiles(by_name)
-            check(traced == recorded, f"{arch} cached {kind}: one replay "
-                  f"ran {traced} port kernels on the device ({summary}), "
-                  f"the entry adds {recorded}")
-            log(f"{arch} cached {kind}: one replay ran {traced} port "
-                f"kernels on the device, as the entry counts ({summary}); "
-                f"GEMM tiles (the autotuner's, hw=H100_SXM) {tiles[kind]}")
+    for kind in ("prefill", "decode"):
+        n_nodes, in_graph, tiles[kind] = graph_kernels(
+            entries[kind].graph, GRAPH_DUMPS / f"{arch}-{kind}.dot")
+        recorded = traced_expected(entries[kind].launches)
+        check(in_graph == recorded, f"{arch} cached {kind}: the graph "
+              f"launches {in_graph} port kernels ({n_nodes} kernel nodes), "
+              f"the entry adds {recorded}")
+        log(f"{arch} cached {kind}: the graph's {n_nodes} kernel nodes "
+            f"launch {in_graph} port kernels, as the entry counts; GEMM "
+            f"tiles (the autotuner's, hw=H100_SXM) {tiles[kind]}")
     reqs = requests(cfg, mods["Request"], np)
     tok_s = {"eager": [], "cached": []}
     engines = {"eager": engine, "cached": cached}
@@ -1184,20 +1275,23 @@ def capacity_prefill(torch, mods, params, cfg, toks) -> None:
 
 
 def small_model_vs_cpu(torch, np, mods, arch: str = ARCH,
-                       seq: int = 37, **reduce) -> None:
+                       seq: int = 37, inputs=None, **reduce) -> None:
     """A small model served on the card must agree with the same weights
-    on the CPU's plain path."""
+    on the CPU's plain path; ``inputs(cfg, rng)``, if given, adds forward's
+    other inputs (CPU tensors: M-RoPE positions, encoder frames)."""
     c = mods["configs"]
     tfm = mods["tfm"]
     cfg = c.reduced_config(c.get_config(arch), **reduce)
     params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED))
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, seq)))
+    extra = {} if inputs is None else inputs(cfg, rng)
     with torch.inference_mode():
         cpu, _ = tfm.forward(tfm.cast_params(params, "cpu"), cfg,
-                             tokens=toks, mode="prefill")
+                             tokens=toks, mode="prefill", **extra)
         gpu, _ = tfm.forward(tfm.cast_params(params, "cuda"), cfg,
-                             tokens=toks.cuda(), mode="prefill")
+                             tokens=toks.cuda(), mode="prefill",
+                             **{k: v.cuda() for k, v in extra.items()})
     v = cfg.vocab_size
     gpu, cpu = gpu[..., :v].float().cpu(), cpu[..., :v].float()
     err = (gpu - cpu).abs().max().item()
@@ -1206,6 +1300,276 @@ def small_model_vs_cpu(torch, np, mods, arch: str = ARCH,
         f"max_abs_err {err:.4g} tol {tol:.4g}")
     check(bool(torch.isfinite(gpu).all()) and err <= tol,
           f"small model on the card differs from the CPU by {err}")
+
+
+def grid_positions(np, b: int, s: int, grid: int = VL_GRID):
+    """(B, S, 3) M-RoPE positions of prompts that open with a ``grid x
+    grid`` image: patch i at t = 0, h = i // grid, w = i % grid; the text
+    after it at max + 1 onward on all three axes (Qwen2-VL's layout)."""
+    i = np.arange(s)
+    n = grid * grid
+    text = grid + i - n
+    pos = np.stack([np.where(i < n, 0, text), np.where(i < n, i // grid, text),
+                    np.where(i < n, i % grid, text)], axis=-1)
+    return np.broadcast_to(pos, (b, s, 3)).astype(np.int64).copy()
+
+
+def held_steps(torch, np, name: str, kernel: list, plain: list,
+               tokens) -> int:
+    """Each step's logits on the kernels (``kernel``) against the plain
+    route's on the same inputs (``plain``, teacher-forced on the kernel
+    route's tokens, so both see one history) within FAMILY_TOL of the
+    largest; ``tokens`` (the kernel route's greedy choices, (B, steps))
+    equal the plain route's argmax at every step whose plain top-2 margin
+    exceeds twice that row's measured difference between the two routes
+    (only a margin that small lets the two argmaxes part: at full width
+    with random weights, margins within twice the tolerance are the rule).
+    Returns the tokens compared."""
+    compared = 0
+    for t, (k, p) in enumerate(zip(kernel, plain)):
+        k, p = k.float(), p.float()
+        check(bool(torch.isfinite(k).all()) and k.shape == p.shape,
+              f"{name} step {t}: logits not finite or of the wrong shape")
+        scale = p.abs().max().item()
+        err = (k - p).abs().max().item()
+        check(err <= FAMILY_TOL * scale, f"{name} step {t}: logits on the "
+              f"kernels differ from plain by {err} > "
+              f"{FAMILY_TOL * scale}")
+        top2 = p.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        row_err = (k - p).abs().amax(-1).cpu().numpy()
+        want = p.argmax(-1).cpu().numpy()
+        for i in range(len(want)):
+            if margin[i] <= 2 * row_err[i]:
+                continue
+            check(int(tokens[i, t]) == int(want[i]), f"{name} step {t} row "
+                  f"{i}: token {int(tokens[i, t])} on the kernels, "
+                  f"{int(want[i])} plain, margin {margin[i]:.4g}, "
+                  f"difference {row_err[i]:.4g}")
+            compared += 1
+    return compared
+
+
+def mrope_model_api(torch, np, mods, engine) -> dict:
+    """qwen2-vl-7b through the model API with M-RoPE positions whose axes
+    differ: a (4, 128) prompt opening with a VL_GRID x VL_GRID vision grid,
+    prefilled, then VL_DECODE greedy decode steps at (4, 1, 3) text
+    positions, with the launch counts set to 0 just before and read just
+    after; the same steps on the plain route, teacher-forced, held to it."""
+    tfm, ops = mods["tfm"], mods["ops"]
+    cfg, params = engine.cfg, engine.params
+    b, s = len(PROMPT_LENS), max(PROMPT_LENS)
+    rng = np.random.default_rng(SEED + 1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))
+                            ).cuda()
+    pos3 = torch.from_numpy(grid_positions(np, b, s + VL_DECODE)).cuda()
+
+    def run(force, feed=None):
+        with torch.inference_mode():
+            logits, st = tfm.forward(params, cfg, tokens=toks,
+                                     positions=pos3[:, :s], mode="prefill",
+                                     force=force)
+            st = engine._ensure_states(st)
+            steps, cur = [logits[:, -1, :cfg.vocab_size]], []
+            for t in range(VL_DECODE):
+                cur.append(steps[-1].argmax(-1) if feed is None
+                           else feed[:, t])
+                lg, st = tfm.decode_step(params, cfg, cur[-1], s + t, st,
+                                         force=force,
+                                         positions=pos3[:, s + t:s + t + 1])
+                steps.append(lg[:, :cfg.vocab_size])
+            cur.append(steps[-1].argmax(-1))
+        return steps, torch.stack(cur, dim=1)
+
+    ops.reset_launches()
+    k_steps, k_toks = run(None)
+    launches = dict(ops.LAUNCHES)
+    want = expected_launches(tfm, cfg, forwards=1 + VL_DECODE)
+    check(launches == want, f"{cfg.name} M-RoPE model API: launches "
+          f"{launches} != {want}")
+    p_steps, _ = run("plain", feed=k_toks)
+    compared = held_steps(torch, np, f"{cfg.name} M-RoPE", k_steps, p_steps,
+                          k_toks.cpu().numpy())
+    with torch.inference_mode():
+        flat, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill")
+    moved = (flat[:, -1, :cfg.vocab_size].float()
+             - k_steps[0].float()).abs().max().item()
+    check(moved > 0, f"{cfg.name}: the grid positions left the logits as "
+          f"equal axes leave them")
+    err = max((k.float() - p.float()).abs().max().item()
+              for k, p in zip(k_steps, p_steps))
+    log(f"{cfg.name} M-RoPE model API: ({b}, {s}) prompt opening with a "
+        f"{VL_GRID}x{VL_GRID} grid (text from position {VL_GRID}), "
+        f"{VL_DECODE} decode steps at (B, 1, 3) positions; launches "
+        f"{launches} (expected); logits vs plain max_abs_err {err:.4g} (tol "
+        f"{FAMILY_TOL} of the largest each step); {compared} of "
+        f"{b * (VL_DECODE + 1)} tokens clear of a near tie, all equal; the "
+        f"grid moved the last logits by {moved:.4g} "
+        f"from equal axes")
+    return {"launches": launches, "max_abs_err": err, "compared": compared}
+
+
+def encdec_full_width(torch, np, mods) -> dict:
+    """seamless-m4t-medium at full width through the model API (``repro``
+    serves it through no engine): ENC_FRAMES encoder frames (standard
+    normal x 0.02, as ``repro``'s data stub makes them) and ENC_PROMPT-token
+    prompts, a prefill, the self caches grown by NEW_TOKENS rows, NEW_TOKENS
+    greedy decode steps, with the launch counts set to 0 just before and
+    read just after; the plain route, teacher-forced, held to it; then the
+    wall and device ms of a prefill and a decode step and the peak
+    memory."""
+    tfm, ops = mods["tfm"], mods["ops"]
+    cfg = mods["configs"].get_config(ENCDEC_ARCH)
+    gc.collect()        # the previous family's engines hold cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tfm.cast_params(tfm.init_params(cfg, gen, "cuda"), "cuda")
+    torch.cuda.empty_cache()
+    b = len(PROMPT_LENS)
+    rng = np.random.default_rng(SEED)
+    src = torch.from_numpy((rng.standard_normal(
+        (b, ENC_FRAMES, cfg.d_model)) * 0.02).astype(np.float32)).cuda()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         size=(b, ENC_PROMPT))).cuda()
+    max_len = ENC_PROMPT + NEW_TOKENS
+
+    def grow(st):
+        return {g: {k: {n: torch.nn.functional.pad(
+            t, (0, 0, 0, 0, 0, max_len - t.shape[-3]))
+            if n in ("k", "v") else t for n, t in d.items()}
+            for k, d in sub.items()} for g, sub in st.items()}
+
+    def run(force, feed=None):
+        with torch.inference_mode():
+            logits, st = tfm.forward(params, cfg, tokens=toks, src_embeds=src,
+                                     mode="prefill", force=force)
+            st = grow(st)
+            steps, cur = [logits[:, -1, :cfg.vocab_size]], []
+            for t in range(NEW_TOKENS):
+                cur.append(steps[-1].argmax(-1) if feed is None
+                           else feed[:, t])
+                lg, st = tfm.decode_step(params, cfg, cur[-1],
+                                         ENC_PROMPT + t, st, force=force)
+                steps.append(lg[:, :cfg.vocab_size])
+            cur.append(steps[-1].argmax(-1))
+        return steps, torch.stack(cur, dim=1), st
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    k_steps, k_toks, st = run(None)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = expected_launches(tfm, cfg, forwards=1 + NEW_TOKENS)
+    log(f"{cfg.name}: {cfg.encoder_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}; "
+        f"{tfm.count_params_analytic(cfg) / 1e9:.3f} B params; prefill of "
+        f"{b} x {ENC_PROMPT} tokens on {ENC_FRAMES} frames and {NEW_TOKENS} "
+        f"decode steps: launches {launches} (expected {want}); first run "
+        f"{first_s:.3f}s")
+    check(launches == want, f"{cfg.name}: launch counts {launches} != "
+          f"{want}")
+    check(all(int(x) == ENC_FRAMES for x in st["stack"]["u0"]["clen"]),
+          f"{cfg.name}: clen {st['stack']['u0']['clen'].tolist()}")
+    p_steps, _, _ = run("plain", feed=k_toks)
+    compared = held_steps(torch, np, cfg.name, k_steps, p_steps,
+                          k_toks.cpu().numpy())
+    err = max((k.float() - p.float()).abs().max().item()
+              for k, p in zip(k_steps, p_steps))
+    log(f"{cfg.name} kernels vs plain: logits max_abs_err {err:.4g} over "
+        f"{len(k_steps)} steps (tol {FAMILY_TOL} of the largest each step); "
+        f"{compared} of {b * len(k_steps)} tokens clear of a near tie, all "
+        f"equal; tokens of row 0: "
+        f"{k_toks[0].tolist()}")
+    del p_steps
+
+    split = {}
+    cur = k_toks[:, 0]
+    with torch.inference_mode():
+        steps = {"prefill": lambda: tfm.forward(params, cfg, tokens=toks,
+                                                src_embeds=src,
+                                                mode="prefill"),
+                 "decode step": lambda: tfm.decode_step(
+                     params, cfg, cur, ENC_PROMPT, st)}
+        for name, fn in steps.items():
+            wall, dev = wall_ms(torch, fn), time_ms(torch, fn, (), reps=8)
+            split[name] = (wall, dev)
+            log(f"{cfg.name} {name}: wall {wall:.3f} ms, device {dev:.3f} "
+                f"ms, device idle {100 * (1 - dev / wall):.1f}% of the wall "
+                f"time")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{cfg.name}: peak memory {peak / 2**30:.3f} GiB")
+    del params, st, steps, k_steps
+    torch.cuda.empty_cache()
+    return {"launches": launches, "split": split, "peak_bytes": peak,
+            "max_abs_err": err, "compared": compared}
+
+
+# the families phase's kernel shapes: qwen2-vl-7b's MLP products at prefill
+# (M = 4 x 128) and decode (M = 4), seamless's encoder products (M = 4 x
+# 150 frames), its decoder's prefill products (M = 4 x 32) and decode
+# products; qwen2-vl's prefill attention (GQA 28 on
+# 4, a group of 7), seamless's encoder self-attention and cross-attention
+# (unmasked, 150 frames) and its decoder's causal prefill
+FAMILY_MATMULS = ((512, 3584, 18944), (512, 18944, 3584), (4, 3584, 18944),
+                  (4, 18944, 3584), (600, 1024, 4096), (600, 4096, 1024),
+                  (128, 1024, 4096), (128, 4096, 1024), (4, 1024, 4096),
+                  (4, 4096, 1024))
+FAMILY_FLASH = ((4, 128, 128, 28, 4, 128, "causal", 0),
+                (4, 150, 150, 16, 16, 64, "none", 0),
+                (4, 32, 150, 16, 16, 64, "none", 0),
+                (4, 128, 150, 16, 16, 64, "none", 0),
+                (4, 32, 32, 16, 16, 64, "causal", 0))
+
+
+def family_rows(fam: dict, mm_new: list, fl_new: list) -> dict:
+    """Per kernel: its launches on each family's runs (the served batch,
+    the M-RoPE model API run, the encoder-decoder's prefill and decode)
+    and its cases at the families' shapes."""
+    keys = ("case", "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    vl, ed = fam[VL_ARCH], fam[ENCDEC_ARCH]
+    return {name: {"launches": {
+        f"{VL_ARCH} served": vl["launches"][name],
+        f"{VL_ARCH} M-RoPE": vl["then"]["launches"][name],
+        ENCDEC_ARCH: ed["launches"][name]},
+        "cases": [{k: r[k] for k in keys} for r in rows]}
+        for name, rows in (("matmul_tiled", mm_new),
+                           ("flash_attention", fl_new))}
+
+
+def family_kernel_cases(torch, mt, fa, gen) -> tuple:
+    return ([compare_matmul(torch, mt, c, gen) for c in FAMILY_MATMULS],
+            [compare_flash(torch, fa, c, gen) for c in FAMILY_FLASH])
+
+
+def families_phase(torch, np, mods) -> dict:
+    """qwen2-vl-7b (M-RoPE) and seamless-m4t-medium (encoder-decoder) at
+    full width, then both reduced on the card against the CPU; each model
+    freed before the next."""
+    t_phase = time.perf_counter()
+    vl = serve_full_width(
+        torch, np, mods, VL_ARCH, logit_tol=FAMILY_TOL,
+        then=lambda engine: mrope_model_api(torch, np, mods, engine))
+    ed = encdec_full_width(torch, np, mods)
+
+    def vl_inputs(cfg, rng):
+        return {"positions": torch.from_numpy(grid_positions(np, 3, 37, 4))}
+
+    def ed_inputs(cfg, rng):
+        return {"src_embeds": torch.from_numpy((rng.standard_normal(
+            (3, 50, cfg.d_model)) * 0.02).astype(np.float32))}
+    # head dim 64 (the flash kernel takes 64 and 128): qwen2-vl's GQA
+    # reduces to 4 heads on 1, its sections to (8, 12, 12)
+    small_model_vs_cpu(torch, np, mods, VL_ARCH, inputs=vl_inputs,
+                       n_layers=2, d_model=256, n_heads=4, d_ff=512,
+                       vocab=250)
+    small_model_vs_cpu(torch, np, mods, ENCDEC_ARCH, inputs=ed_inputs,
+                       n_layers=2, d_model=256, n_heads=4, d_ff=512,
+                       vocab=250)
+    log(f"families phase: {time.perf_counter() - t_phase:.1f}s")
+    return {VL_ARCH: vl, ENCDEC_ARCH: ed}
 
 
 def staircase_cases(np, mods) -> list:
@@ -2185,27 +2549,13 @@ BURST, LULL = 3, 8
 DEGRADE_TARGET_S = 0.4     # a full batch's modeled 0.576 s is overload
 
 
-def gemm_tiles(by_name: dict) -> dict:
-    """{"prefill 256x64": launches, ...}: the GEMM kernels of a device
-    trace (``device_kernels``' table) by their template's tile."""
-    import re
-    out: dict = {}
-    for name, (count, _) in by_name.items():
-        hit = re.search(r"gemm_kernel<(\d+), (true|false)>", name)
-        if hit:
-            key = (f"{'prefill' if hit.group(2) == 'true' else 'decode'} "
-                   f"{hit.group(1)}x64")
-            out[key] = out.get(key, 0) + count
-    return dict(sorted(out.items()))
-
-
 def cached_tiles_ab(torch, np, mods, engine, eager_out, card: str) -> dict:
     """Full-width qwen1.5-0.5b, one batch of 4 x 16 new tokens, through two
     step caches in one call: ``hw=None`` (the kernels' default tiles) and
     ``hw=H100_SXM`` (the autotuner's). Both serve the eager engine's
     tokens, with no capture while serving; then, per side, the prefill
     and decode replays' device ms, the tiles their GEMMs took (read from
-    the device trace) and tokens/s in alternating bursts."""
+    the graphs' kernel nodes) and tokens/s in alternating bursts."""
     cfg, sv = engine.cfg, mods["serving"]
     b, plen = len(PROMPT_LENS), max(PROMPT_LENS)
     sides = {}
@@ -2214,8 +2564,10 @@ def cached_tiles_ab(torch, np, mods, engine, eager_out, card: str) -> dict:
         eng = sv.ServeEngine(engine.params, cfg, max_len=engine.max_len,
                              batch_slots=engine.slots, rng_seed=SEED,
                              device="cuda", compile_cache=cache)
-        check(eng.warm_compile([], [(b, plen)]) == 2,
-              f"cached A/B {name}: warm_compile failed: {cache.events}")
+        with kept_graphs(torch):
+            n = eng.warm_compile([], [(b, plen)])
+        check(n == 2, f"cached A/B {name}: warm_compile failed: "
+              f"{cache.events}")
         count = cache.tracer.count
         out = eng.generate(requests(cfg, mods["Request"], np))
         check(all(np.array_equal(a.tokens, r.tokens)
@@ -2228,11 +2580,11 @@ def cached_tiles_ab(torch, np, mods, engine, eager_out, card: str) -> dict:
         row = {"tok_s": []}
         with torch.inference_mode():
             for kind in ("prefill", "decode"):
-                replay = entries[kind].graph.replay
-                row[f"{kind}_ms"] = stream_ms(torch, replay)
-                summary, by_name = device_kernels(torch, replay)
-                row[f"{kind}_tiles"] = gemm_tiles(by_name)
-                row[f"{kind}_trace"] = summary
+                row[f"{kind}_ms"] = stream_ms(torch,
+                                              entries[kind].graph.replay)
+                row[f"{kind}_tiles"] = graph_kernels(
+                    entries[kind].graph,
+                    GRAPH_DUMPS / f"ab-{name}-{kind}.dot")[2]
         sides[name] = (eng, row)
     check(sides["default"][1]["prefill_tiles"] == {"prefill 128x64":
                                                    3 * cfg.n_layers},
@@ -2259,7 +2611,7 @@ def cached_tiles_ab(torch, np, mods, engine, eager_out, card: str) -> dict:
             f"tokens (prompts {PROMPT_LENS}), {name} tiles: tok/s median "
             f"{row['tok_s_median']:.2f} {[round(x, 2) for x in row['tok_s']]}"
             f"; prefill replay {row['prefill_ms']:.4f} device ms, GEMM tiles "
-            f"{row['prefill_tiles']} ({row['prefill_trace']}); decode replay "
+            f"{row['prefill_tiles']}; decode replay "
             f"{row['decode_ms']:.4f} device ms, GEMM tiles "
             f"{row['decode_tiles']}")
     d, a = out["default"], out["autotuned"]
@@ -2270,6 +2622,51 @@ def cached_tiles_ab(torch, np, mods, engine, eager_out, card: str) -> dict:
         f"({CACHED_ROUNDS} bursts each, alternating)")
     del sides
     return out
+
+
+def kept_vs_plain(torch, mods, engine) -> dict:
+    """A reading: full-width qwen1.5-0.5b's cached prefill and decode
+    replays, device ms, from a step cache captured under ``kept_graphs``
+    (as the cached checks capture theirs) and from one captured as the
+    port captures it, in one call, KEPT_ROUNDS rounds alternating which
+    side goes first; the medians per side and kind."""
+    cfg, sv = engine.cfg, mods["serving"]
+    b, plen = len(PROMPT_LENS), max(PROMPT_LENS)
+    sides = {}
+    for side in ("kept", "plain"):
+        cache = sv.WidthVariantCompileCache(cfg, hw=mods["H100_SXM"])
+        eng = sv.ServeEngine(engine.params, cfg, max_len=engine.max_len,
+                             batch_slots=engine.slots, rng_seed=SEED,
+                             device="cuda", compile_cache=cache)
+        with (kept_graphs(torch) if side == "kept"
+              else contextlib.nullcontext()):
+            n = eng.warm_compile([], [(b, plen)])
+        graphs = {k[1]: e.graph for k, e in cache._exec.items()}
+        check(n == 2 and all(getattr(g, "keeps_graph", False)
+                             == (side == "kept") for g in graphs.values()),
+              f"kept vs plain, {side}: warm_compile gave {n} steps, "
+              f"{cache.events}")
+        sides[side] = (eng, graphs)
+    ms = {(s, k): [] for s in sides for k in ("prefill", "decode")}
+    with torch.inference_mode():
+        for r in range(KEPT_ROUNDS):
+            for side in (("kept", "plain") if r % 2 == 0 else
+                         ("plain", "kept")):
+                for kind, g in sides[side][1].items():
+                    ms[side, kind].append(stream_ms(torch, g.replay))
+    med = {f"{s} {k}": float(sorted(v)[len(v) // 2])
+           for (s, k), v in ms.items()}
+    for kind in ("prefill", "decode"):
+        log(f"{ARCH} cached {kind} replay, device ms, graph kept for its "
+            f"DOT dump {[round(x, 4) for x in ms['kept', kind]]} against "
+            f"captured as the port does "
+            f"{[round(x, 4) for x in ms['plain', kind]]}: medians "
+            f"{med['kept ' + kind]:.4f} / "
+            f"{med['plain ' + kind]:.4f} "
+            f"({100 * (med['kept ' + kind] / med['plain ' + kind] - 1):+.2f}"
+            f"%; {KEPT_ROUNDS} rounds, alternating)")
+    del sides
+    return med
 
 
 def ladder_rows(ladder) -> list:
@@ -3371,6 +3768,15 @@ def main() -> None:
         if DEFERRED:
             fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
         return
+    if "--families" in argv:
+        # the families phase alone, with its kernel shapes
+        mm_new, fl_new = family_kernel_cases(torch, mt, fa, gen)
+        fam = families_phase(torch, np, mods)
+        print(json.dumps({"families": family_rows(fam, mm_new, fl_new)}),
+              flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
     if "--table2" in argv:
         # the Table 2 phase alone
         table2 = table2_phase(torch, np, mods, card)
@@ -3419,6 +3825,7 @@ def main() -> None:
            (1, 100, 130, 4, 4, 64, "none", 0),
            (4, 2048, 2048, 16, 16, 64, "causal", 0),
            (1, 4096, 4096, 8, 2, 128, "causal", 0)]]
+    mm_new, fl_new = family_kernel_cases(torch, mt, fa, gen)
     t0 = time.time()
     st = [compare_staircase(torch, sf, c)
           for c in staircase_cases(np, mods)]
@@ -3514,6 +3921,10 @@ def main() -> None:
     small_model_vs_cpu(torch, np, mods, MOE_ARCH, n_layers=2, d_model=256,
                        n_heads=4, d_ff=512, vocab=250, n_experts=16)
     cli_on_card(mods, MOE_ARCH)
+    # M-RoPE and the encoder-decoder: full-width qwen2-vl-7b served and run
+    # with a vision grid, full-width seamless-m4t-medium prefilled and
+    # decoded, both reduced on the card against the CPU
+    families = families_phase(torch, np, mods)
     # the paper's Table 2 pipeline: (a) repro's configuration against the
     # CPU, (b) the GPU form at three settings, every net timed, (c) each
     # kernel forward against plain
@@ -3579,6 +3990,10 @@ def main() -> None:
                 if r["case"].startswith(name) for key, t in r["tiles"].items()]
             kernels[-1]["cached_prefill_tiles"] = \
                 path["cached"]["tiles"]["prefill"]
+        if name in ("matmul_tiled", "flash_attention"):
+            # the families phase's launches and its shapes
+            kernels[-1]["families"] = family_rows(families, mm_new,
+                                                  fl_new)[name]
     log(f"card: {card}; total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     if DEFERRED:

@@ -25,8 +25,18 @@ import torch
 
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.models import init_params
-from repro_torch.models.transformer import unsupported
 from repro_torch.serving.engine import Request, ServeEngine, require_device
+
+
+def refuse_non_text(cfg) -> None:
+    """Exit on the archs ``repro``'s serving CLI refuses
+    (``src/repro/launch/serve.py:35``): an encoder-decoder needs encoder
+    input and M-RoPE positions come with vision input."""
+    if cfg.is_encdec or cfg.rope_kind == "mrope":
+        raise SystemExit(f"{cfg.name}: the serving CLIs cover decoder-only "
+                         f"text archs; run encoder-decoder and M-RoPE "
+                         f"models through models.transformer's forward and "
+                         f"decode_step")
 
 
 def main(argv=None):
@@ -45,11 +55,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    why = unsupported(cfg)
-    if why is not None:
-        raise SystemExit(f"{cfg.name}: the port serves decoder-only "
-                         f"attention, local-attention, RG-LRU, RWKV6 and "
-                         f"MoE archs; {why} are not ported yet")
+    refuse_non_text(cfg)
     device = require_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False

@@ -33,7 +33,7 @@ import torch
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.core import H100_SXM
 from repro_torch.models import init_params
-from repro_torch.models.transformer import unsupported
+from repro_torch.launch.serve import refuse_non_text
 from repro_torch.serving.chaos import (
     TailReport, TrafficLoad, open_loop_arrivals)
 from repro_torch.serving.compile_cache import WidthVariantCompileCache
@@ -129,11 +129,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    why = unsupported(cfg)
-    if why is not None:
-        raise SystemExit(f"{cfg.name}: the port serves decoder-only "
-                         f"attention, local-attention, RG-LRU, RWKV6 and "
-                         f"MoE archs; {why} are not ported yet")
+    refuse_non_text(cfg)
     device = require_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False

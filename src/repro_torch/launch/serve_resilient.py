@@ -53,7 +53,8 @@ import torch
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.core import H100_SXM, TPU_V5E
 from repro_torch.models import init_params
-from repro_torch.models.transformer import cast_params, unsupported
+from repro_torch.launch.serve import refuse_non_text
+from repro_torch.models.transformer import cast_params
 from repro_torch.serving import (
     AdmissionControl, Arrival, ContinuousServeEngine, DegradationController,
     DegradationLadder, HedgePolicy, ReplicaRouter, Request, ServeEngine,
@@ -343,9 +344,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg, d_model=128, n_layers=2, d_ff=576)
-    why = unsupported(cfg)
-    if why is not None:
-        raise SystemExit(f"{cfg.name}: {why} are not ported yet")
+    refuse_non_text(cfg)
     device = require_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False

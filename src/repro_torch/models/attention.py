@@ -1,7 +1,7 @@
-"""Attention: GQA projections, causal prefill through the flash-attention
-kernel, sliding-window (local) prefill, single-token decode and
-chunked-prefill attention against a cache (``repro.models.attention``'s
-counterpart).
+"""Attention: GQA projections, causal and unmasked (encoder and
+cross-attention) prefill through the flash-attention kernel, sliding-window
+(local) prefill, single-token decode and chunked-prefill attention against
+a cache (``repro.models.attention``'s counterpart).
 
 Layouts are ``repro``'s: ``wq`` (d, H, dh), ``wk``/``wv`` (d, KV, dh),
 ``wo`` (H, dh, d); activations (B, S, H, dh). The projections, local
@@ -49,6 +49,17 @@ def qkv_proj(p: dict, x: torch.Tensor):
         k = k + cast(p["bk"])
         v = v + cast(p["bv"])
     return q, k, v
+
+
+def kv_proj(p: dict, x: torch.Tensor):
+    """K and V of ``x`` alone: cross-attention's keys and values from the
+    encoder output."""
+    k = torch.einsum("...d,dhk->...hk", x, cast(p["wk"]))
+    v = torch.einsum("...d,dhk->...hk", x, cast(p["wv"]))
+    if "bk" in p:
+        k = k + cast(p["bk"])
+        v = v + cast(p["bv"])
+    return k, v
 
 
 def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:

@@ -90,6 +90,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Qwen2-VL's multimodal rope. x: (..., S, H, dh); positions3: (..., S,
+    3) integer, the (t, h, w) position of each token. The dh/2 frequency
+    bands are split over (t, h, w) by ``sections``, and each band turns by
+    its axis's position; with equal axes this is :func:`apply_rope`, bit
+    for bit. Each axis's position is repeated over its bands by slicing,
+    not by an index tensor, so that nothing is copied from the host inside
+    a CUDA graph capture."""
+    half = x.shape[-1] // 2
+    if len(sections) != 3 or sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not split {half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)   # (half,)
+    p = positions3.float()
+    pos = torch.cat([p[..., i:i + 1].expand(*p.shape[:-1], n)
+                     for i, n in enumerate(sections)], dim=-1)  # (..., S, half)
+    ang = pos * freqs
+    sin = torch.sin(ang)[..., None, :]                        # over heads
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # dense MLP (SwiGLU or plain GeLU)
 # ---------------------------------------------------------------------------

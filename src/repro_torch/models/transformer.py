@@ -1,12 +1,18 @@
-"""Config-driven decoder (``repro.models.transformer``'s counterpart).
+"""Config-driven model (``repro.models.transformer``'s counterpart).
 
-The port covers decoder-only stacks of global (``attn``) and sliding-window
-(``local``) attention layers and RG-LRU (``rglru``) layers, each with a dense
-MLP (``parallel_block`` included) or a mixture of experts (``models.moe``,
-under ``moe_strategy`` as in ``repro``: ``auto`` is dense, since the port
-has no mesh), and RWKV6 (``rwkv``) layers with their channel-mix, under
-standard or no rope. :func:`unsupported` names what a config needs beyond
-that (encoder-decoder, M-RoPE).
+The port covers every config in ``configs/``: stacks of global (``attn``)
+and sliding-window (``local``) attention layers and RG-LRU (``rglru``)
+layers, each with a dense MLP (``parallel_block`` included) or a mixture of
+experts (``models.moe``, under ``moe_strategy`` as in ``repro``: ``auto`` is
+dense, since the port has no mesh), and RWKV6 (``rwkv``) layers with their
+channel-mix; standard rope, no rope, or Qwen2-VL's M-RoPE, whose positions
+are (B, S, 3) (t, h, w); and the encoder-decoder, whose encoder (one-layer
+units of unmasked self-attention and a dense MLP) runs over ``src_embeds``
+and whose decoder layers add a cross-attention block onto its output.
+Encoder self-attention and cross-attention take the flash kernel's
+unmasked form on the card, where ``repro`` computes both in plain
+``chunked_attention``; decode's cross-attention reads the cached encoder
+K/V (``ck``, ``cv``, ``clen``) in plain torch.
 
 The parameter tree is ``repro``'s, so converting weights is a copy: the
 layers of each pattern unit sit under ``params["decoder"]["stack"]["u{j}"]``
@@ -31,8 +37,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.layers import (
-    COMPUTE_DTYPE, apply_mlp, apply_norm, apply_rope, embed_tokens,
-    init_embeddings, init_mlp, init_norm, unembed,
+    COMPUTE_DTYPE, apply_mlp, apply_mrope, apply_norm, apply_rope, cast,
+    embed_tokens, init_embeddings, init_mlp, init_norm, unembed,
 )
 
 VOCAB_QUANTUM = 128   # embeddings padded to a multiple (no vocab tail)
@@ -45,25 +51,6 @@ Pos = Union[int, torch.Tensor]
 def padded_vocab(cfg: ModelConfig) -> int:
     v = cfg.vocab_size
     return ((v + VOCAB_QUANTUM - 1) // VOCAB_QUANTUM) * VOCAB_QUANTUM
-
-
-def unsupported(cfg: ModelConfig) -> Optional[str]:
-    """Why this slice of the port cannot run ``cfg``, or None if it can."""
-    kinds = set(cfg.layer_kinds())
-    if kinds - set(KINDS):
-        return f"layer kinds {sorted(kinds - set(KINDS))}"
-    if cfg.is_encdec:
-        return "encoder-decoder"
-    if cfg.rope_kind not in ("standard", "none"):
-        return f"rope kind {cfg.rope_kind!r}"
-    return None
-
-
-def _check(cfg: ModelConfig) -> None:
-    why = unsupported(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {why} are not ported yet (see ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +123,8 @@ def _stack(trees: list):
 # of its children that are.
 FP32_READS = {
     # apply_norm reads scale and bias in fp32 (src/repro/models/layers.py:51-63)
-    "norm1": None, "norm2": None, "final_norm": None,
+    "norm1": None, "norm2": None, "norm_cross": None, "final_norm": None,
+    "enc_norm": None,
     # the RG-LRU gates (src/repro/models/recurrent.py:76-86)
     "rglru": {"a_param", "in_gate_w", "in_gate_b", "rec_gate_w",
               "rec_gate_b"},
@@ -175,7 +163,8 @@ def cast_params(params: dict, device=None) -> dict:
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               mlp_kind: str, *, lead: tuple = ()) -> dict:
+               mlp_kind: str, *, cross: bool = False,
+               lead: tuple = ()) -> dict:
     if kind not in KINDS or mlp_kind not in (
             ("cmix",) if kind == "rwkv" else ("dense", "moe")):
         raise NotImplementedError(f"layer ({kind}, {mlp_kind})")
@@ -193,6 +182,12 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
         p["attn"] = attn_lib.init_attention(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             bias=cfg.qkv_bias, lead=lead)
+        if cross:
+            p["norm_cross"] = init_norm(cfg.norm, cfg.d_model, lead=lead,
+                                        device=dev)
+            p["cross"] = {"attn": attn_lib.init_attention(
+                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                bias=cfg.qkv_bias, lead=lead)}
     if not cfg.parallel_block:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, lead=lead, device=dev)
     if mlp_kind == "moe":
@@ -208,15 +203,19 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
 def _rope(cfg: ModelConfig, q, k, positions):
     if cfg.rope_kind == "none":
         return q, k
+    if cfg.rope_kind == "mrope":
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
 
 def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                     mode: str, cache: Optional[dict],
-                    positions: torch.Tensor, pos: Pos, force: Optional[str]):
+                    positions: torch.Tensor, pos: Pos, force: Optional[str],
+                    causal: bool = True):
     """Self-attention for train / prefill / decode / chunk.  Returns (y,
-    cache).
+    cache). An encoder layer (``causal`` False) attends unmasked.
 
     In decode, ``pos`` is the write position: an int (every row at the same
     position) or a (B,) tensor (ragged decode, each row at its own). A
@@ -263,8 +262,8 @@ def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if kind == "local":
         o = attn_lib.local_attention_prefill(q, k, v, window=cfg.window)
     else:
-        o = attn_lib.prefill_attention(q, k, v, mask_kind="causal",
-                                       force=force)
+        o = attn_lib.prefill_attention(
+            q, k, v, mask_kind="causal" if causal else "none", force=force)
     y = attn_lib.out_proj(p, o)
     new_cache = None
     if mode == "prefill":
@@ -272,6 +271,30 @@ def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         if kind == "local":
             k, v = _ring(k, cfg.window), _ring(v, cfg.window)
         new_cache = {"k": k, "v": v}
+    return y, new_cache
+
+
+def _cross_attention(p: dict, x: torch.Tensor, mode: str,
+                     cache: Optional[dict], enc_out: Optional[torch.Tensor],
+                     force: Optional[str]):
+    """Cross-attention onto the encoder output, with no rope.  Returns (y,
+    cache): in prefill the encoder K/V it attended (``ck``, ``cv``) and
+    their length (``clen``, int32); decode reads those back."""
+    q = torch.einsum("...d,dhk->...hk", x, cast(p["attn"]["wq"]))
+    if "bq" in p["attn"]:
+        q = q + cast(p["attn"]["bq"])
+    if mode == "decode":
+        o = attn_lib.decode_attention(q[:, 0], cache["ck"], cache["cv"],
+                                      cache["clen"])
+        return attn_lib.out_proj(p["attn"], o[:, None]), cache
+    k, v = attn_lib.kv_proj(p["attn"], enc_out)
+    o = attn_lib.prefill_attention(q, k, v, mask_kind="none", force=force)
+    y = attn_lib.out_proj(p["attn"], o)
+    new_cache = None
+    if mode == "prefill":
+        new_cache = {"ck": k.to(COMPUTE_DTYPE), "cv": v.to(COMPUTE_DTYPE),
+                     "clen": torch.full((), enc_out.shape[1],
+                                        dtype=torch.int32, device=x.device)}
     return y, new_cache
 
 
@@ -296,8 +319,10 @@ def _write_back(state: dict, new: dict) -> dict:
 def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 mlp_kind: str, *, mode: str, state: Optional[dict],
                 positions: torch.Tensor, pos: Pos, force: Optional[str],
-                moe_strategy: str = "auto"):
-    """One layer of ``kind`` with its ``mlp_kind`` MLP.  Returns (x,
+                moe_strategy: str = "auto", causal: bool = True,
+                enc_out: Optional[torch.Tensor] = None):
+    """One layer of ``kind`` with its ``mlp_kind`` MLP, and its
+    cross-attention block onto ``enc_out`` where it has one.  Returns (x,
     new_state)."""
     if mode == "chunk" and kind != "attn":
         # a recurrent layer carries a running state, not a cache, and a
@@ -330,12 +355,19 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
             new_state = _write_back(state, new_state)
     else:
         y, new_state = _self_attention(p["attn"], h, cfg, kind, mode, state,
-                                       positions, pos, force)
+                                       positions, pos, force, causal)
     if cfg.parallel_block and mlp_kind == "dense":
         # cohere: out = x + attn(norm(x)) + mlp(norm(x))
         return x + y + apply_mlp(p["mlp"], h, cfg.mlp_gated,
                                  force=force), new_state
     x = x + y
+    if "cross" in p:
+        h = apply_norm(p["norm_cross"], x, cfg.norm)
+        y, cr_new = _cross_attention(p["cross"], h, mode, state, enc_out,
+                                     force)
+        x = x + y
+        if mode == "prefill":
+            new_state.update(cr_new)
     h = apply_norm(p["norm2"], x, cfg.norm)
     if mlp_kind == "moe":
         # the aux losses are for training; the forward does not return them
@@ -347,16 +379,18 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     return x + y, new_state
 
 
-def init_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    plan = layer_plan(cfg)
-    cycle = unit_cycle(cfg)
+def init_stack(gen: torch.Generator, cfg: ModelConfig, *,
+               encoder: bool = False, cross: bool = False) -> dict:
+    plan = layer_plan(cfg, encoder)
+    cycle = unit_cycle(cfg, encoder)
     n_units = len(plan) // cycle
     out: dict = {}
     if n_units:
-        out["stack"] = {f"u{j}": init_layer(gen, cfg, *plan[j],
+        out["stack"] = {f"u{j}": init_layer(gen, cfg, *plan[j], cross=cross,
                                             lead=(n_units,))
                         for j in range(cycle)}
-    extra = {f"x{j}": init_layer(gen, cfg, *plan[n_units * cycle + j])
+    extra = {f"x{j}": init_layer(gen, cfg, *plan[n_units * cycle + j],
+                                 cross=cross)
              for j in range(len(plan) - n_units * cycle)}
     if extra:
         out["extra"] = extra
@@ -365,13 +399,16 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, states: Optional[dict], positions: torch.Tensor,
-                pos: Pos, force: Optional[str], moe_strategy: str = "auto"):
-    """Every decoder layer in order.  Returns (x, new_states); new_states
-    is None in train mode and, in decode and chunk mode, the input states
-    updated in place."""
-    plan = layer_plan(cfg)
+                pos: Pos, force: Optional[str], moe_strategy: str = "auto",
+                encoder: bool = False,
+                enc_out: Optional[torch.Tensor] = None):
+    """Every decoder layer (or, with ``encoder``, every encoder layer,
+    unmasked) in order.  Returns (x, new_states); new_states is None in
+    train mode and, in decode and chunk mode, the input states updated in
+    place."""
+    plan = layer_plan(cfg, encoder)
     carried = mode in ("decode", "chunk")
-    cycle = unit_cycle(cfg)
+    cycle = unit_cycle(cfg, encoder)
     n_units = len(plan) // cycle
     new_states: dict = {}
 
@@ -379,7 +416,8 @@ def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         nonlocal x
         x, ns = apply_layer(lp, x, cfg, *layer, mode=mode, state=st,
                             positions=positions, pos=pos, force=force,
-                            moe_strategy=moe_strategy)
+                            moe_strategy=moe_strategy, causal=not encoder,
+                            enc_out=enc_out)
         return ns
 
     if n_units:
@@ -410,25 +448,38 @@ def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random fp32 params in ``repro``'s layout, drawn from ``generator``
-    on its device; ``device``, if given, must be of the generator's type."""
-    _check(cfg)
+    on its device; ``device``, if given, must be of the generator's type.
+    An encoder-decoder also has ``encoder`` and ``enc_norm``."""
     if device is not None and \
             torch.device(device).type != generator.device.type:
         raise ValueError(f"generator is on {generator.device}, params "
                          f"were asked for on {device}")
-    return {
+    params = {
         "embed": init_embeddings(generator, padded_vocab(cfg), cfg.d_model,
                                  cfg.tie_embeddings),
         "final_norm": init_norm(cfg.norm, cfg.d_model,
                                 device=generator.device),
-        "decoder": init_stack(generator, cfg),
+        "decoder": init_stack(generator, cfg, cross=cfg.is_encdec),
     }
+    if cfg.is_encdec:
+        params["encoder"] = init_stack(generator, cfg, encoder=True)
+        params["enc_norm"] = init_norm(cfg.norm, cfg.d_model,
+                                       device=generator.device)
+    return params
 
 
-def _positions(b: int, s: int, offset: Pos, device) -> torch.Tensor:
+def _positions(cfg: ModelConfig, b: int, s: int, offset: Pos,
+               device) -> torch.Tensor:
+    """The default positions of ``s`` tokens from ``offset`` (an int, a
+    0-d tensor, or a (B,) tensor of per-row offsets): (B, S), or (B, S, 3)
+    with equal (t, h, w) axes under M-RoPE."""
     if torch.is_tensor(offset) and offset.dim() == 1:
-        return offset[:, None]
-    return (offset + torch.arange(s, device=device))[None, :].expand(b, s)
+        pos = offset[:, None]
+    else:
+        pos = (offset + torch.arange(s, device=device))[None, :].expand(b, s)
+    if cfg.rope_kind == "mrope":
+        return pos[..., None].expand(*pos.shape, 3)
+    return pos
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -438,22 +489,53 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
     return _mask_vocab_pad(logits, cfg)
 
 
-def forward(params: dict, cfg: ModelConfig, *, tokens: torch.Tensor,
+def encode(params: dict, cfg: ModelConfig, src_embeds: torch.Tensor,
+           force: Optional[str] = None,
+           moe_strategy: str = "auto") -> torch.Tensor:
+    """The encoder over (B, S_src, d) embeddings, cast to bf16: unmasked
+    self-attention at rope positions ``0 .. S_src``, then ``enc_norm``."""
+    b, s = src_embeds.shape[:2]
+    x, _ = apply_stack(params["encoder"], src_embeds.to(COMPUTE_DTYPE), cfg,
+                       mode="train", states=None,
+                       positions=_positions(cfg, b, s, 0, src_embeds.device),
+                       pos=None, force=force, moe_strategy=moe_strategy,
+                       encoder=True)
+    return apply_norm(params["enc_norm"], x, cfg.norm)
+
+
+def forward(params: dict, cfg: ModelConfig, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            src_embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
             mode: str = "train", force: Optional[str] = None,
             moe_strategy: str = "auto"):
-    """Full-sequence forward over (B, S) tokens.  Returns (logits, states):
-    in prefill mode each layer's decode state (a global layer's (B, S) KV
-    cache, a local layer's ring, a recurrent layer's state), None in train
-    mode."""
-    _check(cfg)
+    """Full-sequence forward over (B, S) ``tokens``, or over (B, S, d)
+    ``embeds`` (cast to bf16, not scaled by sqrt(d)); an encoder-decoder
+    also takes the encoder's (B, S_src, d) ``src_embeds``. ``positions``
+    defaults to ``0 .. S`` ((B, S, 3) equal axes under M-RoPE). Returns
+    (logits, states): in prefill mode each layer's decode state (a global
+    layer's (B, S) KV cache, with a cross layer's encoder K/V and length, a
+    local layer's ring, a recurrent layer's state), None in train mode."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward mode {mode!r}")
-    b, s = tokens.shape
-    x = embed_tokens(params["embed"], tokens, cfg.d_model)
+    enc_out = None
+    if cfg.is_encdec:
+        if src_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
+                             f"needs src_embeds")
+        enc_out = encode(params, cfg, src_embeds, force, moe_strategy)
+    if embeds is not None:
+        x = embeds.to(COMPUTE_DTYPE)
+    else:
+        x = embed_tokens(params["embed"], tokens, cfg.d_model)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = _positions(cfg, b, s, 0, x.device)
     x, states = apply_stack(params["decoder"], x, cfg, mode=mode,
-                            states=None,
-                            positions=_positions(b, s, 0, tokens.device),
-                            pos=None, force=force, moe_strategy=moe_strategy)
+                            states=None, positions=positions, pos=None,
+                            force=force, moe_strategy=moe_strategy,
+                            enc_out=enc_out)
     return _logits(params, x, cfg), states
 
 
@@ -471,8 +553,9 @@ def _mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig):
 # decode state
 # ---------------------------------------------------------------------------
 def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                 lead: tuple, device) -> dict:
-    """Zero decode state of one layer (of ``lead`` stacked layers)."""
+                 lead: tuple, device, enc_len: int = 0) -> dict:
+    """Zero decode state of one layer (of ``lead`` stacked layers), with a
+    cross layer's ``enc_len`` rows of encoder K/V and their length."""
     if kind == "rglru":
         return rec_lib.rglru_init_state(batch, cfg.d_model, lead=lead,
                                         device=device)
@@ -481,24 +564,33 @@ def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                                        cfg.rwkv_head_dim, lead=lead,
                                        device=device)
     s = min(cfg.window, max_len) if kind == "local" else max_len
-    shape = lead + (batch, s, cfg.n_kv_heads, cfg.head_dim)
-    return {n: torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
-            for n in ("k", "v")}
+
+    def zeros(rows):
+        return torch.zeros(lead + (batch, rows, cfg.n_kv_heads, cfg.head_dim),
+                           dtype=COMPUTE_DTYPE, device=device)
+    st = {"k": zeros(s), "v": zeros(s)}
+    if cfg.is_encdec:
+        st.update(ck=zeros(enc_len), cv=zeros(enc_len),
+                  clen=torch.zeros(lead, dtype=torch.int32, device=device))
+    return st
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device=None) -> dict:
-    _check(cfg)
+                      device=None, *, enc_len: int = 0) -> dict:
+    """Zero decode states in the params' layout; an encoder-decoder's
+    layers also hold ``enc_len`` rows of encoder K/V (``clen`` 0, so that a
+    decode step before any prefill attends to no encoder row)."""
     plan = layer_plan(cfg)
     cycle = unit_cycle(cfg)
     n_units = len(plan) // cycle
     out: dict = {}
     if n_units:
         out["stack"] = {f"u{j}": _layer_state(cfg, plan[j][0], batch,
-                                              max_len, (n_units,), device)
+                                              max_len, (n_units,), device,
+                                              enc_len)
                         for j in range(cycle)}
     extra = {f"x{j}": _layer_state(cfg, plan[n_units * cycle + j][0], batch,
-                                   max_len, (), device)
+                                   max_len, (), device, enc_len)
              for j in range(len(plan) - n_units * cycle)}
     if extra:
         out["extra"] = extra
@@ -507,22 +599,26 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 pos: Pos, states: dict, force: Optional[str] = None,
-                moe_strategy: str = "auto"):
+                moe_strategy: str = "auto",
+                positions: Optional[torch.Tensor] = None):
     """One token per row: tokens (B,), written at ``pos`` (int, or (B,)
-    tensor for ragged rows).  Returns (logits (B, V), states), the states
-    updated in place."""
+    tensor for ragged rows) and turned by rope at ``positions`` ((B, 1),
+    or (B, 1, 3) under M-RoPE; ``pos`` by default).  Returns (logits (B,
+    V), states), the states updated in place."""
     b = tokens.shape[0]
     x = embed_tokens(params["embed"], tokens[:, None], cfg.d_model)
+    if positions is None:
+        positions = _positions(cfg, b, 1, pos, tokens.device)
     x, states = apply_stack(params["decoder"], x, cfg, mode="decode",
-                            states=states,
-                            positions=_positions(b, 1, pos, tokens.device),
-                            pos=pos, force=force, moe_strategy=moe_strategy)
+                            states=states, positions=positions, pos=pos,
+                            force=force, moe_strategy=moe_strategy)
     return _logits(params, x, cfg)[:, 0], states
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pos: Pos, states: dict, force: Optional[str] = None,
-                  moe_strategy: str = "auto"):
+                  moe_strategy: str = "auto",
+                  positions: Optional[torch.Tensor] = None):
     """One prefill chunk: tokens (B, C) at positions ``[pos, pos + C)``
     (``pos`` an int or a 0-d long tensor), written into and attending over
     the decode-state caches ``states``. Returns (logits (B, C, V), states),
@@ -530,16 +626,17 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the caches and logits of a whole-prompt prefill, while no call costs
     more than one chunk. Pure global-attention stacks only; nothing reads
     ``pos`` on the host, so one CUDA graph per chunk shape serves every
-    position."""
+    position. ``positions`` are the rope positions ((B, C), or (B, C, 3)
+    under M-RoPE; ``pos ..`` by default)."""
     if cfg.is_encdec:
         raise ValueError("chunked prefill supports decoder-only models")
-    _check(cfg)
     b, c = tokens.shape
     x = embed_tokens(params["embed"], tokens, cfg.d_model)
+    if positions is None:
+        positions = _positions(cfg, b, c, pos, tokens.device)
     x, states = apply_stack(params["decoder"], x, cfg, mode="chunk",
-                            states=states,
-                            positions=_positions(b, c, pos, tokens.device),
-                            pos=pos, force=force, moe_strategy=moe_strategy)
+                            states=states, positions=positions, pos=pos,
+                            force=force, moe_strategy=moe_strategy)
     return _logits(params, x, cfg), states
 
 

@@ -422,6 +422,13 @@ class ServeEngine:
                  degrader=None,
                  clock: Callable[[], float] = time.monotonic,
                  batch_cost_fn=None, compile_cache=None):
+        if cfg.is_encdec:
+            # repro's engine prefills from tokens alone and trips an
+            # assert on an encoder-decoder; the model API serves it
+            raise ValueError(f"{cfg.name}: ServeEngine serves decoder-only "
+                             f"models (an encoder-decoder's prefill needs "
+                             f"src_embeds; use transformer.forward and "
+                             f"decode_step)")
         self.device = require_device(device)
         self.cfg = cfg
         self.params = tfm.cast_params(params, self.device)

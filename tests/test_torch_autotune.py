@@ -29,6 +29,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul_tiled as mt
 from repro_torch.kernels import moe_gmm as mg
 from repro_torch.kernels import ops
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 # tests/test_autotune.py's shapes: matmul (M, N, K), flash (b, sq, skv, h,
 # kv, dh), moe (e, c, d, f)

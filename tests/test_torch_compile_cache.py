@@ -32,6 +32,7 @@ from repro_torch.serving.compile_cache import decode_state_struct
 from test_torch_serve import (
     NEW, _assert_greedy_follows, _planner, prompts,
 )
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 FAMILIES = {"qwen1.5-0.5b": {}, "recurrentgemma-2b": {},
             "rwkv6-1.6b": {}, "granite-moe-1b-a400m": {"n_experts": 16}}

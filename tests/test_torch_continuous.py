@@ -34,6 +34,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import chaos as tchaos
 from test_torch_serve import TOL, granite_model, recurrent_model
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 BF16_OUT = 1e-2     # bf16 outputs: one bf16 step (2^-8 of an element) fits
 

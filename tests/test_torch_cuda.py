@@ -247,6 +247,109 @@ def test_prefill_on_kernels_vs_plain(gen):
 
 
 # ---------------------------------------------------------------------------
+# M-RoPE (qwen2-vl-7b) and the encoder-decoder (seamless-m4t-medium)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,sq,skv,h,kv,dh,mask", [
+    # seamless: cross-attention of 128 decoder rows onto 150 encoder frames,
+    # and the encoder's self-attention (600 rows, not a multiple of 64)
+    (4, 128, 150, 16, 16, 64, "none"), (4, 150, 150, 16, 16, 64, "none"),
+    # qwen2-vl-7b's prefill: GQA 28 on 4, a group of 7
+    (4, 128, 128, 28, 4, 128, "causal")])
+def test_flash_kernel_new_family_shapes(gen, b, sq, skv, h, kv, dh, mask):
+    q, k, v = randn(gen, b, sq, h, dh), randn(gen, b, skv, kv, dh), \
+        randn(gen, b, skv, kv, dh)
+    got = fa.flash_attention(q, k, v, mask_kind=mask)
+    torch.cuda.synchronize()
+    want = fa.attention_ref(q, k, v, mask_kind=mask)
+    assert (got.float() - want.float()).abs().max().item() <= 4e-2
+    assert torch.equal(got, fa.flash_attention(q, k, v, mask_kind=mask))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (m, k, n) for m in (4, 512)
+    for k, n in ((3584, 18944), (18944, 3584), (1024, 4096), (4096, 1024))
+] + [(m, k, n) for m in (128, 600) for k, n in ((1024, 4096), (4096, 1024))])
+def test_matmul_kernel_new_family_shapes(gen, m, k, n):
+    """qwen2-vl-7b's MLP products (K or N = 18944) and seamless's (d_ff
+    4096) at prefill and decode: seamless's decoder prefill runs M = 4 x 32,
+    its encoder M = 4 x 150."""
+    x, w = randn(gen, m, k), randn(gen, k, n)
+    got = mt.matmul_tiled(x, w)
+    torch.cuda.synchronize()
+    want = mt.matmul_ref(x, w).float()
+    tol = 2.0 ** -7 * max(want.abs().max().item(), 1.0)
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+def grid_positions(b, s, gh=4, gw=8):
+    """(B, S, 3) M-RoPE positions: a ``gh x gw`` vision grid at t = 0, then
+    text at max + 1 onward on all three axes."""
+    i = np.arange(s)
+    n = gh * gw
+    text = max(gh, gw) + i - n
+    pos = np.stack([np.where(i < n, 0, text), np.where(i < n, i // gw, text),
+                    np.where(i < n, i % gw, text)], -1)
+    return torch.from_numpy(np.broadcast_to(pos, (b, s, 3)).copy())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "seamless-m4t-medium"])
+def test_new_family_on_the_card_vs_cpu(gen, arch):
+    """A reduced config at head dim 64 (grid positions for qwen2-vl,
+    encoder frames for seamless): the card's prefill and three
+    teacher-forced decode steps agree with the CPU's plain path, and the
+    prefill's launch counts are exact (seamless: two products a GeLU MLP,
+    a flash attention a layer of its encoder and two a decoder layer,
+    causal and cross)."""
+    cfg = reduced_config(get_config(arch), d_model=256, n_heads=4, d_ff=512,
+                         vocab=250)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, 40)))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, 3)))
+    kw = {}
+    if cfg.is_encdec:
+        kw["src_embeds"] = torch.from_numpy(
+            (0.02 * rng.standard_normal((3, 70, cfg.d_model))).astype(
+                np.float32))
+    else:
+        kw["positions"] = grid_positions(3, 43)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tfm.cast_params(params, dev)
+        extra = {k: v[:, :40].to(dev) if k == "positions" else v.to(dev)
+                 for k, v in kw.items()}
+        with torch.inference_mode():
+            ops.reset_launches()
+            logits, st = tfm.forward(p, cfg, tokens=toks.to(dev),
+                                     mode="prefill", **extra)
+            launches = dict(ops.LAUNCHES)
+            st = {g: {k: {n: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, 3)) if n in ("k", "v") else t
+                for n, t in d.items()} for k, d in sub.items()}
+                for g, sub in st.items()}
+            steps = [logits[:, -1]]
+            for t in range(3):
+                pos3 = None if cfg.is_encdec else \
+                    kw["positions"][:, 40 + t:41 + t].to(dev)
+                lg, st = tfm.decode_step(p, cfg, feed[:, t].to(dev), 40 + t,
+                                         st, positions=pos3)
+                steps.append(lg)
+        out[dev] = ([s_[:, :cfg.vocab_size].float().cpu() for s_ in steps],
+                    launches)
+    mlp = 3 if cfg.mlp_gated else 2
+    enc = cfg.encoder_layers
+    assert out["cuda"][1] == {
+        "matmul_tiled": mlp * (cfg.n_layers + enc),
+        "flash_attention": cfg.n_layers * (2 if enc else 1) + enc,
+        "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
+        "rwkv6": 0, "moe_gmm": 0}
+    for card, cpu in zip(out["cuda"][0], out["cpu"][0]):
+        assert bool(torch.isfinite(card).all())
+        assert (card - cpu).abs().max().item() <= 4e-2 * max(
+            1.0, cpu.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
 # the staircase kernel (Triton) and the planner on the card
 # ---------------------------------------------------------------------------
 def staircase_inputs(rows, cols, lane, seed=0):

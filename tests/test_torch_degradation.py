@@ -29,6 +29,7 @@ from repro_torch.core.plan_address import plan_key
 from repro_torch.models import transformer as tfm
 from test_torch_continuous import (  # noqa: F401 — the model fixture
     TOL, model, outcome, run_both, sides, virtual)
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 REL = 1e-9
 

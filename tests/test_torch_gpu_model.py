@@ -45,6 +45,7 @@ from repro_torch.serving import (
     serving_templates,
 )
 from repro_torch.serving.compile_cache import leaves
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 
 def random_layers(rng, n, experts=False):

@@ -33,6 +33,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving import chaos as tchaos
 from test_torch_continuous import Margins, assert_same_engines
 from test_torch_degradation import serving_ladder
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 N_ACCEPT = 24
 

@@ -13,6 +13,7 @@ from repro.models import transformer as jtfm
 from repro_torch import configs as tconfigs
 from repro_torch.interop import params_from_jax, params_to_numpy
 from repro_torch.models import transformer as ttfm
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 
 def leaves(tree, prefix=()):

@@ -18,6 +18,7 @@ from repro_torch.kernels import matmul_tiled as mt
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import rwkv6 as rw
 from test_torch_cuda import one_hot_attention
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 # tests/test_kernels.py:23
 TOL = {"float32": 2e-4, "bfloat16": 4e-2}

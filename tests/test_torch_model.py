@@ -22,7 +22,8 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
-from test_torch_recurrent import perturb_fp32_reads
+from test_torch_recurrent import (  # noqa: F401 — autouse
+    perturb_fp32_reads, one_torch_thread)
 
 # jits the JAX model; the quick tier skips it with -m "not slow"
 pytestmark = pytest.mark.slow

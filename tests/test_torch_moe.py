@@ -16,6 +16,7 @@ from repro_torch.kernels import matmul_tiled as mt
 from repro_torch.kernels import moe_gmm as mg
 from repro_torch.kernels import ops
 from repro_torch.models import moe as tmoe
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 # tests/test_kernels.py:23
 TOL = {"float32": 2e-4, "bfloat16": 4e-2}

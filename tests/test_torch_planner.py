@@ -46,6 +46,7 @@ from repro_torch.kernels.staircase_fused import (
 )
 from repro_torch.serving import ServingWidthPlanner, TrafficClass, \
     serving_templates
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 HW = TPU_V5E
 

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 try:
     from hypothesis import given, settings, strategies as st
 except ImportError:  # minimal env: deterministic in-repo fallback

@@ -5,7 +5,8 @@ seed (CPU: the port takes its kernels' plain versions there).
 ``perturb_fp32_reads`` is shared with the model and serving tests: it moves
 the leaves that ``repro`` reads in fp32 off their constant initial values
 (``ln_x`` ones and zeros, ``decay_w`` -1), so that a rounding of them to
-bf16 would show."""
+bf16 would show; with ``norms=True`` it moves every norm's scale and bias
+too."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +22,26 @@ F32 = 2e-4      # tests/test_kernels.py:23 and tests/test_recurrent.py:82
 BF16 = 4e-2
 
 
-def perturb_fp32_reads(tree, seed=0):
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's tests (every port test module but
+    the card's and the convnet's imports this fixture): pytest-xdist runs
+    several workers on the machine's cores, and torch's OpenMP threads in
+    each worker contend for them (on an 8-core CPU, six concurrent runs of
+    tests/test_torch_chaos_cli.py took 21x longer at torch's default
+    thread count than at one thread each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def perturb_fp32_reads(tree, seed=0, norms=False):
     """A copy of a ``repro`` param tree (numpy leaves) whose fp32-read
     leaves (``transformer.FP32_READS``, norms excluded) carry noise off
-    bf16's grid."""
+    bf16's grid. With ``norms``, so does every norm: each dict of a
+    ``scale`` (and a ``bias``) alone, found by its shape and not by
+    ``FP32_READS``, so that a norm missing there would show."""
     rng = np.random.default_rng(seed)
 
     def noisy(a, scale):
@@ -42,6 +59,9 @@ def perturb_fp32_reads(tree, seed=0):
             elif k in rule:
                 out[k] = noisy(np.asarray(v), 0.3 if k == "decay_w"
                                else 0.01 * (1 + np.abs(v).mean()))
+            elif norms and isinstance(v, dict) and "scale" in v \
+                    and set(v) <= {"scale", "bias"}:
+                out[k] = {n: noisy(np.asarray(a), 0.1) for n, a in v.items()}
             else:
                 out[k] = walk(v, k)
         return out

@@ -29,7 +29,8 @@ from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve_batched import main as serve_batched_main
 from repro_torch.models import transformer as ttfm
 from repro_torch.serving import Request, ServeEngine
-from test_torch_recurrent import perturb_fp32_reads
+from test_torch_recurrent import (  # noqa: F401 — autouse
+    perturb_fp32_reads, one_torch_thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 4e-2          # bf16 tolerance, relative to the largest logit
@@ -321,10 +322,13 @@ def test_cli_runs_on_cpu(capsys):
     assert "on cpu" in capsys.readouterr().out
 
 
-def test_cli_refuses_archs_outside_the_slice():
-    with pytest.raises(SystemExit, match="encoder-decoder.*not ported"):
-        serve_main(["--device", "cpu", "--reduced", "--arch",
-                    "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-7b"])
+def test_cli_refuses_archs_outside_the_slice(arch):
+    """As ``repro``'s serving CLI does (src/repro/launch/serve.py:35): the
+    encoder-decoder and M-RoPE archs, whose inputs are not text tokens
+    alone, run through the model API instead."""
+    with pytest.raises(SystemExit, match="decoder-only text archs"):
+        serve_main(["--device", "cpu", "--reduced", "--arch", arch])
 
 
 def test_entry_points_default_to_the_card(model):
@@ -394,13 +398,13 @@ def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
 RECURRENT = ("recurrentgemma-2b", "rwkv6-1.6b")
 
 
-def recurrent_model(arch):
+def recurrent_model(arch, norms=False):
     """Both reduced configs and the reference's own init, with the
-    fp32-read leaves perturbed."""
+    fp32-read leaves (and, with ``norms``, every norm) perturbed."""
     jc = jax_reduced(jax_get_config(arch))
     tc = reduced_config(get_config(arch))
     host = perturb_fp32_reads(jax.device_get(
-        jtfm.init_params(jax.random.PRNGKey(1), jc)))
+        jtfm.init_params(jax.random.PRNGKey(1), jc)), norms=norms)
     return jc, tc, host
 
 
@@ -486,13 +490,22 @@ def test_rwkv_prompt_as_long_as_the_heads_serves():
     assert compared >= new * len(ps) // 4      # flat logits: see above
 
 
-@pytest.mark.parametrize("arch", RECURRENT + ("granite-moe-1b-a400m",))
+# the norms that repro's model reads through apply_norm, in fp32: its call
+# sites in src/repro/models/transformer.py (apply_layer's norm1, norm2 and
+# norm_cross, encode's enc_norm, forward's and decode_step's final_norm)
+NORM_READS = ("norm1", "norm2", "norm_cross", "enc_norm", "final_norm")
+
+
+@pytest.mark.parametrize("arch", RECURRENT + ("granite-moe-1b-a400m",
+                                              "seamless-m4t-medium"))
 def test_cast_params_keeps_the_fp32_reads(arch):
     """Every leaf ``repro`` reads in fp32 stays fp32 with the reference's
     (perturbed) value, bit for bit; every other leaf is its bf16 cast.
     The rule is the reference's use (``FP32_READS``), not a key name:
-    ``ln_x`` is a norm whose key lacks "norm"."""
-    _, tc, host = recurrent_model(arch)
+    ``ln_x`` is a norm whose key lacks "norm". Each norm of
+    ``NORM_READS``, a list taken from ``repro``'s call sites and not from
+    ``FP32_READS``, is checked by name as well."""
+    _, tc, host = recurrent_model(arch, norms=arch == "seamless-m4t-medium")
     params = params_from_jax(host)
     cast = ttfm.cast_params(params, "cpu")
     kept = []
@@ -520,8 +533,28 @@ def test_cast_params_keeps_the_fp32_reads(arch):
                                   "rec_gate_w", "rec_gate_b"},
             "rwkv6-1.6b": {"decay_w", "decay_lora_a", "decay_lora_b",
                            "bonus_u", "ln_x"},
-            "granite-moe-1b-a400m": {"router"}}[arch]
+            "granite-moe-1b-a400m": {"router"},
+            "seamless-m4t-medium": set()}[arch]
     assert want <= names and names - want <= {"scale", "bias"}
+
+    seen = set()
+
+    def norms(t, c, path):
+        for k in t:
+            if k in NORM_READS:
+                seen.add(k)
+                for n in t[k]:
+                    assert c[k][n].dtype == torch.float32, path + (k, n)
+                    assert torch.equal(c[k][n], t[k][n]), path + (k, n)
+            elif isinstance(t[k], dict):
+                norms(t[k], c[k], path + (k,))
+    norms(params, cast, ())
+    assert {"norm1", "final_norm"} <= seen
+    if arch == "seamless-m4t-medium":
+        assert seen == set(NORM_READS)
+        # the perturbed norms are off bf16's grid: a cast would move them
+        nc = cast["decoder"]["stack"]["u0"]["norm_cross"]["scale"]
+        assert not torch.equal(nc, nc.to(torch.bfloat16).float())
     # the perturbed values are off bf16's grid: a cast would move them
     dw = cast["decoder"]["stack"]["u0"].get("rwkv", {}).get("decay_w")
     if dw is not None:

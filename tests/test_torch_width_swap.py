@@ -31,6 +31,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving import (
     SWAP_STEPS, TrafficClass, WidthPlan, WidthSwapper, serving_templates,
 )
+from test_torch_recurrent import one_torch_thread  # noqa: F401
 
 
 def make_cfgs(arch="qwen1.5-0.5b", gqa=False, **kw):
