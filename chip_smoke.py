@@ -190,7 +190,31 @@ the target) and ``nvcc``:
    ``staircase_cta`` (b) held against its fp64 plain version on the same
    inputs (waves and tiles exact, rtol 1e-6); the measured reductions of
    Ours are printed, not checked;
-9. prints one JSON line with every kernel's numbers, then, last,
+9. training (after Table 2): full-width qwen1.5-0.5b (random weights from
+   seed 0, ``SyntheticLM`` seed 0, batch 8 x 128): (a) one step's loss and
+   every leaf's gradient on the kernels held to the same on the plain
+   versions (4e-2 of each leaf's largest |grad|; the loss 1e-4
+   relative), with the step's launches exact (per layer 3 products and 6
+   backward products on ``matmul_tiled``, one attention and its
+   backward); (b) ``launch.train``
+   at ``repro``'s CLI defaults for 20 steps, with the counts set to 0 just
+   before and read just after: exact launches, each step's loss, wall and
+   stream ms (CUDA events, idle gaps included), tokens/s, peak memory;
+   the same 20 steps from the CLI's init, batches and schedule run again
+   on the kernels and on the plain versions, the first 5 steps' losses
+   and four leaves' params after them held to plain; then ``launch.train --reduced
+   --d-model 256`` for 30 steps, its loss falling by 0.2 as ``repro``'s
+   tests/test_train.py asks of ``repro``; (c) one step under
+   ``torch.profiler``: the device's busy time and idle share in that
+   step's window, the top kernels; (d) the trained master copied in place into a ``ServeEngine``'s
+   cast tree, its step cache's prefill replay bit-equal to the eager
+   forward; (e) the backward kernels at the training shapes (the matmul
+   backward at the up/gate and down products, transposed copies timed
+   alone; the attention backward at qwen's causal shape and
+   seamless-m4t-medium's unmasked encoder and cross-attention), each
+   against its plain version, two attention backward calls bit-equal,
+   timed beside the plain version, ``torch.matmul`` and SDPA's backward;
+10. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --parent SRC
@@ -219,6 +243,10 @@ result line.
 
 runs only phase 7 and its kernel shapes and prints them as one JSON line,
 and no result line.
+
+    python3 chip_smoke.py --train
+
+runs only phase 9 and prints it as one JSON line, and no result line.
 
     python3 chip_smoke.py --host-us [SRC]
 
@@ -280,6 +308,11 @@ MOE_RTOL = 1e-2
 REPLACES = {
     "matmul_tiled": "src/repro/kernels/matmul_tiled.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
+    # the gradients of those two functions: the Pallas kernels have no
+    # backward (repro trains in plain JAX), so these take their place on
+    # the training path
+    "matmul_tiled_bwd": "src/repro/kernels/matmul_tiled.py:40",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:70",
     "staircase_fused": "src/repro/kernels/staircase_fused.py:208",
     # the staircase sweep in the tail model's GPU form (CTA waves over the
     # SMs), the same TPU kernel's function for a GPU spec
@@ -291,6 +324,8 @@ REPLACES = {
 SOURCES = {
     "matmul_tiled": "src/repro_torch/csrc/matmul_tiled.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "matmul_tiled_bwd": "src/repro_torch/csrc/matmul_tiled.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "staircase_fused": "src/repro_torch/kernels/staircase_fused.py",
     "staircase_cta": "src/repro_torch/kernels/staircase_fused.py",
     "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
@@ -298,6 +333,7 @@ SOURCES = {
     "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
 }
 ROUTES = {"matmul_tiled": "cuda", "flash_attention": "cuda",
+          "matmul_tiled_bwd": "cuda", "flash_attention_bwd": "cuda",
           "staircase_fused": "triton", "staircase_cta": "triton",
           "rglru_scan": "cuda",
           "rwkv6": "cuda", "moe_gmm": "cuda"}
@@ -492,7 +528,9 @@ def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
 # the one kernel of csrc/gemm_sm90.cuh, the staircase is not on a served
 # step
 TRACE_NAMES = {"matmul_tiled": "gemm_sm90", "moe_gmm": "gemm_sm90",
+               "matmul_tiled_bwd": "gemm_sm90",
                "flash_attention": "flash_attention_kernel",
+               "flash_attention_bwd": "dkdv_kernel",
                "rglru_scan": "rglru_scan_kernel", "rwkv6": "rwkv6_kernel"}
 
 
@@ -713,8 +751,10 @@ def parent_flash(torch, build, src: Path):
     check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
     lib = ctypes.CDLL(str(out))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_bf16.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                         ci, ci, ci, ctypes.c_float, vp]
+    # trees since the training slice take a nullable lse after out
+    lse = (None,) if "float* lse" in cu.read_text() else ()
+    lib.flash_attention_bf16.argtypes = [vp] * (4 + len(lse)) + [
+        ci] * 8 + [ctypes.c_float, vp]
     lib.flash_attention_bf16.restype = ci
     masks = {"none": 0, "causal": 1, "local": 2}
 
@@ -722,7 +762,8 @@ def parent_flash(torch, build, src: Path):
         b, sq, h, dh = q.shape
         out = torch.empty_like(q)
         err = lib.flash_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse,
+            b, sq,
             k.shape[1], h, k.shape[2], dh, masks[mask], window,
             1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"the parent's flash_attention failed: {err}")
@@ -890,7 +931,8 @@ def expected_launches(tfm, cfg, forwards: int = NEW_TOKENS) -> dict:
             "flash_attention": kinds.count("attn") * (2 if enc else 1) + enc,
             "staircase_fused": 0, "staircase_cta": 0,
             "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
-            "moe_gmm": 3 * mlps.count("moe") * forwards}
+            "moe_gmm": 3 * mlps.count("moe") * forwards,
+            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
 
 
 def serve_full_width(torch, np, mods, arch: str = ARCH, then=None,
@@ -902,6 +944,11 @@ def serve_full_width(torch, np, mods, arch: str = ARCH, then=None,
     tfm, Request, ServeEngine = mods["tfm"], mods["Request"], \
         mods["ServeEngine"]
     ops = mods["ops"]
+    # the previous phase's engines may hold reference cycles: collect them
+    # here, or the cyclic collector's timing decides what this family's
+    # peak memory counts
+    gc.collect()
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = tfm.init_params(cfg, gen, "cuda")
     max_len = max(PROMPT_LENS) + NEW_TOKENS
@@ -2275,7 +2322,8 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
     check(after_plan == {"matmul_tiled": 0, "flash_attention": 0,
                          "staircase_fused": len(traffic),
                          "staircase_cta": len(traffic), "rglru_scan": 0,
-                         "rwkv6": 0, "moe_gmm": 0},
+                         "rwkv6": 0, "moe_gmm": 0,
+                         "flash_attention_bwd": 0, "matmul_tiled_bwd": 0},
           f"planning launched {after_plan}, expected one CTA-wave and one "
           f"staircase sweep per class ({len(traffic)})")
     on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu",
@@ -3676,6 +3724,485 @@ def serve_batched_on_card(mods) -> None:
     log(f"launch.serve_batched on the card: {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# training (phase 10)
+# ---------------------------------------------------------------------------
+# full-width qwen1.5-0.5b trained through launch.train at repro's CLI
+# defaults (batch 8 x 128, not reduced, remat none), TRAIN_STEPS steps;
+# the kernel step's gradients held to the plain step's within TRAIN_TOL of
+# each leaf's scale (the bf16 bound of tests/test_kernels.py:23: the two
+# forwards round P and each product at other points), its loss within
+# TRAIN_LOSS_TOL relative (25 x the reading on the H100, 4.0e-6: the loss
+# at init sits near ln V whatever the layers compute, so the gradients
+# carry the check); the CLI's run then held step by step to a plain run
+# from the same weights, batches and schedule over its first
+# TRAIN_HELD_STEPS steps: each loss within TRAIN_HELD_TOL relative (5 x
+# the largest reading on the H100, 4.1e-5), and the leaves of
+# TRAIN_HELD_LEAVES within TRAIN_HELD_PARAM_TOL of the distance they moved
+# (||kernel - plain|| / ||kernel - init||; 4 x the largest reading on the
+# H100, 0.063, wq's); past those steps the two runs
+# part as any two roundings of this run do (lr 3e-3 on a stream the model
+# cannot learn: 1.1e-2 apart at step 7 on the H100), so the rest of the
+# 20 steps is printed beside the kernel run's, not held
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 20
+TRAIN_SMALL_STEPS = 30
+TRAIN_TOL = 4e-2
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_HELD_STEPS = 5
+TRAIN_HELD_TOL = 2e-4
+TRAIN_HELD_PARAM_TOL = 0.25
+TRAIN_HELD_LEAVES = (("embed", "tok_emb"), ("attn", "wq"), ("mlp", "w_up"),
+                     ("mlp", "w_down"))
+# the backward kernels' cases: the training step's products (up/gate and
+# down; each backward is two products and two transposed copies) and
+# attentions (qwen's causal at B 8 S 128 H 16 dh 64; seamless-m4t-medium's
+# unmasked encoder over 150 frames and its cross-attention, 32 queries on
+# 150 keys)
+TRAIN_MATMULS = ((1024, 1024, 2816), (1024, 2816, 1024))
+TRAIN_FLASH = ((8, 128, 128, 16, 16, 64, "causal"),
+               (4, 150, 150, 16, 16, 64, "none"),
+               (4, 32, 150, 16, 16, 64, "none"))
+
+
+def library_bwd_ms(torch, fn, args: tuple, reps: int = 20) -> tuple:
+    """Device ms of ``fn`` (an autograd backward) timed as every kernel
+    here is (``time_ms``, in a CUDA graph), or, where the capture refuses
+    the backward, the device time of its kernels per call under
+    ``torch.profiler`` over ``reps`` eager calls (the host's cost of an
+    eager call would otherwise be timed)."""
+    try:
+        return time_ms(torch, fn, args), "graph"
+    except RuntimeError as e:
+        log(f"library backward not capturable ({str(e)[:80]}): profiled")
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    return profiled_busy(torch, prof)[0] / reps, "profiled kernels"
+
+
+def compare_matmul_bwd(torch, mt, case: tuple, gen) -> dict:
+    """The matmul backward of one (M, K) @ (K, N) product at a training
+    shape: dX = dY W^T and dW = X^T dY on the kernel (two launches, W^T and
+    X^T copied contiguous first) against the plain version (two bf16 steps
+    of the largest value), its time, the transposes' time alone, the plain
+    version's, and the two products of torch.matmul on transposed views
+    (what aten's mm backward runs)."""
+    m, k, n = case
+    x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(k, n, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
+    got = mt.matmul_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, ref in zip(got, mt.matmul_bwd_ref(x, w, dy)):
+        ref = ref.float()
+        e = (g.float() - ref).abs().max().item()
+        tol = 2.0 ** -7 * ref.abs().max().item()
+        check(bool(torch.isfinite(g.float()).all()) and e <= tol,
+              f"matmul_tiled_bwd {case}: max_abs_err {e} > tol {tol}")
+        err = max(err, e)
+    b_ms, b_by = bound_ms(4.0 * m * n * k,
+                          2.0 * (2 * m * k + 2 * k * n + m * n))
+    row = {"case": f"M={m} K={k} N={n} (dX {m}x{n} @ {n}x{k}, dW {k}x{m} "
+                   f"@ {m}x{n})",
+           "max_abs_err": err,
+           "ms": time_ms(torch, lambda *a: mt.matmul_bwd(*a), (x, w, dy)),
+           "transposes_ms": time_ms(torch, lambda a, b: (
+               b.t().contiguous(), a.t().contiguous()), (x, w)),
+           "plain_ms": time_ms(torch, mt.matmul_bwd_ref, (x, w, dy)),
+           "library_ms": time_ms(torch, lambda a, b, d: (
+               torch.matmul(d, b.t()), torch.matmul(a.t(), d)), (x, w, dy)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"matmul_tiled_bwd {row['case']}: max_abs_err {err:.4g} ms "
+        f"{row['ms']:.4f} (transposed copies {row['transposes_ms']:.4f}) "
+        f"plain_ms {row['plain_ms']:.4f} library_ms "
+        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+        f"{100 * b_ms / row['ms']:.1f}% of it)")
+    return row
+
+
+def compare_flash_bwd(torch, fa, case: tuple, gen) -> dict:
+    """The attention backward at one shape: the kernel against
+    ``attention_bwd_ref`` on the kernel forward's O and lse (each gradient
+    within 4e-2 of its largest), two calls bit-equal, the forward with its
+    lse equal to the forward alone, its time, the plain version's and
+    SDPA's backward through autograd."""
+    b, sq, skv, h, kv, dh, mask = case
+    q = torch.randn(b, sq, h, dh, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, skv, kv, dh, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, skv, kv, dh, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(b, sq, h, dh, generator=gen, device="cuda").bfloat16()
+    o, lse = fa.flash_attention(q, k, v, mask_kind=mask, lse=True)
+    check(torch.equal(o, fa.flash_attention(q, k, v, mask_kind=mask)),
+          f"flash_attention {case}: the forward with lse differs")
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind=mask)
+    torch.cuda.synchronize()
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind=mask)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"flash_attention_bwd {case}: a second call differs")
+    err = 0.0
+    for name, g, ref in zip(("dq", "dk", "dv"), got, fa.attention_bwd_ref(
+            q, k, v, o, lse, do, mask_kind=mask)):
+        ref = ref.float()
+        e = (g.float() - ref).abs().max().item()
+        tol = TRAIN_TOL * ref.abs().max().item()
+        check(bool(torch.isfinite(g.float()).all()) and e <= tol,
+              f"flash_attention_bwd {case} {name}: max_abs_err {e} > {tol}")
+        err = max(err, e)
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    # SDPA's flash backend: the default one's causal backward at the
+    # training shape refused a CUDA graph capture on the H100
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = F.scaled_dot_product_attention(qt, kt, vt,
+                                             is_causal=mask == "causal",
+                                             enable_gqa=kv != h)
+    dot = do.transpose(1, 2)
+
+    def library(d):
+        return torch.autograd.grad(out, (qt, kt, vt), d, retain_graph=True)
+    pairs = visible_pairs(sq, skv, mask, 0)
+    b_ms, b_by = bound_ms(10.0 * b * h * pairs * dh,
+                          2.0 * (4 * b * sq * h * dh + 4 * b * skv * kv * dh)
+                          + 4.0 * b * h * sq)
+    lib_ms, lib_how = library_bwd_ms(torch, library, (dot,))
+    row = {"case": f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} dh={dh} {mask}",
+           "max_abs_err": err, "tol": TRAIN_TOL,
+           "ms": time_ms(torch, lambda *a: fa.flash_attention_bwd(
+               *a, mask_kind=mask), (q, k, v, o, lse, do)),
+           "plain_ms": time_ms(torch, lambda *a: fa.attention_bwd_ref(
+               *a, mask_kind=mask), (q, k, v, o, lse, do)),
+           "library_ms": lib_ms, "library_timed": lib_how,
+           "bound_ms": b_ms, "bound_by": b_by}
+    f = fa.bwd_form(dh)
+    n_kv, n_q = fa.bwd_grid_blocks(b, sq, skv, h, kv)
+    log(f"flash_attention_bwd {row['case']}: max_abs_err {err:.4g} (of "
+        f"the largest gradient x {TRAIN_TOL}) ms {row['ms']:.4f} plain_ms "
+        f"{row['plain_ms']:.4f} library_ms (SDPA flash backward, {lib_how}) "
+        f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+        f"{100 * b_ms / row['ms']:.1f}% of it); form: dK/dV {n_kv} CTAs, dQ "
+        f"{n_q} CTAs of {f['threads']} threads, {f['smem_bytes']} B shared, "
+        f"registers {f['dkdv_registers']}/{f['dq_registers']}, spilled "
+        f"{f['dkdv_spill_bytes']}/{f['dq_spill_bytes']} B")
+    return row
+
+
+def profiled_busy(torch, prof) -> tuple:
+    """(device ms of the kernels and copies a profile recorded, the 12
+    operators whose own kernels took most, as (name, ms, calls), none
+    where the host was not traced): kernels are the device-side events; an operator's ``self_device_time_total``
+    is the time of the kernels it launched, so the two are not summed."""
+    dev = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+
+    def ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+    busy = sum(ms(e) for e in events if e.device_type == dev)
+    ops_ = sorted((e for e in events if e.device_type != dev), key=ms,
+                  reverse=True)
+    return busy, [(e.key, round(ms(e), 3), e.count) for e in ops_[:12]]
+
+
+def grad_scales(torch, flat: dict) -> dict:
+    """Each leaf's largest |grad|, the scale its error is held to; a key
+    bias ``bk`` (whose gradient is 0 but for rounding: softmax is invariant
+    to a bias added to every key) takes the larger of its own and its
+    layer's query bias ``bq``'s."""
+    out = {p: g.float().abs().max().item() for p, g in flat.items()}
+    for p in flat:
+        if p[-1] == "bk" and p[:-1] + ("bq",) in flat:
+            out[p] = max(out[p], out[p[:-1] + ("bq",)])
+    return out
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The kernels' launches of ``steps`` train steps of a dense, all
+    global-attention decoder with remat none: per layer and step, the
+    MLP's 3 products forward and 6 backward (dX and dW of each) and one
+    causal attention forward and backward."""
+    n = cfg.n_layers
+    return {"matmul_tiled": 3 * n * steps, "matmul_tiled_bwd": 6 * n * steps,
+            "flash_attention": n * steps,
+            "flash_attention_bwd": n * steps}
+
+
+def train_held_to_plain(torch, mods, cfg, params, src, tc,
+                        cli_losses: list) -> dict:
+    """The CLI's run held to plain: from ``params`` (the CLI's init, not yet
+    trained) two runs of ``TRAIN_STEPS`` steps on the CLI's batches and
+    schedule, one on the kernels and one with ``force="plain"``, step by
+    step. Over the first ``TRAIN_HELD_STEPS``, each loss within
+    ``TRAIN_HELD_TOL`` relative, and after them each leaf of
+    ``TRAIN_HELD_LEAVES`` within ``TRAIN_HELD_PARAM_TOL`` of the distance it
+    moved from the init; the rest printed. The kernel run's losses against
+    the CLI's, printed."""
+    from repro_torch.launch.train import to_device
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import step as tstep
+    t0 = time.perf_counter()
+    lr = toptim.cosine_schedule(3e-3, max(TRAIN_STEPS // 20, 1), TRAIN_STEPS)
+    init = tstep.named_leaves(params)
+    runs = {}
+    for force in (None, "plain"):
+        p = tstep.from_named_leaves([(k, t.detach().clone())
+                                     for k, t in init])
+        runs[force] = [p, toptim.adamw_init(p), tstep.build_train_step(
+            cfg, tc, lr, force=force), []]
+
+    def parted() -> dict:
+        """||kernel - plain|| / ||kernel - init|| of every leaf, now."""
+        pk, pp = (dict(tstep.named_leaves(runs[f][0]))
+                  for f in (None, "plain"))
+        return {"/".join(path): (pk[path] - pp[path]).float().norm().item()
+                / max((pk[path] - t).float().norm().item(), 1e-30)
+                for path, t in init}
+
+    moved = {}
+    for i in range(TRAIN_STEPS):
+        batch = to_device(tdata.augment_for_arch(src.batch(i), cfg,
+                                                 TRAIN_SEQ, i), "cuda")
+        for run in runs.values():
+            run[0], run[1], m = run[2](run[0], run[1], batch, i)
+            run[3].append(float(m["loss"]))
+        if i + 1 in (TRAIN_HELD_STEPS, TRAIN_STEPS):
+            moved[i + 1] = parted()
+    lk, lp = runs[None][3], runs["plain"][3]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    n = TRAIN_HELD_STEPS
+    check(max(rel[:n]) <= TRAIN_HELD_TOL,
+          f"train (b) held: over the first {n} steps the kernel run's "
+          f"losses {lk[:n]} and the plain run's {lp[:n]} part by "
+          f"{max(rel[:n]):.3e} relative > {TRAIN_HELD_TOL}")
+    held = {k: v for k, v in moved[n].items()
+            if tuple(k.split("/")[-2:]) in TRAIN_HELD_LEAVES}
+    check(len(held) == len(TRAIN_HELD_LEAVES)
+          and max(held.values()) <= TRAIN_HELD_PARAM_TOL,
+          f"train (b) held: after {n} steps the kernel and plain runs' "
+          f"params part by {held} of the distance moved > "
+          f"{TRAIN_HELD_PARAM_TOL}")
+
+    def rounded(d: dict) -> dict:
+        return {k: round(v, 4) for k, v in d.items()
+                if tuple(k.split("/")[-2:]) in TRAIN_HELD_LEAVES}
+    worst = sorted(moved[n].items(), key=lambda kv: -kv[1])[:4]
+    cli = max(abs(a - b) for a, b in zip(lk, cli_losses))
+    log(f"train (b) held to plain from the CLI's init, batches and "
+        f"schedule: the first {n} steps' losses within "
+        f"{max(rel[:n]):.3e} relative (bound {TRAIN_HELD_TOL}); per step "
+        f"{[f'{x:.2e}' for x in rel]}; plain losses "
+        f"{[round(x, 6) for x in lp]}; ||kernel - plain|| / ||kernel - "
+        f"init|| after {n} steps {rounded(moved[n])} (bound "
+        f"{TRAIN_HELD_PARAM_TOL}; largest of any leaf "
+        f"{[(k, round(v, 4)) for k, v in worst]}), after {TRAIN_STEPS} "
+        f"{rounded(moved[TRAIN_STEPS])}; the kernel run's losses differ "
+        f"from the CLI's by at most {cli:.3e}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernel_losses": lk, "plain_losses": lp, "loss_rel": rel,
+            "param_rel": held, "cli_loss_diff": cli}
+
+
+def train_phase(torch, np, mods, card: str) -> dict:
+    """Full-width qwen1.5-0.5b's training: (a) one step's gradients on the
+    kernels and on the plain versions from the same weights and batch,
+    launches exact; (b) ``launch.train`` at its defaults for
+    ``TRAIN_STEPS`` steps, with the counts set to 0 just before and read
+    just after: each loss, the step's wall and stream ms, tokens/s, peak
+    memory; the same steps held to plain (``train_held_to_plain``); then
+    a reduced qwen through the same CLI, whose loss must fall; (c) one
+    step profiled: the device's busy time and idle share in its window; (d) a served model updated in place: the trained master
+    copied into a ``ServeEngine``'s cast tree, the step cache's replayed
+    prefill held bit-equal to the eager forward; (e) the backward kernels
+    at their training shapes against plain, timed."""
+    from repro_torch.launch.train import main as train_main, to_device
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import step as tstep
+    tfm, ops, sv = mods["tfm"], mods["ops"], mods["serving"]
+    t_phase = time.perf_counter()
+    cfg = mods["configs"].get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tfm.init_params(cfg, gen, "cuda")
+    n_params = sum(t.numel() for _, t in tstep.named_leaves(params))
+    src = tdata.SyntheticLM(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+    batch = to_device(tdata.augment_for_arch(src.batch(0), cfg, TRAIN_SEQ),
+                      "cuda")
+    tc = tstep.TrainConfig(remat="none", moe_strategy="dense")
+
+    # (a) the kernel step against the plain step
+    ops.reset_launches()
+    lk, mk, gk = tstep.grads_fn(params, batch, cfg, tc)
+    torch.cuda.synchronize()
+    got = {k: n for k, n in ops.LAUNCHES.items() if n}
+    want = train_launches(cfg, 1)
+    check(got == want, f"train step launches {got} != {want}")
+    lp, mp, gp = tstep.grads_fn(params, batch, cfg, tc, force="plain")
+    check(abs(float(lk) - float(lp)) <= TRAIN_LOSS_TOL * abs(float(lp)),
+          f"train step loss {float(lk)} on the kernels, {float(lp)} plain: "
+          f"more than {TRAIN_LOSS_TOL} relative apart")
+    fk, fp = dict(tstep.named_leaves(gk)), dict(tstep.named_leaves(gp))
+    scales = grad_scales(torch, fp)
+    worst = (0.0, None)
+    for path, g in fk.items():
+        e = (g.float() - fp[path].float()).abs().max().item() / max(
+            scales[path], 1e-30)
+        check(bool(torch.isfinite(g).all()) and e <= TRAIN_TOL,
+              f"train step gradient {'/'.join(path)}: {e:.4g} of its scale "
+              f"> {TRAIN_TOL}")
+        worst = max(worst, (e, "/".join(path)))
+    log(f"train (a) {ARCH}: {n_params / 1e6:.1f} M params, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}; loss {float(lk):.6f} on the kernels, "
+        f"{float(lp):.6f} plain ({abs(float(lk) - float(lp)) / abs(float(lp)):.3e} "
+        f"relative, bound {TRAIN_LOSS_TOL}); every leaf's gradient within "
+        f"{TRAIN_TOL} of its scale (worst {worst[0]:.4g}, {worst[1]}); "
+        f"launches {got}")
+    del gk, gp, fk, fp
+
+    # (b) the training CLI, the main path
+    stats = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses = train_main(["--arch", ARCH, "--steps", str(TRAIN_STEPS),
+                         "--log-every", "1", "--seed", str(SEED)],
+                        stats=stats)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0) | train_launches(cfg, TRAIN_STEPS)
+    check(launches == want, f"launch.train: launches {launches} != {want}")
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"launch.train: losses {losses}")
+    warm = stats[2:]
+    wall = float(np.median([s["wall_ms"] for s in warm]))
+    stream = float(np.median([s["stream_ms"] for s in warm]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for s in stats:
+        log(f"train (b) step {s['step']:2d}: loss {s['loss']:.6f}, wall "
+            f"{s['wall_ms']:.3f} ms, stream {s['stream_ms']:.3f} ms "
+            f"(events, idle gaps included)")
+    held = train_held_to_plain(torch, mods, cfg, params, src, tc, losses)
+    # a task the model can learn in a few steps: a reduced qwen (head dim
+    # 64, vocab 256) through the same CLI on the card, held to repro's
+    # tests/test_train.py criterion (the last 5 losses' best 0.2 below the
+    # first); full width's 151,936-token stream is not learnt in 20 steps
+    small = train_main(["--arch", ARCH, "--reduced", "--d-model", "256",
+                        "--steps", str(TRAIN_SMALL_STEPS), "--seq", "64",
+                        "--batch", "4", "--log-every", "100",
+                        "--seed", str(SEED)])
+    check(all(map(math.isfinite, small))
+          and min(small[-5:]) < small[0] - 0.2,
+          f"launch.train --reduced on the card: the loss did not fall by "
+          f"0.2: {small}")
+    log(f"train (b) launch.train --reduced --d-model 256 on the card, "
+        f"{TRAIN_SMALL_STEPS} steps of 4 x 64: loss {small[0]:.4f} -> "
+        f"{small[-1]:.4f} (best of the last 5 {min(small[-5:]):.4f})")
+
+    # (c) one step profiled (the CLI's step, on (a)'s weights)
+    opt = toptim.adamw_init(params)
+    step_fn = tstep.build_train_step(cfg, tc, toptim.cosine_schedule(
+        3e-3, 1, TRAIN_STEPS))
+    for i in range(2):
+        step_fn(params, opt, batch, i)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    # busy and idle of one window, a step traced on the device alone (the
+    # profiler's host cost, which stretches the wall beyond (b)'s
+    # unprofiled steps, is least there); the ops come from the next step,
+    # traced on the host too
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt, batch, 2)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    busy = profiled_busy(torch, prof)[0]
+    idle = 1 - busy / prof_wall if busy > 0 else None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(params, opt, batch, 3)
+        torch.cuda.synchronize()
+    top = profiled_busy(torch, prof)[1]
+    log(f"train (c) one step traced on the device: wall {prof_wall:.3f} "
+        f"ms under the profiler, its kernels busy {busy:.3f} ms, device "
+        "idle " + ("not measured (no device time)" if idle is None
+                   else f"{100 * idle:.1f}%") + f" of that wall ((b)'s "
+        f"unprofiled median {wall:.3f} ms); in the next step, traced on the "
+        f"host too, the ops whose kernels took most (op, device ms, calls) "
+        f"{top}")
+
+    # (d) a served model updated in place by the optimizer
+    cache = sv.WidthVariantCompileCache(cfg, hw=mods["H100_SXM"])
+    served = tstep.from_named_leaves([(p, t.detach())
+                            for p, t in tstep.named_leaves(params)])
+    engine = sv.ServeEngine(served, cfg, max_len=TRAIN_SEQ + NEW_TOKENS,
+                            batch_slots=4, rng_seed=SEED, device="cuda",
+                            compile_cache=cache)
+    check(engine.warm_compile([], [(4, TRAIN_SEQ)]) == 2,
+          "train (d): warm_compile did not capture the prefill and decode")
+    count = cache.tracer.count
+    toks = batch["tokens"][:4]
+    before = cache.prefill(engine.params, toks)[0].clone()
+    step_fn(params, opt, batch, 4)
+    master = dict(tstep.named_leaves(params))
+    with torch.no_grad():
+        for path, leaf in tstep.named_leaves(engine.params):
+            leaf.copy_(master[path])
+    replay = cache.prefill(engine.params, toks)[0].clone()
+    with torch.inference_mode(), ops.kernel_context(hw=mods["H100_SXM"]):
+        eager, _ = tfm.forward(engine.params, cfg, tokens=toks,
+                               mode="prefill")
+    check(torch.equal(replay, eager),
+          f"train (d): the replayed prefill differs from the eager forward "
+          f"on the updated weights by "
+          f"{(replay.float() - eager.float()).abs().max().item()}")
+    check(not torch.equal(replay, before),
+          "train (d): the replay did not see the update")
+    check(cache.tracer.count == count and cache.stats["fallbacks"] == 0,
+          f"train (d): stats {cache.stats}, captures "
+          f"{cache.tracer.count - count} after the warm-up")
+    log(f"train (d): the trained master copied into the served cast tree "
+        f"in place; the step cache's prefill replay equals the eager "
+        f"forward bit for bit and moved by "
+        f"{(replay.float() - before.float()).abs().max().item():.4g} "
+        f"(largest logit change); no capture after the warm-up")
+    del engine, cache, before, replay, eager, params, opt, master, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the backward kernels at their training shapes
+    mm = [compare_matmul_bwd(torch, mods["mt"], c, gen)
+          for c in TRAIN_MATMULS]
+    fl = [compare_flash_bwd(torch, mods["fa"], c, gen) for c in TRAIN_FLASH]
+    tok_s = tokens / (wall / 1e3)
+    log(f"train summary {card}: {ARCH} full width, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, remat none: step wall {wall:.3f} ms, stream "
+        f"{stream:.3f} ms (events; medians of steps 2-{TRAIN_STEPS - 1}), "
+        f"{tok_s:.1f} tokens/s, kernels busy {busy:.3f} ms and device idle "
+        + ("not measured" if idle is None else f"{100 * idle:.1f}%")
+        + f" of a profiled step's wall {prof_wall:.3f} ms, peak "
+        f"{peak / 2**30:.3f} GiB; losses {[round(x, 4) for x in losses]}, "
+        f"plain {[round(x, 4) for x in held['plain_losses']]}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return {"launches": launches, "losses": losses, "wall_ms": wall,
+            "stream_ms": stream, "tok_s": tok_s, "idle": idle,
+            "busy_ms": busy, "profiled_wall_ms": prof_wall,
+            "small_losses": small, "held": held,
+            "peak_bytes": peak, "matmul_bwd": mm, "flash_bwd": fl}
+
+
 def cli_on_card(mods, arch: str = ARCH) -> None:
     """``launch.serve --arch arch`` on the card at full width; each kernel
     of that arch's path must have launched."""
@@ -3748,7 +4275,7 @@ def main() -> None:
             "serve_batched_main": serve_batched_main,
             "serve_continuous": serve_continuous, "chaos": chaos,
             "serve_resilient": serve_resilient,
-            "mt": mt, "mg": mg, "autotune": autotune,
+            "mt": mt, "mg": mg, "fa": fa, "autotune": autotune,
             "pruning_opt": pruning_opt, "pruning": pruning}
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3781,6 +4308,13 @@ def main() -> None:
         # the Table 2 phase alone
         table2 = table2_phase(torch, np, mods, card)
         print(json.dumps({"table2": table2}), flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
+    if "--train" in argv:
+        # the training phase alone
+        trained = train_phase(torch, np, mods, card)
+        print(json.dumps({"train": trained}), flush=True)
         if DEFERRED:
             fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
         return
@@ -3929,6 +4463,9 @@ def main() -> None:
     # CPU, (b) the GPU form at three settings, every net timed, (c) each
     # kernel forward against plain
     table2 = table2_phase(torch, np, mods, card)
+    # training: full-width qwen1.5-0.5b through launch.train, its MLP
+    # products and attentions forward and backward on the kernels
+    trained = train_phase(torch, np, mods, card)
 
     kernels = []
     # each kernel's launches are read from the main path that runs it: the
@@ -3943,6 +4480,10 @@ def main() -> None:
           f"the planner path skipped a kernel: {planned['launches']}")
     for name, row, path in (("matmul_tiled", mm[0], served),
                             ("flash_attention", fl[0], served),
+                            ("matmul_tiled_bwd", trained["matmul_bwd"][0],
+                             trained),
+                            ("flash_attention_bwd", trained["flash_bwd"][0],
+                             trained),
                             ("staircase_fused", st[0], planned),
                             ("staircase_cta", cta[0], planned),
                             ("rglru_scan", rgl[0], rec_g),
@@ -3994,6 +4535,12 @@ def main() -> None:
             # the families phase's launches and its shapes
             kernels[-1]["families"] = family_rows(families, mm_new,
                                                   fl_new)[name]
+            # the training path's forward launches
+            kernels[-1]["train_launches"] = trained["launches"][name]
+        if name in ("matmul_tiled_bwd", "flash_attention_bwd"):
+            # every training shape timed
+            kernels[-1]["cases"] = trained[
+                "matmul_bwd" if name == "matmul_tiled_bwd" else "flash_bwd"]
     log(f"card: {card}; total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     if DEFERRED:

@@ -37,7 +37,10 @@
 //   that P V does (the first block is peeled, the last P V follows the
 //   loop).
 // The epilogue divides by max(l, 1e-30), rounds to bf16 and stores the
-// rows below Sq.
+// rows below Sq; on request (a non-null lse, for the backward in
+// flash_attention_bwd.cu) it also stores each row's log-sum-exp of the
+// scaled scores, m + log(max(l, 1e-30)) in natural log, as fp32 (B, H, Sq).
+// Serving does not request it, and its launches store no more than before.
 //
 // Bound: at the prefill shape (B 4, S 128, 16 heads, dh 64) the work is
 // small (128 CTAs, two kv blocks at most) and latency bounds it: every
@@ -73,6 +76,7 @@ constexpr int THREADS = WG + 32;          // and one producer warp
 constexpr int ATOM = 64 * 128;            // a 64-row box of 128-byte rows
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int ERR_ENCODE = 1 << 20;       // not a cudaError_t
 enum MaskKind { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_LOCAL = 2 };
 
@@ -91,6 +95,7 @@ struct Form {
 
 struct Args {
   __nv_bfloat16* out;
+  float* lse;                             // (B, H, Sq), or null
   int Sq, Skv, H, KV, mask_kind, window;
   float scale_log2;                       // scale * log2(e)
 };
@@ -474,6 +479,12 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
       *reinterpret_cast<uint32_t*>(ob + (size_t)qb * row + 8 * n) =
           pack_f32(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
   }
+  // m is in base 2 of the scaled scores: L = (m + log2 l) ln 2
+  if (a.lse != nullptr && t == 0) {
+    float* lp = a.lse + ((size_t)b * a.H + h) * a.Sq;
+    if (qa < a.Sq) lp[qa] = (m_a + log2f(fmaxf(l_a, 1e-30f))) * LN2;
+    if (qb < a.Sq) lp[qb] = (m_b + log2f(fmaxf(l_b, 1e-30f))) * LN2;
+  }
 }
 
 // (dh, heads, S, B) of a contiguous (B, S, heads, dh) bf16 tensor, boxes
@@ -550,11 +561,12 @@ int flash_attention_form(int dh, int* out) {
 }
 
 // mask_kind: 0 none, 1 causal, 2 local (window > 0). dh must be 64 or 128;
-// q, k, v and out contiguous and 16-byte aligned.
+// q, k, v and out contiguous and 16-byte aligned; lse null, or (B, H, Sq)
+// fp32 for each row's log-sum-exp. Serving passes null.
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Skv, int H, int KV,
-                         int dh, int mask_kind, int window, float scale,
-                         void* stream) {
+                         void* out, float* lse, int B, int Sq, int Skv,
+                         int H, int KV, int dh, int mask_kind, int window,
+                         float scale, void* stream) {
   if (dh != 64 && dh != 128) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled fn = encode_tiled();
   CUtensorMap mq, mk, mv;
@@ -564,6 +576,7 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
     return ERR_ENCODE;
   Args a;
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.lse = lse;
   a.Sq = Sq;
   a.Skv = Skv;
   a.H = H;

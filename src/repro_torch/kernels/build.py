@@ -20,7 +20,9 @@ before it imports Triton, so the compiled kernel stays in the gitignored
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
 one right after the launch returned without error, and nowhere else. Each
 counts one per call: a product in the decode form of ``matmul_tiled`` or
-``moe_gmm`` sums its K chunks inside the same launch.
+``moe_gmm`` sums its K chunks inside the same launch, and a call of
+``flash_attention_bwd`` is its three passes. The matmul backward's products
+launch ``matmul_tiled``'s kernel and count under ``matmul_tiled_bwd``.
 """
 
 from __future__ import annotations
@@ -40,11 +42,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 CUDA_SOURCES = ("matmul_tiled", "flash_attention", "rwkv6",  # csrc/<name>.cu
-                "moe_gmm", "rglru_scan")
+                "moe_gmm", "rglru_scan", "flash_attention_bwd")
 TRITON_KERNELS = {"staircase_fused": "staircase_fused",      # kernels/<v>.py
                   "staircase_cta": "staircase_fused"}
+# launches counted apart from their library's name: the matmul backward's
+# products (csrc/matmul_tiled.cu)
+EXTRA_COUNTS = ("matmul_tiled_bwd",)
 LAUNCHES: Dict[str, int] = {k: 0 for k in CUDA_SOURCES
-                            + tuple(TRITON_KERNELS)}
+                            + tuple(TRITON_KERNELS) + EXTRA_COUNTS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -36,6 +36,7 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "matmul_tiled"
+NAME_BWD = "matmul_tiled_bwd"   # the backward's dX and dW products
 BLOCK_M = 128         # the default prefill tile; csrc/matmul_tiled.cu checks
 BLOCK_N = 64
 DECODE_BLOCK_M = 64   # M at or below this takes the decode form
@@ -77,6 +78,28 @@ _RETIRED: List[torch.Tensor] = []
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: (M, K) @ (K, N) accumulated in fp32, cast to x.dtype."""
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def matmul_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """Plain version of the backward of ``x @ w``: (dX = dY W^T, dW = X^T
+    dY), each accumulated in fp32 and cast to its input's dtype."""
+    return ((dy.float() @ w.float().T).to(x.dtype),
+            (x.float().T @ dy.float()).to(w.dtype))
+
+
+def matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+               need=(True, True)):
+    """The backward of ``x @ w`` on the kernel: dX = dY @ W^T and dW = X^T
+    @ dY (where ``need`` asks for them), each a launch of
+    :func:`matmul_tiled` on the default tile, counted under ``NAME_BWD``.
+    The kernel reads both operands K-major, so W^T and X^T are transposed
+    copies made contiguous first (dY is contiguous already)."""
+    dy = dy.contiguous()
+    dx = matmul_tiled(dy, w.t().contiguous(), count=NAME_BWD) \
+        if need[0] else None
+    dw = matmul_tiled(x.t().contiguous(), dy, count=NAME_BWD) \
+        if need[1] else None
+    return dx, dw
 
 
 def kernel_form(m: int, k: int) -> Tuple[bool, int]:
@@ -239,14 +262,15 @@ def form(kind: str, device="cuda", tile=None) -> dict:
     return read_form(NAME, _bind, kind, device, tile)
 
 
-def matmul_tiled(x: torch.Tensor, w: torch.Tensor,
-                 tile=None) -> torch.Tensor:
+def matmul_tiled(x: torch.Tensor, w: torch.Tensor, tile=None, *,
+                 count: str = NAME) -> torch.Tensor:
     """Launch the kernel: x (M, K) bf16 @ w (K, N) bf16 -> (M, N) bf16,
     on CUDA tensors, on the current stream, on ``tile`` (one of
     ``PREFILL_TILES``, ``DEFAULT_TILE`` when None; the decode form's one
     tile at M <= ``DECODE_BLOCK_M``). A tile the kernel does not have
     raises. Launches on one stream at a time per device: the decode form's
-    scratch is shared."""
+    scratch is shared. The launch counts under ``count`` in
+    ``build.LAUNCHES`` (``NAME_BWD`` for the backward's products)."""
     if not (x.is_cuda and w.is_cuda) or x.device != w.device:
         raise ValueError(f"matmul_tiled: x and w must lie on one CUDA "
                          f"device, got {x.device} and {w.device}")
@@ -285,5 +309,5 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor,
         raise RuntimeError(f"matmul_tiled launch failed: "
                            f"{lib.matmul_tiled_error_string(-r).decode()}")
     LAST["loads"] = "tma" if r else "elementwise"
-    build.LAUNCHES[NAME] += 1
+    build.LAUNCHES[count] += 1
     return out

@@ -21,6 +21,17 @@ the launch, so a CUDA graph captured inside a context keeps its tiles. The
 plain versions compute the same values whatever the tile; ``TILES``
 records, per kernel, the tile of the last call, the one its launch took
 or, on the CPU, would take.
+
+Gradients. ``matmul`` and ``flash_attention`` are ``torch.autograd.Function``s
+when grad is enabled and an input requires it: on a CUDA tensor the forward
+and the backward run the hand-written kernels (the GEMM's dX and dW
+products; the attention kernel with its row log-sum-exp, then
+``flash_attention_bwd``), on the CPU (or with ``force="plain"``) the plain
+forward and the plain backward's explicit formulas. Serving, under
+``no_grad`` or on tensors that need no grad, takes the forward alone, as
+before. ``moe_gmm``, ``rglru_scan`` and ``rwkv6`` have no backward kernel
+yet: on a CUDA tensor that needs grad they raise rather than cut the
+gradient; their plain versions train on the CPU through autograd.
 """
 
 from __future__ import annotations
@@ -35,8 +46,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention as flash_attention_kernel)
-from repro_torch.kernels.matmul_tiled import launch_tile, matmul_ref, \
-    matmul_tiled
+from repro_torch.kernels.matmul_tiled import launch_tile, matmul_bwd, \
+    matmul_bwd_ref, matmul_ref, matmul_tiled
 from repro_torch.kernels.moe_gmm import moe_gmm as moe_gmm_kernel, \
     moe_gmm_ref
 from repro_torch.kernels.rglru import rglru_ref, rglru_scan as rglru_kernel
@@ -105,6 +116,70 @@ def _tuned(tile, hw, cache, tune):
     return tuple(tune(hw, cache).blocks)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _no_backward(name: str, plain: bool, *ts) -> None:
+    """Raise where a kernel without a backward would cut the gradient."""
+    if not plain and _needs_grad(*ts):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet, and a launch would "
+            f"cut the gradient; run it under torch.no_grad(), or train on "
+            f"the CPU's plain version")
+
+
+class _Matmul(torch.autograd.Function):
+    """x @ w on the kernel (or the plain version), with dX = dY W^T and dW =
+    X^T dY on the kernel too (or the plain formulas)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile, plain):
+        ctx.save_for_backward(x, w)
+        ctx.plain = plain
+        return matmul_ref(x, w) if plain else matmul_tiled(x, w, tile)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        if ctx.plain:
+            dx, dw = matmul_bwd_ref(x, w, dy)
+        else:
+            dx, dw = matmul_bwd(x, w, dy, ctx.needs_input_grad[:2])
+        return dx, dw, None, None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention on the kernel with its row log-sum-exp (or the plain
+    version), and its backward on ``flash_attention_bwd`` (or
+    ``attention_bwd_ref``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_kind, window, plain):
+        if plain:
+            o, lse = attention_ref(q, k, v, mask_kind=mask_kind,
+                                   window=window, lse=True)
+        else:
+            o, lse = flash_attention_kernel(q, k, v, mask_kind=mask_kind,
+                                            window=window, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask_kind, ctx.window, ctx.plain = mask_kind, window, plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if ctx.plain:
+            grads = fa.attention_bwd_ref(q, k, v, o, lse, do,
+                                         mask_kind=ctx.mask_kind,
+                                         window=ctx.window)
+        else:
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                           mask_kind=ctx.mask_kind)
+        return (*grads, None, None, None)
+
+
 def _use_plain(t: torch.Tensor, force: Optional[str]) -> bool:
     if force == "plain":
         return True
@@ -127,7 +202,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, tile=None, hw=None,
     tile = _tuned(tile, hw, cache, lambda h, c: autotune_matmul(
         h, m, n, k, dtype_bits=x.element_size() * 8, cache=c))
     TILES["matmul"] = launch_tile(m, tile)
-    if _use_plain(x, force):
+    plain = _use_plain(x, force)
+    if _needs_grad(x, w):
+        return _Matmul.apply(x, w, tile, plain)
+    if plain:
         return matmul_ref(x, w)
     return matmul_tiled(x, w, tile)
 
@@ -143,7 +221,9 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, *, tile=None, hw=None,
     tile = _tuned(tile, hw, cache, lambda h, cc: autotune_moe_gmm(
         h, e, c, d, f, dtype_bits=x.element_size() * 8, cache=cc))
     TILES["moe_gmm"] = launch_tile(c, tile)
-    if _use_plain(x, force):
+    plain = _use_plain(x, force)
+    _no_backward("moe_gmm", plain, x, w)
+    if plain:
         return moe_gmm_ref(x, w)
     return moe_gmm_kernel(x, w, tile)
 
@@ -153,7 +233,8 @@ def flash_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
                     force: Optional[str] = None) -> torch.Tensor:
     """Attention over (B, S, H, dh) q and (B, S, KV, dh) k, v. The kernel
     has one tile, (``BLOCK_Q``, ``BLOCK_KV``); the autotuner scores it, and
-    another raises."""
+    another raises. Where grad is needed, the backward kernel covers the
+    ``causal`` and ``none`` masks; ``local`` raises on a CUDA tensor."""
     from repro_torch.kernels.autotune import autotune_flash_attention
     b, sq, h, dh = q.shape
     skv, kv = k.shape[1], k.shape[2]
@@ -165,7 +246,14 @@ def flash_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
         raise ValueError(f"flash_attention has the one tile {one}, not "
                          f"{tile}")
     TILES["flash_attention"] = one
-    if _use_plain(q, force):
+    plain = _use_plain(q, force)
+    if _needs_grad(q, k, v):
+        if not plain and mask_kind not in fa.BWD_MASKS:
+            raise RuntimeError(
+                f"flash_attention: the backward kernel takes masks "
+                f"{fa.BWD_MASKS}, not {mask_kind!r}")
+        return _FlashAttention.apply(q, k, v, mask_kind, window, plain)
+    if plain:
         return attention_ref(q, k, v, mask_kind=mask_kind, window=window)
     return flash_attention_kernel(q, k, v, mask_kind=mask_kind,
                                   window=window)
@@ -228,7 +316,9 @@ def staircase_cta_latency(widths, shard_out, g, slots, ca, mb, mc, *,
 def rglru_scan(a, b, h0, *, force: Optional[str] = None):
     """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` from ``h0`` over
     (B, T, W) fp32 ``a``, ``b`` -> (y (B, T, W) fp32, h_last (B, W))."""
-    if _use_plain(a, force):
+    plain = _use_plain(a, force)
+    _no_backward("rglru_scan", plain, a, b, h0)
+    if plain:
         return rglru_ref(a, b, h0)
     return rglru_kernel(a.contiguous(), b.contiguous(), h0.contiguous())
 
@@ -237,7 +327,9 @@ def rwkv6(r, k, v, log_w, u, s0=None, *, chunk: int = CHUNK,
           force: Optional[str] = None):
     """RWKV6 linear attention over (B, T, H, dh) from the state ``s0``
     (zeros when None) -> (o fp32, final state (B, H, dh, dh) fp32)."""
-    if _use_plain(r, force):
+    plain = _use_plain(r, force)
+    _no_backward("rwkv6", plain, r, k, v, log_w, u, s0)
+    if plain:
         return rwkv6_ref(r, k, v, log_w, u, s0, chunk=chunk)
     return rwkv6_kernel(r.contiguous(), k.contiguous(), v.contiguous(),
                         log_w.contiguous(), u.contiguous(),

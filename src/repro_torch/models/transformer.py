@@ -23,14 +23,26 @@ and each new recurrent state into its tensors, in place and returns the same
 tensors, instead of copying the states each step. A ``local`` layer's cache
 is a ring of ``window`` rows (the next write at ``pos % window``); a global
 layer's grows to the decode capacity (``serving.engine``).
+
+Training: :func:`train_loss` is ``repro``'s (the next-token cross-entropy,
+plus the MoE layers' load-balance and z losses, which train mode collects).
+``remat`` recomputes activations in the backward as ``repro``'s does:
+``"full"`` checkpoints each pattern unit (``torch.utils.checkpoint``, not
+reentrant), ``"dots"`` keeps the outputs of its matrix products (a
+selective-checkpoint policy over the dispatcher's product ops; the
+hand-written kernels' outputs are not dispatcher ops, so on the card those
+are recomputed), ``"sqrt"`` also checkpoints groups of about sqrt(units)
+units around the unit checkpoints. None of them changes a value.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -46,6 +58,8 @@ CONV_K = rec_lib.CONV_K
 KINDS = ("attn", "local", "rglru", "rwkv")
 
 Pos = Union[int, torch.Tensor]
+REMAT = ("none", "full", "dots", "sqrt")
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -109,6 +123,17 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """``n`` trees, one per index of the leading axis (``torch.unbind``):
+    where the gradient flows, one backward node stacks the ``n`` gradients
+    once, where indexing each would add a zero-filled full-size gradient
+    per index."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _stack(trees: list):
@@ -323,7 +348,8 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 enc_out: Optional[torch.Tensor] = None):
     """One layer of ``kind`` with its ``mlp_kind`` MLP, and its
     cross-attention block onto ``enc_out`` where it has one.  Returns (x,
-    new_state)."""
+    new_state, aux): aux is an MoE layer's {"moe_lb_loss", "moe_z_loss"},
+    else None."""
     if mode == "chunk" and kind != "attn":
         # a recurrent layer carries a running state, not a cache, and a
         # local ring rotates by the total length: neither replays a chunk
@@ -345,7 +371,7 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                      "cmix_shift": cm_new}
         if decode:
             new_state = _write_back(state, new_state)
-        return x + y, new_state
+        return x + y, new_state, None
     h = apply_norm(p["norm1"], x, cfg.norm)
     if kind == "rglru":
         y, new_state = rec_lib.apply_rglru_block(
@@ -359,7 +385,7 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if cfg.parallel_block and mlp_kind == "dense":
         # cohere: out = x + attn(norm(x)) + mlp(norm(x))
         return x + y + apply_mlp(p["mlp"], h, cfg.mlp_gated,
-                                 force=force), new_state
+                                 force=force), new_state, None
     x = x + y
     if "cross" in p:
         h = apply_norm(p["norm_cross"], x, cfg.norm)
@@ -369,14 +395,14 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         if mode == "prefill":
             new_state.update(cr_new)
     h = apply_norm(p["norm2"], x, cfg.norm)
+    aux = None
     if mlp_kind == "moe":
-        # the aux losses are for training; the forward does not return them
-        y, _ = moe_lib.apply_moe(p["moe"], h, cfg.experts_per_token,
-                                 cfg.capacity_factor, strategy=moe_strategy,
-                                 force=force)
+        y, aux = moe_lib.apply_moe(p["moe"], h, cfg.experts_per_token,
+                                   cfg.capacity_factor, strategy=moe_strategy,
+                                   force=force)
     else:
         y = apply_mlp(p["mlp"], h, cfg.mlp_gated, force=force)
-    return x + y, new_state
+    return x + y, new_state, aux
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, *,
@@ -397,49 +423,141 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, *,
     return out
 
 
+_NO_AUX = (0.0, 0.0)     # (lb, z) of no MoE layer
+
+
+def _add_aux(total: tuple, aux) -> tuple:
+    """(lb, z) sums plus a layer's or unit's (lb, z), if any."""
+    if aux is None:
+        return total
+    return tuple(t + a for t, a in zip(total, aux))
+
+
+def _sqrt_divisor(n: int) -> int:
+    """Divisor of n nearest to sqrt(n) (the group size of sqrt remat)."""
+    best, target = 1, math.sqrt(n)
+    for d in range(1, n + 1):
+        if n % d == 0 and abs(d - target) < abs(best - target):
+            best = d
+    return max(best, 1)
+
+
+# the dispatcher's matrix products, whose outputs "dots" keeps
+_DOTS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def _dots_context():
+    policy_t = ckpt.CheckpointPolicy
+    keep = {getattr(torch.ops.aten, n).default for n in _DOTS}
+
+    def policy(ctx, op, *args, **kwargs):
+        return policy_t.MUST_SAVE if op in keep else \
+            policy_t.PREFER_RECOMPUTE
+    return ckpt.create_selective_checkpoint_contexts(policy)
+
+
+def _checkpointed(fn, remat: str):
+    """``fn`` recomputed in the backward: every intermediate (``full``,
+    ``sqrt``) or all but the products' outputs (``dots``)."""
+    kw = {"use_reentrant": False}
+    if remat == "dots":
+        kw["context_fn"] = _dots_context
+    return functools.partial(ckpt.checkpoint, fn, **kw)
+
+
 def apply_stack(stack_p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, states: Optional[dict], positions: torch.Tensor,
                 pos: Pos, force: Optional[str], moe_strategy: str = "auto",
                 encoder: bool = False,
-                enc_out: Optional[torch.Tensor] = None):
+                enc_out: Optional[torch.Tensor] = None,
+                remat: str = "none"):
     """Every decoder layer (or, with ``encoder``, every encoder layer,
-    unmasked) in order.  Returns (x, new_states); new_states is None in
+    unmasked) in order.  Returns (x, new_states, aux): new_states is None in
     train mode and, in decode and chunk mode, the input states updated in
-    place."""
+    place; aux is the MoE layers' summed {"moe_lb_loss", "moe_z_loss"} in
+    train mode (0.0 without MoE layers), and 0.0 in the other modes, which
+    add no work for them.
+    ``remat`` (train mode with grad) recomputes each pattern unit's
+    activations in the backward (see the module docstring)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
     plan = layer_plan(cfg, encoder)
     carried = mode in ("decode", "chunk")
     cycle = unit_cycle(cfg, encoder)
     n_units = len(plan) // cycle
     new_states: dict = {}
+    aux = _NO_AUX
 
-    def run(lp, layer, st):
-        nonlocal x
-        x, ns = apply_layer(lp, x, cfg, *layer, mode=mode, state=st,
-                            positions=positions, pos=pos, force=force,
-                            moe_strategy=moe_strategy, causal=not encoder,
-                            enc_out=enc_out)
-        return ns
+    def run(lp, layer, h, st):
+        h, ns, a = apply_layer(lp, h, cfg, *layer, mode=mode, state=st,
+                               positions=positions, pos=pos, force=force,
+                               moe_strategy=moe_strategy, causal=not encoder,
+                               enc_out=enc_out)
+        if mode != "train" or a is None:
+            return h, ns, None
+        return h, ns, tuple(a[k] for k in AUX_KEYS)
+
+    # each unit's params, viewed out of the stacked leaves by one unbind
+    # (in training its backward stacks the units' gradients once)
+    unit_params = _unbind(stack_p["stack"], n_units) if n_units else []
+
+    def unit(u, h):
+        """Pattern unit ``u`` on h: (h, its layers' states, its aux)."""
+        out, sums = {}, _NO_AUX
+        for j in range(cycle):
+            h, out[f"u{j}"], a = run(
+                unit_params[u][f"u{j}"], plan[j], h,
+                _index(states["stack"][f"u{j}"], u) if carried else None)
+            sums = _add_aux(sums, a)
+        return h, out, sums
+
+    def unit_train(u, h):
+        h, _, sums = unit(u, h)
+        return (h,) + sums
 
     if n_units:
-        units = []
-        for u in range(n_units):
-            units.append({
-                f"u{j}": run(_index(stack_p["stack"][f"u{j}"], u),
-                             plan[j],
-                             _index(states["stack"][f"u{j}"], u)
-                             if carried else None)
-                for j in range(cycle)})
-        if mode == "prefill":
-            new_states["stack"] = _stack(units)
+        if mode == "train" and remat != "none" and torch.is_grad_enabled():
+            one = _checkpointed(unit_train, remat)
+            if remat == "sqrt" and n_units >= 4:
+                # a group of g units is checkpointed around the units'
+                # own checkpoints: n / g group inputs and g unit inputs
+                # live, instead of n
+                g = _sqrt_divisor(n_units)
+
+                def group(g0, h):
+                    sums = _NO_AUX
+                    for u in range(g0, g0 + g):
+                        h, *a = one(u, h)
+                        sums = _add_aux(sums, a)
+                    return (h,) + sums
+                outer = _checkpointed(group, "full")
+                for g0 in range(0, n_units, g):
+                    x, *a = outer(g0, x)
+                    aux = _add_aux(aux, a)
+            else:
+                for u in range(n_units):
+                    x, *a = one(u, x)
+                    aux = _add_aux(aux, a)
+        else:
+            units = []
+            for u in range(n_units):
+                x, ns, a = unit(u, x)
+                units.append(ns)
+                aux = _add_aux(aux, a)
+            if mode == "prefill":
+                new_states["stack"] = _stack(units)
     if "extra" in stack_p:
-        extra = {k: run(lp, plan[n_units * cycle + int(k[1:])],
-                        states["extra"][k] if carried else None)
-                 for k, lp in stack_p["extra"].items()}
+        extra = {}
+        for k, lp in stack_p["extra"].items():
+            x, extra[k], a = run(lp, plan[n_units * cycle + int(k[1:])], x,
+                                 states["extra"][k] if carried else None)
+            aux = _add_aux(aux, a)
         if mode == "prefill":
             new_states["extra"] = extra
+    aux = dict(zip(AUX_KEYS, aux))
     if mode == "train":
-        return x, None
-    return x, (states if carried else new_states)
+        return x, None, aux
+    return x, (states if carried else new_states), aux
 
 
 # ---------------------------------------------------------------------------
@@ -490,17 +608,45 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def encode(params: dict, cfg: ModelConfig, src_embeds: torch.Tensor,
-           force: Optional[str] = None,
-           moe_strategy: str = "auto") -> torch.Tensor:
+           force: Optional[str] = None, moe_strategy: str = "auto",
+           remat: str = "none") -> torch.Tensor:
     """The encoder over (B, S_src, d) embeddings, cast to bf16: unmasked
     self-attention at rope positions ``0 .. S_src``, then ``enc_norm``."""
     b, s = src_embeds.shape[:2]
-    x, _ = apply_stack(params["encoder"], src_embeds.to(COMPUTE_DTYPE), cfg,
-                       mode="train", states=None,
-                       positions=_positions(cfg, b, s, 0, src_embeds.device),
-                       pos=None, force=force, moe_strategy=moe_strategy,
-                       encoder=True)
+    x, _, _ = apply_stack(params["encoder"], src_embeds.to(COMPUTE_DTYPE),
+                          cfg, mode="train", states=None,
+                          positions=_positions(cfg, b, s, 0,
+                                               src_embeds.device),
+                          pos=None, force=force, moe_strategy=moe_strategy,
+                          encoder=True, remat=remat)
     return apply_norm(params["enc_norm"], x, cfg.norm)
+
+
+def _forward(params: dict, cfg: ModelConfig, *, tokens, embeds, src_embeds,
+             positions, mode: str, force: Optional[str], moe_strategy: str,
+             remat: str):
+    """:func:`forward`, returning (logits, states, aux) (the MoE layers'
+    summed {"moe_lb_loss", "moe_z_loss"})."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward mode {mode!r}")
+    enc_out = None
+    if cfg.is_encdec:
+        if src_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
+                             f"needs src_embeds")
+        enc_out = encode(params, cfg, src_embeds, force, moe_strategy, remat)
+    if embeds is not None:
+        x = embeds.to(COMPUTE_DTYPE)
+    else:
+        x = embed_tokens(params["embed"], tokens, cfg.d_model)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = _positions(cfg, b, s, 0, x.device)
+    x, states, aux = apply_stack(params["decoder"], x, cfg, mode=mode,
+                                 states=None, positions=positions, pos=None,
+                                 force=force, moe_strategy=moe_strategy,
+                                 enc_out=enc_out, remat=remat)
+    return _logits(params, x, cfg), states, aux
 
 
 def forward(params: dict, cfg: ModelConfig, *,
@@ -509,34 +655,54 @@ def forward(params: dict, cfg: ModelConfig, *,
             src_embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             mode: str = "train", force: Optional[str] = None,
-            moe_strategy: str = "auto"):
+            moe_strategy: str = "auto", remat: str = "none"):
     """Full-sequence forward over (B, S) ``tokens``, or over (B, S, d)
     ``embeds`` (cast to bf16, not scaled by sqrt(d)); an encoder-decoder
     also takes the encoder's (B, S_src, d) ``src_embeds``. ``positions``
     defaults to ``0 .. S`` ((B, S, 3) equal axes under M-RoPE). Returns
     (logits, states): in prefill mode each layer's decode state (a global
     layer's (B, S) KV cache, with a cross layer's encoder K/V and length, a
-    local layer's ring, a recurrent layer's state), None in train mode."""
-    if mode not in ("train", "prefill"):
-        raise ValueError(f"forward mode {mode!r}")
-    enc_out = None
-    if cfg.is_encdec:
-        if src_embeds is None:
-            raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
-                             f"needs src_embeds")
-        enc_out = encode(params, cfg, src_embeds, force, moe_strategy)
-    if embeds is not None:
-        x = embeds.to(COMPUTE_DTYPE)
+    local layer's ring, a recurrent layer's state), None in train mode.
+    ``remat`` (train mode) recomputes activations in the backward."""
+    logits, states, _ = _forward(
+        params, cfg, tokens=tokens, embeds=embeds, src_embeds=src_embeds,
+        positions=positions, mode=mode, force=force,
+        moe_strategy=moe_strategy, remat=remat)
+    return logits, states
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig,
+               moe_strategy: str = "auto", remat: str = "none",
+               aux_weight: float = 0.01, z_weight: float = 1e-3, *,
+               force: Optional[str] = None):
+    """``repro``'s training loss over a batch of tensors ("tokens" or
+    "embeds", "labels", and where given "loss_mask", "src_embeds" and
+    "positions"): the mean next-token cross-entropy (over the mask's ones)
+    in fp32, plus ``aux_weight`` x the MoE load-balance loss and ``z_weight``
+    x the router z loss. Returns (total, metrics) with "loss",
+    "moe_lb_loss", "moe_z_loss" and "logz_mean"."""
+    logits, _, aux = _forward(
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+        src_embeds=batch.get("src_embeds"), positions=batch.get("positions"),
+        mode="train", force=force, moe_strategy=moe_strategy, remat=remat)
+    labels = batch["labels"].long()
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(torch.sum(mask), min=1.0)
     else:
-        x = embed_tokens(params["embed"], tokens, cfg.d_model)
-    b, s = x.shape[:2]
-    if positions is None:
-        positions = _positions(cfg, b, s, 0, x.device)
-    x, states = apply_stack(params["decoder"], x, cfg, mode=mode,
-                            states=None, positions=positions, pos=None,
-                            force=force, moe_strategy=moe_strategy,
-                            enc_out=enc_out)
-    return _logits(params, x, cfg), states
+        denom = nll.numel()
+    loss = torch.sum(nll) / denom
+    lb, z = (torch.as_tensor(aux[k], dtype=torch.float32, device=lf.device)
+             for k in AUX_KEYS)
+    total = loss + aux_weight * lb + z_weight * z
+    metrics = {"loss": loss, "moe_lb_loss": lb, "moe_z_loss": z,
+               "logz_mean": torch.mean(logz)}
+    return total, metrics
 
 
 def _mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig):
@@ -609,9 +775,9 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params["embed"], tokens[:, None], cfg.d_model)
     if positions is None:
         positions = _positions(cfg, b, 1, pos, tokens.device)
-    x, states = apply_stack(params["decoder"], x, cfg, mode="decode",
-                            states=states, positions=positions, pos=pos,
-                            force=force, moe_strategy=moe_strategy)
+    x, states, _ = apply_stack(params["decoder"], x, cfg, mode="decode",
+                               states=states, positions=positions, pos=pos,
+                               force=force, moe_strategy=moe_strategy)
     return _logits(params, x, cfg)[:, 0], states
 
 
@@ -634,9 +800,9 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params["embed"], tokens, cfg.d_model)
     if positions is None:
         positions = _positions(cfg, b, c, pos, tokens.device)
-    x, states = apply_stack(params["decoder"], x, cfg, mode="chunk",
-                            states=states, positions=positions, pos=pos,
-                            force=force, moe_strategy=moe_strategy)
+    x, states, _ = apply_stack(params["decoder"], x, cfg, mode="chunk",
+                               states=states, positions=positions, pos=pos,
+                               force=force, moe_strategy=moe_strategy)
     return _logits(params, x, cfg), states
 
 

@@ -238,7 +238,8 @@ def test_prefill_on_kernels_vs_plain(gen):
     assert ops.LAUNCHES == {"matmul_tiled": 3 * cfg.n_layers,
                             "flash_attention": cfg.n_layers,
                             "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
-                            "rwkv6": 0, "moe_gmm": 0}
+                            "rwkv6": 0, "moe_gmm": 0,
+                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
     want, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill",
                           force="plain")
     v = cfg.vocab_size
@@ -342,7 +343,8 @@ def test_new_family_on_the_card_vs_cpu(gen, arch):
         "matmul_tiled": mlp * (cfg.n_layers + enc),
         "flash_attention": cfg.n_layers * (2 if enc else 1) + enc,
         "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
-        "rwkv6": 0, "moe_gmm": 0}
+        "rwkv6": 0, "moe_gmm": 0,
+                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
     for card, cpu in zip(out["cuda"][0], out["cpu"][0]):
         assert bool(torch.isfinite(card).all())
         assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -793,7 +795,7 @@ def test_recurrent_family_on_the_card_vs_cpu(gen, arch):
         "matmul_tiled": 3 * sum(k != "rwkv" for k in kinds),
         "flash_attention": kinds.count("attn"), "staircase_fused": 0, "staircase_cta": 0,
         "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
-        "moe_gmm": 0}
+        "moe_gmm": 0, "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
     v = cfg.vocab_size
     card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
     assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -1024,7 +1026,8 @@ def test_moe_family_on_the_card_vs_cpu(gen, strategy):
     assert ops.LAUNCHES == {"matmul_tiled": 0,
                             "flash_attention": cfg.n_layers,
                             "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
-                            "rwkv6": 0, "moe_gmm": 3 * cfg.n_layers}
+                            "rwkv6": 0, "moe_gmm": 3 * cfg.n_layers,
+                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
     v = cfg.vocab_size
     card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
     assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -1472,3 +1475,219 @@ def test_hrank_scores_card_vs_cpu(gen):
     near = ((sv > th / 2) & (sv < th * 2)).any(-1).reshape(b, c).sum(0)
     assert (np.abs(on_card - on_cpu) <= near.numpy() / b).all()
     assert on_card[:4].max() < on_card[4:].min()
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels and a train step on the card
+# ---------------------------------------------------------------------------
+# (B, Sq, Skv, H, KV, dh, mask): full-width qwen1.5-0.5b's training shape,
+# GQA groups 2 and 7, dh 128, ragged S, seamless-m4t-medium's unmasked
+# encoder (150 frames) and cross-attention (32 queries on 150 keys), Sq !=
+# Skv unmasked
+BWD_CASES = [(8, 128, 128, 16, 16, 64, "causal"),
+             (4, 128, 128, 16, 8, 64, "causal"),
+             (1, 70, 70, 7, 1, 64, "causal"),
+             (2, 100, 100, 14, 2, 128, "causal"),
+             (1, 100, 100, 4, 4, 64, "causal"),
+             (2, 150, 150, 16, 16, 64, "none"),
+             (4, 32, 150, 16, 16, 64, "none"),
+             (1, 40, 97, 7, 1, 128, "none")]
+
+
+def _bwd_inputs(gen, b, sq, skv, h, kv, dh, mask):
+    q, k, v = randn(gen, b, sq, h, dh), randn(gen, b, skv, kv, dh), \
+        randn(gen, b, skv, kv, dh)
+    do = randn(gen, b, sq, h, dh)
+    o, lse = fa.flash_attention(q, k, v, mask_kind=mask, lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_kernel_vs_plain(gen, case):
+    """dq, dk, dv of the backward kernel against ``attention_bwd_ref`` on the
+    same (q, k, v, O, lse, dO), within 4e-2 of each one's largest |value|
+    (the bf16 bound of tests/test_kernels.py:23: the kernel rounds P and dS
+    to bf16 as operands and each gradient to bf16, the plain version keeps
+    fp32 until its cast); one launch counted."""
+    mask = case[-1]
+    q, k, v, o, lse, do = _bwd_inputs(gen, *case)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind=mask)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = fa.attention_bwd_ref(q, k, v, o, lse, do, mask_kind=mask)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        w = w.float()
+        err = (g.float() - w).abs().max().item()
+        assert bool(torch.isfinite(g.float()).all()) and \
+            err <= 4e-2 * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:1] + BWD_CASES[3:4]
+                         + BWD_CASES[6:7],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_kernel_repeats_bit_equal(gen, case):
+    """No atomics: two backward calls on the same inputs are bit-equal."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, *case)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind=case[-1])
+    b = fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind=case[-1])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_lse_is_the_plain_lse(gen, case):
+    """The forward with its log-sum-exp writes the same output as without
+    it, and an lse within 1e-3 of the plain version's fp32 logsumexp (both
+    from the same bf16 scores, summed in other orders and exponentiated on
+    the special-function unit: a few fp32 ulps of the row's largest score,
+    far below 1e-3)."""
+    b, sq, skv, h, kv, dh, mask = case
+    q, k, v = randn(gen, b, sq, h, dh), randn(gen, b, skv, kv, dh), \
+        randn(gen, b, skv, kv, dh)
+    o, lse = fa.flash_attention(q, k, v, mask_kind=mask, lse=True)
+    assert torch.equal(o, fa.flash_attention(q, k, v, mask_kind=mask))
+    _, want = fa.attention_ref(q, k, v, mask_kind=mask, lse=True)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert (lse - want).abs().max().item() <= 1e-3
+
+
+def test_flash_bwd_kernel_form_and_refusals(gen):
+    for dh in fa.HEAD_DIMS:
+        f = fa.bwd_form(dh)
+        assert f["threads"] == 128 and f["dkdv_registers"] <= 255
+    q, k, v, o, lse, do = _bwd_inputs(gen, 1, 64, 64, 4, 4, 64, "causal")
+    with pytest.raises(ValueError, match="mask_kind"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind="local")
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, v, o, lse.double(), do)
+    with pytest.raises(RuntimeError, match="masks"):
+        ops.flash_attention(q.requires_grad_(True), k, v, mask_kind="local",
+                            window=16)
+
+
+# full-width qwen1.5-0.5b's backward shapes at 8 x 128 tokens (up/gate
+# and down), a ragged one and one at the decode form's M
+@pytest.mark.parametrize("m,k,n", [(1024, 1024, 2816), (1024, 2816, 1024),
+                                   (300, 130, 72), (48, 256, 200)])
+def test_matmul_bwd_kernel_vs_plain(gen, m, k, n):
+    """``ops.matmul`` under autograd on the card: the output equals the
+    forward alone; dX and dW (two launches counted as ``matmul_tiled_bwd``)
+    within two bf16 steps of ``matmul_bwd_ref``'s largest |value| (each is
+    one fp32 sum rounded to bf16 in both)."""
+    x = randn(gen, m, k).requires_grad_(True)
+    w = randn(gen, k, n).requires_grad_(True)
+    dy = randn(gen, m, n)
+    out = ops.matmul(x, w)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), mt.matmul_tiled(x.detach(),
+                                                     w.detach()))
+    before = ops.LAUNCHES["matmul_tiled_bwd"]
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["matmul_tiled_bwd"] == before + 2
+    for g, want in zip((x.grad, w.grad), mt.matmul_bwd_ref(
+            x.detach(), w.detach(), dy)):
+        want = want.float()
+        err = (g.float() - want).abs().max().item()
+        assert err <= 2.0 ** -7 * 2 * want.abs().max().item()
+
+
+def test_kernels_without_backward_raise_under_grad(gen):
+    """``moe_gmm``, ``rglru_scan`` and ``rwkv6`` have no backward kernel:
+    on a tensor that needs grad they raise instead of detaching; under
+    no_grad they launch."""
+    x = randn(gen, 2, 64, 64).requires_grad_(True)
+    w = randn(gen, 2, 64, 64)
+    with pytest.raises(RuntimeError, match="moe_gmm.*no backward"):
+        ops.moe_gmm(x, w)
+    a = torch.rand(2, 8, 64, device="cuda", requires_grad=True)
+    b = torch.randn(2, 8, 64, device="cuda")
+    with pytest.raises(RuntimeError, match="rglru_scan.*no backward"):
+        ops.rglru_scan(a, b, torch.zeros(2, 64, device="cuda"))
+    r = randn(gen, 1, 32, 2, 64).requires_grad_(True)
+    kk, vv = randn(gen, 1, 32, 2, 64), randn(gen, 1, 32, 2, 64)
+    log_w = -torch.rand(1, 32, 2, 64, device="cuda")
+    u = torch.randn(2, 64, device="cuda")
+    with pytest.raises(RuntimeError, match="rwkv6.*no backward"):
+        ops.rwkv6(r, kk, vv, log_w, u)
+    with torch.no_grad():
+        assert ops.moe_gmm(x, w).shape == (2, 64, 64)
+
+
+def test_train_step_on_kernels_vs_plain(gen):
+    """A small qwen's gradients on the kernels against the same on
+    ``force="plain"``, with the launches of one step exact: per layer 3
+    forward products, 6 backward products, one attention and its
+    backward. The loss within 4e-2 relative and each leaf's gradient
+    within 4e-2 of its largest |value| (bf16 forwards that round at other
+    points: the P of attention and each product's sum order); a key bias's
+    gradient is 0 but for rounding (softmax ignores a bias on every key),
+    so it is held relative to its layer's query-bias gradient
+    (``grad_scales``)."""
+    from repro_torch.train import step as tstep
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), n_layers=2,
+                         d_model=256, n_heads=4, d_ff=512, vocab=250)
+    params = tfm.init_params(cfg, gen)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 250, size=(4, 65))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tc = tstep.TrainConfig(remat="none")
+    ops.reset_launches()
+    lk, _, gk = tstep.grads_fn(params, batch, cfg, tc)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "matmul_tiled": 3 * n, "matmul_tiled_bwd": 6 * n,
+        "flash_attention": n, "flash_attention_bwd": n}
+    lp, _, gp = tstep.grads_fn(params, batch, cfg, tc, force="plain")
+    assert abs(float(lk) - float(lp)) <= 4e-2 * abs(float(lp))
+    scales = grad_scales(gp)
+    for (path, a), (_, b) in zip(tstep.named_leaves(gk),
+                                 tstep.named_leaves(gp)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 4e-2 * scales[path], (path, err)
+
+
+def grad_scales(grads) -> dict:
+    """Each leaf's largest |grad|, the scale its error is held to; a key
+    bias ``bk`` (whose gradient is 0 but for rounding: softmax is
+    invariant to a bias added to every key) takes the larger of its own and
+    its layer's query bias ``bq``'s."""
+    from repro_torch.train import step as tstep
+    flat = dict(tstep.named_leaves(grads))
+    out = {p: g.float().abs().max().item() for p, g in flat.items()}
+    for p in flat:
+        if p[-1] == "bk" and p[:-1] + ("bq",) in flat:
+            out[p] = max(out[p], out[p[:-1] + ("bq",)])
+    return out
+
+
+def test_train_remat_modes_on_kernels(gen):
+    """The four remat modes on the card: each recomputes the kernels'
+    forwards in the backward (their outputs are not dispatcher ops, so
+    "dots" recomputes them too), and every kernel is deterministic, so the
+    loss and every gradient are bit-equal to remat "none"; "full" launches
+    each forward kernel twice."""
+    from repro_torch.train import step as tstep
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), n_layers=4,
+                         d_model=256, n_heads=4, d_ff=512, vocab=250)
+    params = tfm.init_params(cfg, gen)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, 250, size=(2, 65))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for remat in tfm.REMAT:
+        ops.reset_launches()
+        out[remat] = tstep.grads_fn(params, batch, cfg,
+                                    tstep.TrainConfig(remat=remat))
+        if remat == "full":
+            assert ops.LAUNCHES["matmul_tiled"] == 2 * 3 * cfg.n_layers
+            assert ops.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+        assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    l0, _, g0 = out["none"]
+    for remat, (l, _, g) in out.items():
+        assert torch.equal(l, l0), remat
+        for (path, a), (_, b) in zip(tstep.named_leaves(g0),
+                                     tstep.named_leaves(g)):
+            assert torch.equal(a, b), (remat, path)

@@ -262,10 +262,12 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
     assert p == build.library_path("flash_attention")
     assert p != build.library_path("matmul_tiled")
     assert set(build.CUDA_SOURCES) == {"matmul_tiled", "flash_attention",
-                                       "rwkv6", "moe_gmm", "rglru_scan"}
+                                       "rwkv6", "moe_gmm", "rglru_scan",
+                                       "flash_attention_bwd"}
     assert set(build.TRITON_KERNELS) == {"staircase_fused", "staircase_cta"}
+    assert build.EXTRA_COUNTS == ("matmul_tiled_bwd",)
     assert set(build.LAUNCHES) == set(build.CUDA_SOURCES) \
-        | set(build.TRITON_KERNELS)
+        | set(build.TRITON_KERNELS) | set(build.EXTRA_COUNTS)
     assert all((build.CSRC / f"{n}.cu").is_file()
                for n in build.CUDA_SOURCES)
     assert all((Path(build.__file__).parent / f"{m}.py").is_file()

@@ -27,6 +27,7 @@ from repro_torch.core import TPU_V5E
 from repro_torch.interop import params_from_jax
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve_batched import main as serve_batched_main
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import transformer as ttfm
 from repro_torch.serving import Request, ServeEngine
 from test_torch_recurrent import (  # noqa: F401 — autouse
@@ -339,6 +340,8 @@ def test_entry_points_default_to_the_card(model):
         ServeEngine(params_from_jax(host), tc)
     with pytest.raises(RuntimeError, match="cuda"):
         serve_main(["--reduced"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_main(["--reduced", "--steps", "1"])
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -358,7 +361,10 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.serving.router',"
         " 'repro_torch.launch.serve_resilient',"
         " 'repro_torch.models.convnet', 'repro_torch.core.pruning',"
-        " 'repro_torch.launch.pruning_opt'}\n"
+        " 'repro_torch.launch.pruning_opt', 'repro_torch.train',"
+        " 'repro_torch.train.data', 'repro_torch.train.optim',"
+        " 'repro_torch.train.step', 'repro_torch.train.checkpoint',"
+        " 'repro_torch.launch.train'}\n"
         "sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
