@@ -214,6 +214,25 @@ the target) and ``nvcc``:
    seamless-m4t-medium's unmasked encoder and cross-attention), each
    against its plain version, two attention backward calls bit-equal,
    timed beside the plain version, ``torch.matmul`` and SDPA's backward;
+   then the families whose expert or scan kernels train on their own
+   backward kernels, each at full width: granite-moe-1b-a400m (dense experts
+   on ``moe_gmm`` and ``moe_gmm_bwd``, causal attention),
+   recurrentgemma-2b (MLPs on ``matmul_tiled``, the RG-LRU on
+   ``rglru_scan`` and ``rglru_scan_bwd``) and rwkv6-1.6b (``rwkv6`` and
+   ``rwkv6_bwd``): (f) one step on the kernels, each scan and expert
+   kernel pass held to its plain version on its own inputs, launches
+   exact per layer, its loss (1e-4 relative) and every leaf's gradient
+   (4e-2 of its largest) held to the plain step's, each bound raised to
+   twice the distance between two right plain steps where that is
+   larger (granite's near-tied top-8 choices and rwkv6's recurrence carry
+   a rounding far at random weights); (g) ``launch.train --arch`` for 10
+   steps, the counts set to 0 just before and read just after: exact
+   launches, each step's loss, wall and stream ms, tokens/s, peak memory;
+   (h) each new backward kernel at its training shape against its plain
+   backward (the RWKV6 one also at log_w -8 and -54.6 from a state with a
+   state cotangent, the RG-LRU one at a ragged W and T), two calls
+   bit-equal, timed beside the plain version and, for the grouped
+   matmul, two ``torch.bmm`` on transposed views;
 10. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -320,6 +339,11 @@ REPLACES = {
     "rglru_scan": "src/repro/kernels/rglru.py:43",
     "rwkv6": "src/repro/kernels/rwkv6.py:66",
     "moe_gmm": "src/repro/kernels/moe_gmm.py:39",
+    # the gradients of those three: no Pallas backward either (repro
+    # trains in plain JAX)
+    "moe_gmm_bwd": "src/repro/kernels/moe_gmm.py:39",
+    "rglru_scan_bwd": "src/repro/kernels/rglru.py:43",
+    "rwkv6_bwd": "src/repro/kernels/rwkv6.py:66",
 }
 SOURCES = {
     "matmul_tiled": "src/repro_torch/csrc/matmul_tiled.cu",
@@ -331,12 +355,16 @@ SOURCES = {
     "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
     "rwkv6": "src/repro_torch/csrc/rwkv6.cu",
     "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
+    "moe_gmm_bwd": "src/repro_torch/csrc/moe_gmm.cu",
+    "rglru_scan_bwd": "src/repro_torch/csrc/rglru_scan_bwd.cu",
+    "rwkv6_bwd": "src/repro_torch/csrc/rwkv6_bwd.cu",
 }
 ROUTES = {"matmul_tiled": "cuda", "flash_attention": "cuda",
           "matmul_tiled_bwd": "cuda", "flash_attention_bwd": "cuda",
           "staircase_fused": "triton", "staircase_cta": "triton",
           "rglru_scan": "cuda",
-          "rwkv6": "cuda", "moe_gmm": "cuda"}
+          "rwkv6": "cuda", "moe_gmm": "cuda", "moe_gmm_bwd": "cuda",
+          "rglru_scan_bwd": "cuda", "rwkv6_bwd": "cuda"}
 # the planner path's traffic classes: one served burst selects each
 # (batch x padded prompt tokens), "long" being the full-width burst's
 CLASSES = (("short", 4 * 32), ("long", 4 * max(PROMPT_LENS)))
@@ -528,10 +556,12 @@ def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
 # the one kernel of csrc/gemm_sm90.cuh, the staircase is not on a served
 # step
 TRACE_NAMES = {"matmul_tiled": "gemm_sm90", "moe_gmm": "gemm_sm90",
-               "matmul_tiled_bwd": "gemm_sm90",
+               "matmul_tiled_bwd": "gemm_sm90", "moe_gmm_bwd": "gemm_sm90",
                "flash_attention": "flash_attention_kernel",
                "flash_attention_bwd": "dkdv_kernel",
-               "rglru_scan": "rglru_scan_kernel", "rwkv6": "rwkv6_kernel"}
+               "rglru_scan": "rglru_scan_kernel", "rwkv6": "rwkv6_kernel",
+               "rglru_scan_bwd": "rglru_scan_bwd_kernel",
+               "rwkv6_bwd": "rwkv6_bwd_kernel"}
 
 
 def traced_expected(launches: dict) -> dict:
@@ -553,6 +583,19 @@ def launch_floor_ms(torch) -> float:
 
     buf = torch.zeros(1, device="cuda")
     return time_ms(torch, lambda b: empty[(1,)](b), (buf,), reps=200)
+
+
+def six_digits(obj):
+    """``obj`` with every float rounded to 6 significant digits, for the
+    kernels line: the times and errors mean no more than that, and the
+    line stays short enough to read from the end of the output."""
+    if isinstance(obj, float):
+        return float(f"{obj:.6g}")
+    if isinstance(obj, dict):
+        return {k: six_digits(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [six_digits(v) for v in obj]
+    return obj
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -932,7 +975,8 @@ def expected_launches(tfm, cfg, forwards: int = NEW_TOKENS) -> dict:
             "staircase_fused": 0, "staircase_cta": 0,
             "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
             "moe_gmm": 3 * mlps.count("moe") * forwards,
-            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
+            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
+            "moe_gmm_bwd": 0, "rglru_scan_bwd": 0, "rwkv6_bwd": 0}
 
 
 def serve_full_width(torch, np, mods, arch: str = ARCH, then=None,
@@ -2323,7 +2367,9 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
                          "staircase_fused": len(traffic),
                          "staircase_cta": len(traffic), "rglru_scan": 0,
                          "rwkv6": 0, "moe_gmm": 0,
-                         "flash_attention_bwd": 0, "matmul_tiled_bwd": 0},
+                         "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
+                         "moe_gmm_bwd": 0, "rglru_scan_bwd": 0,
+                         "rwkv6_bwd": 0},
           f"planning launched {after_plan}, expected one CTA-wave and one "
           f"staircase sweep per class ({len(traffic)})")
     on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu",
@@ -3762,6 +3808,27 @@ TRAIN_MATMULS = ((1024, 1024, 2816), (1024, 2816, 1024))
 TRAIN_FLASH = ((8, 128, 128, 16, 16, 64, "causal"),
                (4, 150, 150, 16, 16, 64, "none"),
                (4, 32, 150, 16, 16, 64, "none"))
+# the families trained at full width in (f)-(h), the largest first, each
+# freed before the next, and (g)'s steps of launch.train for each
+TRAIN_FAMILIES = RECURRENT_ARCHS + (MOE_ARCH,)
+TRAIN_FAMILY_STEPS = 10
+# the new backward kernels at the training shapes (8 x 128 tokens):
+# granite's expert products (E 32: gate/up with x broadcast, down);
+# recurrentgemma's RG-LRU (W 2560), a ragged W, a ragged T and W; rwkv6's
+# pass (B 8 H 32 dh 64: bf16 r, k, v from no state, as the training path
+# runs it; fp32 from a state with a state cotangent at log_w -8 and -54.6)
+TRAIN_MOE = ((32, 1024, 1024, 512, True), (32, 1024, 512, 1024, False))
+TRAIN_RGLRU = ((8, 128, 2560), (8, 128, 2500), (2, 97, 2501))
+TRAIN_RWKV = ((8, 128, 32, 64, None, False, "bfloat16"),
+              (8, 128, 32, 64, -8.0, True, "float32"),
+              (8, 128, 32, 64, -54.6, True, "float32"))
+# a backward kernel's gradients against its plain backward's, relative to
+# each gradient's largest: in fp32 2e-4 (the fp32 bound of
+# tests/test_kernels.py:23; both sum in fp32, in other orders); in bf16 a
+# step of the largest (each an fp32 sum rounded once, which may land one
+# bf16 step apart)
+BWD_FP32_TOL = 2e-4
+BWD_BF16_TOL = 2.0 ** -7
 
 
 def library_bwd_ms(torch, fn, args: tuple, reps: int = 20) -> tuple:
@@ -3923,15 +3990,26 @@ def grad_scales(torch, flat: dict) -> dict:
     return out
 
 
-def train_launches(cfg, steps: int) -> dict:
-    """The kernels' launches of ``steps`` train steps of a dense, all
-    global-attention decoder with remat none: per layer and step, the
-    MLP's 3 products forward and 6 backward (dX and dW of each) and one
-    causal attention forward and backward."""
-    n = cfg.n_layers
-    return {"matmul_tiled": 3 * n * steps, "matmul_tiled_bwd": 6 * n * steps,
-            "flash_attention": n * steps,
-            "flash_attention_bwd": n * steps}
+def train_launches(tfm, cfg, steps: int) -> dict:
+    """The kernels' launches of ``steps`` train steps with remat none, the
+    kernels that launch none left out: per layer and step, a dense gated
+    MLP's 3 products forward and 6 backward (dX and dW of each; 2 and 4
+    ungated), an MoE layer's 3 expert products over every expert (the
+    dense strategy) and 6 backward, and one forward and one backward of
+    each global attention, RG-LRU scan and RWKV6 pass (local attention and
+    RWKV's channel mix are plain torch)."""
+    kinds = cfg.layer_kinds()
+    mlps = [m for _, m in tfm.layer_plan(cfg)]
+    per = (3 if cfg.mlp_gated else 2) * mlps.count("dense")
+    out = {"matmul_tiled": per, "matmul_tiled_bwd": 2 * per,
+           "moe_gmm": 3 * mlps.count("moe"),
+           "moe_gmm_bwd": 6 * mlps.count("moe"),
+           "flash_attention": kinds.count("attn"),
+           "flash_attention_bwd": kinds.count("attn"),
+           "rglru_scan": kinds.count("rglru"),
+           "rglru_scan_bwd": kinds.count("rglru"),
+           "rwkv6": kinds.count("rwkv"), "rwkv6_bwd": kinds.count("rwkv")}
+    return {k: n * steps for k, n in out.items() if n}
 
 
 def train_held_to_plain(torch, mods, cfg, params, src, tc,
@@ -4013,6 +4091,372 @@ def train_held_to_plain(torch, mods, cfg, params, src, tc,
             "param_rel": held, "cli_loss_diff": cli}
 
 
+def bwd_err(torch, what: str, names: tuple, got, want) -> float:
+    """Each gradient of a backward kernel against its plain backward's:
+    finite, of the same dtype, and within ``BWD_FP32_TOL`` (fp32) or
+    ``BWD_BF16_TOL`` (bf16) of its largest |value|; returns the largest
+    absolute error."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        tol = (BWD_FP32_TOL if w.dtype == torch.float32 else BWD_BF16_TOL) \
+            * w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        check(g.dtype == w.dtype and bool(torch.isfinite(g.float()).all())
+              and err <= tol, f"{what} {name}: {g.dtype} max_abs_err {err} "
+                              f"> tol {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def compare_moe_gmm_bwd(torch, mg, case: tuple, gen) -> dict:
+    """The grouped matmul's backward at a training shape: dX = dY W^T and
+    dW = X^T dY on the kernel (two launches after W^T and X^T are copied
+    contiguous) against the plain version, two calls bit-equal, its time,
+    the copies' alone, the plain version's and two ``torch.bmm`` on
+    transposed views. A broadcast x is read once (one X^T copy)."""
+    e, c, d, f, broadcast = case
+    xb = torch.randn(*((c, d) if broadcast else (e, c, d)), generator=gen,
+                     device="cuda").bfloat16()
+    w = torch.randn(e, d, f, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(e, c, f, generator=gen, device="cuda").bfloat16()
+
+    def view(a):
+        return a.expand(e, c, d) if broadcast else a
+
+    got = mg.moe_gmm_bwd(view(xb), w, dy)
+    torch.cuda.synchronize()
+    name = f"E={e} C={c} D={d} F={f}" + (" x broadcast" if broadcast else "")
+    check(all(torch.equal(a, b) for a, b in
+              zip(got, mg.moe_gmm_bwd(view(xb), w, dy))),
+          f"moe_gmm_bwd {name}: a second call differs")
+    err = bwd_err(torch, f"moe_gmm_bwd {name}", ("dx", "dw"), got,
+                  mg.moe_gmm_bwd_ref(view(xb), w, dy))
+    b_ms, b_by = bound_ms(4.0 * e * c * d * f, 2.0 * (
+        xb.numel() + w.numel() + dy.numel() + e * c * d + e * d * f))
+
+    def copies(a, b):
+        return (b.transpose(1, 2).contiguous(),
+                a.t().contiguous() if broadcast
+                else a.transpose(1, 2).contiguous())
+    row = {"case": f"{name} (dX {c}x{f} @ {f}x{d}, dW {d}x{c} @ {c}x{f} per "
+                   f"expert)", "max_abs_err": err,
+           "ms": time_ms(torch, lambda a, b, g: mg.moe_gmm_bwd(view(a), b, g),
+                         (xb, w, dy)),
+           "transposes_ms": time_ms(torch, copies, (xb, w)),
+           "plain_ms": time_ms(torch, lambda a, b, g: mg.moe_gmm_bwd_ref(
+               view(a), b, g), (xb, w, dy)),
+           "library_ms": time_ms(torch, lambda a, b, g: (
+               torch.bmm(g, b.transpose(1, 2)),
+               torch.bmm(view(a).transpose(1, 2), g)), (xb, w, dy)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"moe_gmm_bwd {row['case']}: two calls bit-equal; max_abs_err "
+        f"{err:.4g} ms {row['ms']:.4f} (transposed copies "
+        f"{row['transposes_ms']:.4f}) plain_ms {row['plain_ms']:.4f} "
+        f"library_ms {row['library_ms']:.4f} (two torch.bmm) bound_ms "
+        f"{b_ms:.4f} ({b_by}, {100 * b_ms / row['ms']:.1f}% of it)")
+    return row
+
+
+def compare_rglru_bwd(torch, rg, case: tuple, gen) -> dict:
+    """The RG-LRU backward at a training shape, from a final state's
+    cotangent: the kernel against ``rglru_bwd_ref`` (the same roundings in
+    the same order, so bit-equality is logged), two calls bit-equal, its
+    time and the plain version's beside the bound."""
+    b, t, w = case
+    a, x, h0 = rglru_inputs(torch, case, gen)
+    y, _ = rg.rglru_scan(a, x, h0)
+    dy = torch.randn(b, t, w, generator=gen, device="cuda")
+    dh = torch.randn(b, w, generator=gen, device="cuda")
+    args = (a, y, h0, dy, dh)
+    got = rg.rglru_scan_bwd(*args)
+    torch.cuda.synchronize()
+    name = f"B={b} T={t} W={w}"
+    check(all(torch.equal(p, q) for p, q in
+              zip(got, rg.rglru_scan_bwd(*args))),
+          f"rglru_scan_bwd {name}: a second call differs")
+    want = rg.rglru_bwd_ref(*args)
+    exact = all(torch.equal(p, q) for p, q in zip(got, want))
+    err = bwd_err(torch, f"rglru_scan_bwd {name}", ("da", "db", "dh0"), got,
+                  want)
+    # a, y, dy read and da, db written (fp32), h0 and dh_last read and dh0
+    # written; an add and two multiplies per element
+    b_ms, b_by = bound_ms(3.0 * b * t * w, 20.0 * b * t * w + 12.0 * b * w,
+                          peak=PEAK_FP32_FLOPS)
+    f = rg.bwd_attrs()
+    row = {"case": name, "max_abs_err": err, "bit_equal_plain": exact,
+           "ms": time_ms(torch, rg.rglru_scan_bwd, args),
+           "plain_ms": time_ms(torch, rg.rglru_bwd_ref, args, reps=4),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"rglru_scan_bwd {name}: two calls bit-equal; bit-equal to plain "
+        f"{exact}, max_abs_err {err:.4g} ms {row['ms']:.4f} plain_ms "
+        f"{row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}, "
+        f"{100 * b_ms / row['ms']:.1f}% of it); no library call computes "
+        f"it; form: {-(-b * w // f['threads'])} CTAs of {f['threads']} "
+        f"threads, {f['registers']} registers, {f['ctas_per_sm']} CTAs an "
+        f"SM, {f['spill_bytes']} B spilled")
+    return row
+
+
+def compare_rwkv6_bwd(torch, rw, case: tuple, gen) -> dict:
+    """The RWKV6 backward at a training shape: the kernel against
+    ``rwkv6_bwd_ref`` (the explicit formulas), finite, two calls
+    bit-equal, its time and the plain version's beside the bound. The
+    bound counts the kernel's own work per (b, h) and step: 5 dh^2
+    operations in the forward walk (S do_t, the state update), 7 in the
+    reverse (G v_t, G^T k_t, G's update), 6 more with a state cotangent."""
+    b, t, h, dh, lw, state, dtype = case
+    dt = getattr(torch, dtype)
+    r, k, v, log_w, u, s0 = rwkv6_inputs(
+        torch, (b, t, h, dh, lw, state, dt, rw.CHUNK), gen)
+    do = torch.randn(b, t, h, dh, generator=gen, device="cuda")
+    ds = torch.randn(b, h, dh, dh, generator=gen, device="cuda") \
+        if state else None
+    args = (r, k, v, log_w, u, s0, do, ds)
+    got = rw.rwkv6_bwd(*args)
+    torch.cuda.synchronize()
+    name = (f"B={b} T={t} H={h} dh={dh} {dtype}"
+            + (" s0, dS" if state else "")
+            + (f" log_w={lw}" if lw is not None else ""))
+    check(all(torch.equal(p, q) for p, q in zip(got, rw.rwkv6_bwd(*args))),
+          f"rwkv6_bwd {name}: a second call differs")
+    err = bwd_err(torch, f"rwkv6_bwd {name}",
+                  ("dr", "dk", "dv", "dlog_w", "du", "ds0"), got,
+                  rw.rwkv6_bwd_ref(*args))
+    esz = r.element_size()
+    flops = (18.0 if state else 12.0) * b * h * t * dh * dh
+    nbytes = (b * t * h * dh * (6.0 * esz + 12) + 8.0 * h * dh
+              + (12.0 if state else 4.0) * b * h * dh * dh)
+    b_ms, b_by = bound_ms(flops, nbytes, peak=PEAK_FP32_FLOPS)
+    f = rw.bwd_form(dh, dt, state)
+    row = {"case": name, "max_abs_err": err,
+           "ms": time_ms(torch, rw.rwkv6_bwd, args),
+           "plain_ms": time_ms(torch, rw.rwkv6_bwd_ref, args, reps=4),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"rwkv6_bwd {name}: finite, two calls bit-equal; max_abs_err "
+        f"{err:.4g} ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+        f"bound_ms {b_ms:.5f} ({b_by}, {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; {100 * b_ms / row['ms']:.1f}% of it); no "
+        f"library call computes it; form: {b * h} CTAs of {f['threads']} "
+        f"threads, {f['stage_steps']} steps a stage, {f['registers']} "
+        f"registers, {f['smem_bytes']} B shared, {f['ctas_per_sm']} CTAs an "
+        f"SM, {f['spill_bytes']} B spilled")
+    return row
+
+
+# the training path's scan and expert kernels held pass by pass in (f):
+# the name a Function in kernels/ops.py calls -> (the kernel's launch
+# count name, its plain version's name in ops, the trailing arguments the
+# plain version does not take, the bound on max |kernel - plain| / max
+# |plain| of each output: the forwards' bounds of phase 3 (the RG-LRU's
+# reference 1e-5), the backwards' by the output's dtype, None)
+HELD_PASSES = {"moe_gmm_kernel": ("moe_gmm", "moe_gmm_ref", 1, MOE_RTOL),
+               "moe_gmm_bwd": ("moe_gmm_bwd", "moe_gmm_bwd_ref", 1, None),
+               "rglru_kernel": ("rglru_scan", "rglru_ref", 0, 1e-5),
+               "rglru_scan_bwd": ("rglru_scan_bwd", "rglru_bwd_ref", 0,
+                                  None),
+               "rwkv6_kernel": ("rwkv6", "rwkv6_ref", 0, RWKV6_RTOL),
+               "rwkv6_bwd": ("rwkv6_bwd", "rwkv6_bwd_ref", 0, None)}
+
+
+@contextlib.contextmanager
+def held_passes(torch, ops, worst: dict):
+    """Within the block every launch of a kernel in ``HELD_PASSES`` (forward
+    or backward, as the autograd Functions call it) is also computed by
+    its plain version on the same inputs, and ``worst`` keeps, under the
+    kernel's launch count name, the largest of (error / bound) over its
+    outputs and calls (inf where an output is not finite); the kernel's
+    result is what the step uses.
+    The plain calls launch nothing, so the step's launches stay exact."""
+    saved = {n: getattr(ops, n) for n in HELD_PASSES}
+
+    def wrap(name, kern, plain, drop, bound):
+        def fn(*args, **kw):
+            out = kern(*args, **kw)
+            ref = plain(*args[:len(args) - drop], **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            for o, r in zip(outs, refs):
+                if o is None:
+                    continue
+                tol = bound if bound is not None else (
+                    BWD_FP32_TOL if r.dtype == torch.float32
+                    else BWD_BF16_TOL)
+                e = (o.float() - r.float()).abs().max().item() / max(
+                    r.float().abs().max().item(), 1e-30) / tol
+                if not bool(torch.isfinite(o.float()).all()):
+                    e = math.inf
+                worst[name] = max(worst.get(name, 0.0), e)
+            return out
+        return fn
+    for n, (count, p, drop, bound) in HELD_PASSES.items():
+        setattr(ops, n, wrap(count, saved[n], getattr(ops, p), drop, bound))
+    try:
+        yield worst
+    finally:
+        for n, f in saved.items():
+            setattr(ops, n, f)
+
+
+@contextlib.contextmanager
+def reordered(ops, arch: str):
+    """The plain step in another right order of one family's fp32 sums:
+    granite's expert products and recurrentgemma's MLP products summed
+    over the two halves of K (each product rounded once to bf16, as
+    ``order_floor`` does), RWKV6 in chunks of 16 steps instead of 32. The
+    leaves' distance between it and the plain step is how far two right
+    implementations land on this model."""
+    def halves(x, w, **kw):
+        h = x.shape[-1] // 2
+        return (x[..., :h].float() @ w[..., :h, :].float()
+                + x[..., h:].float() @ w[..., h:, :].float()).to(x.dtype)
+    name = {MOE_ARCH: "moe_gmm", RECURRENT_ARCHS[0]: "matmul",
+            RECURRENT_ARCHS[1]: "rwkv6"}[arch]
+    dispatch = getattr(ops, name)
+    setattr(ops, name, (lambda *a, **kw: dispatch(
+        *a, **dict(kw, chunk=16, force="plain"))) if name == "rwkv6"
+            else halves)
+    try:
+        yield
+    finally:
+        setattr(ops, name, dispatch)
+
+
+def train_family(torch, np, mods, arch: str, card: str) -> dict:
+    """One family's training at full width, freed before it returns: (f)
+    one step on the kernels, each scan and expert kernel pass held to its
+    plain version on its own inputs (``held_passes``), launches exact per
+    layer; its loss within the larger of ``TRAIN_LOSS_TOL`` and twice the
+    distance between two right plain steps (``reordered``), relative, of
+    the plain step's, and every leaf's gradient within the larger of
+    ``TRAIN_TOL`` and twice the leaf's distance between those two steps,
+    of the leaf's largest |grad|, the rule of tests/test_torch_train_grads.py
+    (at random weights granite's near-tied top-8 choices and rwkv6's deep
+    recurrence carry a rounding far: the per-pass holds are the kernels'
+    check); (g) ``launch.train --arch``
+    for ``TRAIN_FAMILY_STEPS`` steps at its defaults, with the counts set
+    to 0 just before and read just after: exact launches, each step's
+    loss, wall and stream ms, tokens/s and the peak memory."""
+    from repro_torch.launch.train import main as train_main, to_device
+    from repro_torch.train import data as tdata
+    from repro_torch.train import step as tstep
+    tfm, ops = mods["tfm"], mods["ops"]
+    t_fam = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mods["configs"].get_config(arch)
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    n_params = sum(t.numel() for _, t in tstep.named_leaves(params))
+    src = tdata.SyntheticLM(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+    batch = to_device(tdata.augment_for_arch(src.batch(0), cfg, TRAIN_SEQ),
+                      "cuda")
+    tc = tstep.TrainConfig(remat="none", moe_strategy="dense")
+
+    # (f) the kernel step, pass by pass against plain, then against the
+    # plain step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    held: dict = {}
+    with held_passes(torch, ops, held):
+        lk, _, gk = tstep.grads_fn(params, batch, cfg, tc)
+    torch.cuda.synchronize()
+    got = {k: n for k, n in ops.LAUNCHES.items() if n}
+    want = train_launches(tfm, cfg, 1)
+    check(got == want, f"train (f) {arch}: launches {got} != {want}")
+    check(set(held) == set(want) & {c for c, *_ in HELD_PASSES.values()}
+          and max(held.values()) <= 1.0,
+          f"train (f) {arch}: a kernel pass vs plain on its own inputs, "
+          f"largest error over its bound {held}")
+    fk = dict(tstep.named_leaves(gk))
+    lp, _, gp = tstep.grads_fn(params, batch, cfg, tc, force="plain")
+    fp = dict(tstep.named_leaves(gp))
+    del gk, gp
+    with reordered(ops, arch):
+        lr_, _, gr = tstep.grads_fn(params, batch, cfg, tc, force="plain")
+    scales = grad_scales(torch, fp)
+    floor = {p: (g.float() - fp[p].float()).abs().max().item()
+             / max(scales[p], 1e-30) for p, g in tstep.named_leaves(gr)}
+    del gr
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    loss_floor = abs(float(lr_) - float(lp)) / abs(float(lp))
+    loss_bound = max(TRAIN_LOSS_TOL, 2 * loss_floor)
+    check(rel <= loss_bound, f"train (f) {arch}: loss {float(lk)} on the "
+                             f"kernels, {float(lp)} plain: {rel:.3e} "
+                             f"relative > {loss_bound:.3e}")
+    worst, by_floor = (0.0, None), 0
+    for path, g in fk.items():
+        e = (g.float() - fp[path].float()).abs().max().item() / max(
+            scales[path], 1e-30)
+        bound = max(TRAIN_TOL, 2 * floor[path])
+        by_floor += bound > TRAIN_TOL
+        check(bool(torch.isfinite(g).all()) and e <= bound,
+              f"train (f) {arch} gradient {'/'.join(path)}: {e:.4g} of its "
+              f"scale > {bound:.4g} (two right plain orders: "
+              f"{floor[path]:.4g})")
+        worst = max(worst, (e, "/".join(path)))
+    fl = max((v, "/".join(k)) for k, v in floor.items())
+    peak_f = torch.cuda.max_memory_allocated()
+    log(f"train (f) {arch}: {n_params / 1e6:.1f} M params, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}; each kernel pass within its bound of "
+        f"plain on its own inputs (largest error / bound "
+        f"{ {k: round(v, 4) for k, v in held.items()} }); loss "
+        f"{float(lk):.6f} on the kernels, {float(lp):.6f} plain ({rel:.3e} "
+        f"relative; the two plain orders {loss_floor:.3e}; bound "
+        f"{loss_bound:.3e}); every leaf's gradient within "
+        f"max({TRAIN_TOL}, 2 x two right plain orders' distance) of its "
+        f"scale (worst {worst[0]:.4g}, {worst[1]}; the two plain orders' "
+        f"largest {fl[0]:.4g}, {fl[1]}; {by_floor} of {len(fk)} leaves "
+        f"bound by it); launches {got}; peak {peak_f / 2**30:.3f} GiB with "
+        f"three gradient trees")
+    del params, fk, fp, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) the training CLI
+    stats = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses = train_main(["--arch", arch, "--steps", str(TRAIN_FAMILY_STEPS),
+                         "--log-every", "1", "--seed", str(SEED)],
+                        stats=stats)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0) | train_launches(tfm, cfg,
+                                                       TRAIN_FAMILY_STEPS)
+    check(launches == want,
+          f"launch.train --arch {arch}: launches {launches} != {want}")
+    check(len(losses) == TRAIN_FAMILY_STEPS
+          and all(map(math.isfinite, losses)),
+          f"launch.train --arch {arch}: losses {losses}")
+    for st in stats:
+        log(f"train (g) {arch} step {st['step']}: loss {st['loss']:.6f}, "
+            f"wall {st['wall_ms']:.3f} ms, stream {st['stream_ms']:.3f} ms "
+            f"(events, idle gaps included), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / (st['wall_ms'] / 1e3):.1f} tokens/s")
+    warm = stats[2:]
+    wall = float(np.median([st["wall_ms"] for st in warm]))
+    stream = float(np.median([st["stream_ms"] for st in warm]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (wall / 1e3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train summary {card}: {arch} full width ({n_params / 1e6:.1f} M "
+        f"params), batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat none, dense "
+        f"experts: step wall {wall:.3f} ms, stream {stream:.3f} ms (medians "
+        f"of steps 2-{TRAIN_FAMILY_STEPS - 1}), {tok_s:.1f} tokens/s, peak "
+        f"{peak / 2**30:.3f} GiB; losses {[round(x, 4) for x in losses]}; "
+        f"{time.perf_counter() - t_fam:.1f}s")
+    return {"launches": launches, "losses": losses, "wall_ms": wall,
+            "stream_ms": stream, "tok_s": tok_s, "peak_bytes": peak,
+            "held_peak_bytes": peak_f, "loss_rel": rel,
+            "loss_order_floor": loss_floor,
+            "worst_grad": worst[0], "order_floor": fl[0],
+            "held_passes": held, "n_params": n_params,
+            "steps": [{k: st[k] for k in ("step", "loss", "wall_ms",
+                                          "stream_ms")} for st in stats]}
+
+
 def train_phase(torch, np, mods, card: str) -> dict:
     """Full-width qwen1.5-0.5b's training: (a) one step's gradients on the
     kernels and on the plain versions from the same weights and batch,
@@ -4024,7 +4468,10 @@ def train_phase(torch, np, mods, card: str) -> dict:
     step profiled: the device's busy time and idle share in its window; (d) a served model updated in place: the trained master
     copied into a ``ServeEngine``'s cast tree, the step cache's replayed
     prefill held bit-equal to the eager forward; (e) the backward kernels
-    at their training shapes against plain, timed."""
+    at their training shapes against plain, timed; then (f) and (g) for
+    each of ``TRAIN_FAMILIES`` (``train_family``), and (h) the grouped
+    matmul's, the RG-LRU's and RWKV6's backward kernels at their training
+    shapes against plain, timed."""
     from repro_torch.launch.train import main as train_main, to_device
     from repro_torch.train import data as tdata
     from repro_torch.train import optim as toptim
@@ -4047,7 +4494,7 @@ def train_phase(torch, np, mods, card: str) -> dict:
     lk, mk, gk = tstep.grads_fn(params, batch, cfg, tc)
     torch.cuda.synchronize()
     got = {k: n for k, n in ops.LAUNCHES.items() if n}
-    want = train_launches(cfg, 1)
+    want = train_launches(tfm, cfg, 1)
     check(got == want, f"train step launches {got} != {want}")
     lp, mp, gp = tstep.grads_fn(params, batch, cfg, tc, force="plain")
     check(abs(float(lk) - float(lp)) <= TRAIN_LOSS_TOL * abs(float(lp)),
@@ -4081,7 +4528,8 @@ def train_phase(torch, np, mods, card: str) -> dict:
                         stats=stats)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = dict.fromkeys(launches, 0) | train_launches(cfg, TRAIN_STEPS)
+    want = dict.fromkeys(launches, 0) | train_launches(tfm, cfg,
+                                                       TRAIN_STEPS)
     check(launches == want, f"launch.train: launches {launches} != {want}")
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"launch.train: losses {losses}")
@@ -4186,6 +4634,30 @@ def train_phase(torch, np, mods, card: str) -> dict:
     mm = [compare_matmul_bwd(torch, mods["mt"], c, gen)
           for c in TRAIN_MATMULS]
     fl = [compare_flash_bwd(torch, mods["fa"], c, gen) for c in TRAIN_FLASH]
+    # (f), (g) the families on their expert and scan kernels' backwards.
+    # A family's step holds up to 62 GiB; on a cache that this process's
+    # earlier phases shaped, recurrentgemma's first CLI step ran out of
+    # memory with 57.3 GiB allocated and 20.7 GiB reserved but free in
+    # split blocks (the same step fits in a fresh process), so the
+    # families' new blocks come from expandable segments, and the setting
+    # is restored after them
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_alloc = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    set_alloc("expandable_segments:True")
+    try:
+        families = {arch: train_family(torch, np, mods, arch, card)
+                    for arch in TRAIN_FAMILIES}
+    finally:
+        set_alloc("expandable_segments:False")
+    # (h) those backward kernels at their training shapes
+    moe_bwd = [compare_moe_gmm_bwd(torch, mods["mg"], c, gen)
+               for c in TRAIN_MOE]
+    rg_bwd = [compare_rglru_bwd(torch, mods["rg"], c, gen)
+              for c in TRAIN_RGLRU]
+    rw_bwd = [compare_rwkv6_bwd(torch, mods["rw"], c, gen)
+              for c in TRAIN_RWKV]
     tok_s = tokens / (wall / 1e3)
     log(f"train summary {card}: {ARCH} full width, batch {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}, remat none: step wall {wall:.3f} ms, stream "
@@ -4200,7 +4672,9 @@ def train_phase(torch, np, mods, card: str) -> dict:
             "stream_ms": stream, "tok_s": tok_s, "idle": idle,
             "busy_ms": busy, "profiled_wall_ms": prof_wall,
             "small_losses": small, "held": held,
-            "peak_bytes": peak, "matmul_bwd": mm, "flash_bwd": fl}
+            "peak_bytes": peak, "matmul_bwd": mm, "flash_bwd": fl,
+            "families": families, "moe_gmm_bwd": moe_bwd,
+            "rglru_scan_bwd": rg_bwd, "rwkv6_bwd": rw_bwd}
 
 
 def cli_on_card(mods, arch: str = ARCH) -> None:
@@ -4275,7 +4749,8 @@ def main() -> None:
             "serve_batched_main": serve_batched_main,
             "serve_continuous": serve_continuous, "chaos": chaos,
             "serve_resilient": serve_resilient,
-            "mt": mt, "mg": mg, "fa": fa, "autotune": autotune,
+            "mt": mt, "mg": mg, "fa": fa, "rg": rg, "rw": rw,
+            "autotune": autotune,
             "pruning_opt": pruning_opt, "pruning": pruning}
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4472,7 +4947,8 @@ def main() -> None:
     # full-width qwen serve for the matmul and attention kernels, the
     # planner path (plan, then serve on the plans) for the staircase
     # kernel, the recurrentgemma and rwkv6 serves for the recurrences, the
-    # granite serve for the grouped expert products
+    # granite serve for the grouped expert products, each family's
+    # launch.train run for the backwards of its expert or scan kernel
     rec_g, rec_w = (recurrent[a] for a in RECURRENT_ARCHS)
     check(all(planned["launches"][n] > 0 for n in (
         "matmul_tiled", "flash_attention", "staircase_fused",
@@ -4488,7 +4964,13 @@ def main() -> None:
                             ("staircase_cta", cta[0], planned),
                             ("rglru_scan", rgl[0], rec_g),
                             ("rwkv6", rwk[0], rec_w),
-                            ("moe_gmm", mo[0], moe)):
+                            ("moe_gmm", mo[0], moe),
+                            ("moe_gmm_bwd", trained["moe_gmm_bwd"][0],
+                             trained["families"][MOE_ARCH]),
+                            ("rglru_scan_bwd", trained["rglru_scan_bwd"][0],
+                             trained["families"][RECURRENT_ARCHS[0]]),
+                            ("rwkv6_bwd", trained["rwkv6_bwd"][0],
+                             trained["families"][RECURRENT_ARCHS[1]])):
         check(path["launches"][name] > 0,
               f"{name} was not launched on the main path")
         kernels.append({
@@ -4541,8 +5023,18 @@ def main() -> None:
             # every training shape timed
             kernels[-1]["cases"] = trained[
                 "matmul_bwd" if name == "matmul_tiled_bwd" else "flash_bwd"]
+        if name in ("moe_gmm_bwd", "rglru_scan_bwd", "rwkv6_bwd"):
+            # every training shape timed; the launches are the family's
+            # launch.train run's
+            kernels[-1]["cases"] = trained[name]
+        if name in ("moe_gmm", "rglru_scan", "rwkv6"):
+            # the family's training path's forward launches
+            arch = {"moe_gmm": MOE_ARCH, "rglru_scan": RECURRENT_ARCHS[0],
+                    "rwkv6": RECURRENT_ARCHS[1]}[name]
+            kernels[-1]["train_launches"] = \
+                trained["families"][arch]["launches"][name]
     log(f"card: {card}; total {time.time() - t_start:.1f}s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": six_digits(kernels)}), flush=True)
     if DEFERRED:
         fail(f"{len(DEFERRED)} check(s) failed during the run: {DEFERRED}")
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ one right after the launch returned without error, and nowhere else. Each
 counts one per call: a product in the decode form of ``matmul_tiled`` or
 ``moe_gmm`` sums its K chunks inside the same launch, and a call of
 ``flash_attention_bwd`` is its three passes. The matmul backward's products
-launch ``matmul_tiled``'s kernel and count under ``matmul_tiled_bwd``.
+launch ``matmul_tiled``'s kernel and count under ``matmul_tiled_bwd``, the
+grouped matmul's launch ``moe_gmm``'s and count under ``moe_gmm_bwd``.
 """
 
 from __future__ import annotations
@@ -42,12 +43,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 CUDA_SOURCES = ("matmul_tiled", "flash_attention", "rwkv6",  # csrc/<name>.cu
-                "moe_gmm", "rglru_scan", "flash_attention_bwd")
+                "moe_gmm", "rglru_scan", "flash_attention_bwd",
+                "rglru_scan_bwd", "rwkv6_bwd")
 TRITON_KERNELS = {"staircase_fused": "staircase_fused",      # kernels/<v>.py
                   "staircase_cta": "staircase_fused"}
-# launches counted apart from their library's name: the matmul backward's
-# products (csrc/matmul_tiled.cu)
-EXTRA_COUNTS = ("matmul_tiled_bwd",)
+# launches counted apart from their library's name: the backward's products
+# of the matmul (csrc/matmul_tiled.cu) and of the grouped matmul
+# (csrc/moe_gmm.cu)
+EXTRA_COUNTS = ("matmul_tiled_bwd", "moe_gmm_bwd")
 LAUNCHES: Dict[str, int] = {k: 0 for k in CUDA_SOURCES
                             + tuple(TRITON_KERNELS) + EXTRA_COUNTS}
 

@@ -21,6 +21,14 @@ summed in chunk order. It reads x through its expert and row strides, so a broad
 are masked in the kernel, so unlike ``repro``'s ``ops.moe_gmm`` nothing is
 padded on the host. The grid is not persistent: its CTA count
 (:func:`grid_blocks`) is the B of paper Eq. 3.
+
+The backward (:func:`moe_gmm_bwd`) has no Pallas counterpart (``repro``
+trains through plain JAX): dX_e = dY_e W_e^T and dW_e = X_e^T dY_e, each
+one launch of the same kernel, counted under ``NAME_BWD``, after W^T and
+X^T are copied contiguous (the kernel reads its second operand as a
+contiguous (E, K, N) array). A broadcast x (expert stride 0) has one X^T,
+copied once and broadcast again; its dX is returned per expert, (E, C, D),
+each rounded to x's dtype, and the broadcast's own backward sums it over E.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from repro_torch.kernels.matmul_tiled import BLOCK_M as BLOCK_C
 from repro_torch.kernels.matmul_tiled import BLOCK_N as BLOCK_F
 
 NAME = "moe_gmm"
+NAME_BWD = "moe_gmm_bwd"   # the backward's dX and dW products
 DECODE_BLOCK_C = DECODE_BLOCK_M
 # the loads the last launch took ("tma" or "elementwise"); ``ops.TILES``
 # records its tile
@@ -49,6 +58,34 @@ def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: (E, C, D) @ (E, D, F) per expert, accumulated in
     fp32, cast to x.dtype."""
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def moe_gmm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """Plain version of the backward of ``x @ w`` per expert: (dX = dY
+    W^T (E, C, D), dW = X^T dY (E, D, F)), each accumulated in fp32 and
+    cast to its input's dtype."""
+    dyf = dy.float()
+    return ((dyf @ w.float().transpose(1, 2)).to(x.dtype),
+            (x.float().transpose(1, 2) @ dyf).to(w.dtype))
+
+
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                need=(True, True)):
+    """The backward of ``x @ w`` per expert on the kernel: dX = dY @ W^T
+    and dW = X^T @ dY (where ``need`` asks for them), each a launch of
+    :func:`moe_gmm` on the default tile counted under ``NAME_BWD``. W^T
+    and X^T are contiguous copies; a broadcast x's X^T is one (D, C) copy
+    broadcast over the experts."""
+    dy = dy.contiguous()
+    dx = moe_gmm(dy, w.transpose(1, 2).contiguous(), count=NAME_BWD) \
+        if need[0] else None
+    dw = None
+    if need[1]:
+        e, c, d = x.shape
+        xt = x[0].t().contiguous().expand(e, d, c) if x.stride(0) == 0 \
+            else x.transpose(1, 2).contiguous()
+        dw = moe_gmm(xt, dy, count=NAME_BWD)
+    return dx, dw
 
 
 def grid_blocks(e: int, c: int, f: int, d: int, tile=None) -> int:
@@ -89,14 +126,17 @@ def form(kind: str, device="cuda", tile=None) -> dict:
     return read_form(NAME, _bind, kind, device, tile)
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor, tile=None) -> torch.Tensor:
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, tile=None, *,
+            count: str = NAME) -> torch.Tensor:
     """Launch the kernel: x (E, C, D) bf16 @ w (E, D, F) bf16 -> (E, C, F)
     bf16, on CUDA tensors, on the current stream, on ``tile`` (rows of C,
     columns of F: one of ``matmul_tiled.PREFILL_TILES``, (128, 64) when
     None; the decode form's one tile at C <= 64; another raises). x may
     have any expert and row strides (0 included) but a unit D stride; w is
     contiguous. Launches on one stream at a time per device: the decode
-    form's scratch is shared with ``matmul_tiled``."""
+    form's scratch is shared with ``matmul_tiled``. The launch counts under
+    ``count`` in ``build.LAUNCHES`` (``NAME_BWD`` for the backward's
+    products)."""
     if not (x.is_cuda and w.is_cuda) or x.device != w.device:
         raise ValueError(f"moe_gmm: x and w must lie on one CUDA device, "
                          f"got {x.device} and {w.device}")
@@ -139,5 +179,5 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, tile=None) -> torch.Tensor:
         raise RuntimeError(f"moe_gmm launch failed: "
                            f"{lib.moe_gmm_error_string(-r).decode()}")
     LAST["loads"] = "tma" if r else "elementwise"
-    build.LAUNCHES[NAME] += 1
+    build.LAUNCHES[count] += 1
     return out

@@ -22,16 +22,14 @@ plain versions compute the same values whatever the tile; ``TILES``
 records, per kernel, the tile of the last call, the one its launch took
 or, on the CPU, would take.
 
-Gradients. ``matmul`` and ``flash_attention`` are ``torch.autograd.Function``s
-when grad is enabled and an input requires it: on a CUDA tensor the forward
-and the backward run the hand-written kernels (the GEMM's dX and dW
-products; the attention kernel with its row log-sum-exp, then
-``flash_attention_bwd``), on the CPU (or with ``force="plain"``) the plain
-forward and the plain backward's explicit formulas. Serving, under
-``no_grad`` or on tensors that need no grad, takes the forward alone, as
-before. ``moe_gmm``, ``rglru_scan`` and ``rwkv6`` have no backward kernel
-yet: on a CUDA tensor that needs grad they raise rather than cut the
-gradient; their plain versions train on the CPU through autograd.
+Gradients. ``matmul``, ``moe_gmm``, ``flash_attention``, ``rglru_scan``
+and ``rwkv6`` are ``torch.autograd.Function``s when grad is enabled and an
+input requires it: on a CUDA tensor the forward and the backward run the
+hand-written kernels (the GEMMs' dX and dW products; the attention kernel
+with its row log-sum-exp, then ``flash_attention_bwd``; ``rglru_scan_bwd``;
+``rwkv6_bwd``), on the CPU (or with ``force="plain"``) the plain forward
+and the plain backward's explicit formulas. Serving, under ``no_grad`` or
+on tensors that need no grad, takes the forward alone.
 """
 
 from __future__ import annotations
@@ -49,9 +47,11 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.matmul_tiled import launch_tile, matmul_bwd, \
     matmul_bwd_ref, matmul_ref, matmul_tiled
 from repro_torch.kernels.moe_gmm import moe_gmm as moe_gmm_kernel, \
-    moe_gmm_ref
-from repro_torch.kernels.rglru import rglru_ref, rglru_scan as rglru_kernel
-from repro_torch.kernels.rwkv6 import CHUNK, rwkv6 as rwkv6_kernel, rwkv6_ref
+    moe_gmm_bwd, moe_gmm_bwd_ref, moe_gmm_ref
+from repro_torch.kernels.rglru import rglru_bwd_ref, rglru_ref, \
+    rglru_scan as rglru_kernel, rglru_scan_bwd
+from repro_torch.kernels.rwkv6 import CHUNK, rwkv6 as rwkv6_kernel, \
+    rwkv6_bwd, rwkv6_bwd_ref, rwkv6_ref
 from repro_torch.kernels.staircase_fused import staircase_cta, \
     staircase_cta_ref, staircase_fused, staircase_ref
 
@@ -121,15 +121,6 @@ def _needs_grad(*ts) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
-def _no_backward(name: str, plain: bool, *ts) -> None:
-    """Raise where a kernel without a backward would cut the gradient."""
-    if not plain and _needs_grad(*ts):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet, and a launch would "
-            f"cut the gradient; run it under torch.no_grad(), or train on "
-            f"the CPU's plain version")
-
-
 class _Matmul(torch.autograd.Function):
     """x @ w on the kernel (or the plain version), with dX = dY W^T and dW =
     X^T dY on the kernel too (or the plain formulas)."""
@@ -148,6 +139,84 @@ class _Matmul(torch.autograd.Function):
         else:
             dx, dw = matmul_bwd(x, w, dy, ctx.needs_input_grad[:2])
         return dx, dw, None, None
+
+
+class _MoeGmm(torch.autograd.Function):
+    """Per-expert x @ w on the kernel (or the plain version), with dX = dY
+    W^T and dW = X^T dY on the kernel too (or the plain formulas)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile, plain):
+        ctx.save_for_backward(x, w)
+        ctx.plain = plain
+        return moe_gmm_ref(x, w) if plain else moe_gmm_kernel(x, w, tile)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        if ctx.plain:
+            dx, dw = moe_gmm_bwd_ref(x, w, dy)
+        else:
+            dx, dw = moe_gmm_bwd(x, w, dy, ctx.needs_input_grad[:2])
+        return dx, dw, None, None
+
+
+class _RgLru(torch.autograd.Function):
+    """The RG-LRU recurrence on the kernel (or the plain version), its
+    backward on ``rglru_scan_bwd`` (or ``rglru_bwd_ref``) from the saved
+    output."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, plain):
+        y, h = rglru_ref(a, b, h0) if plain else rglru_kernel(
+            a.contiguous(), b.contiguous(), h0.contiguous())
+        ctx.save_for_backward(a, y, h0)
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        a, y, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
+        if ctx.plain:
+            da, db, dh0 = rglru_bwd_ref(a, y, h0, dy, dh)
+        else:
+            da, db, dh0 = rglru_scan_bwd(
+                a.contiguous(), y, h0.contiguous(), dy.contiguous(),
+                None if dh is None else dh.contiguous())
+        return da, db, dh0, None
+
+
+class _Rwkv6(torch.autograd.Function):
+    """RWKV6 on the kernel (or the plain version), its backward on
+    ``rwkv6_bwd`` (or ``rwkv6_bwd_ref``) from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, s0, chunk, plain):
+        if plain:
+            o, s = rwkv6_ref(r, k, v, log_w, u, s0, chunk=chunk)
+        else:
+            r, k, v, log_w, u = (t.contiguous() for t in (r, k, v, log_w, u))
+            s0 = None if s0 is None else s0.contiguous()
+            o, s = rwkv6_kernel(r, k, v, log_w, u, s0, chunk=chunk)
+        ctx.save_for_backward(r, k, v, log_w, u, s0)
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        return o, s
+
+    @staticmethod
+    def backward(ctx, do, ds):
+        r, k, v, log_w, u, s0 = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        bwd = rwkv6_bwd_ref if ctx.plain else rwkv6_bwd
+        dr, dk, dv, dlw, du, ds0 = bwd(
+            r, k, v, log_w, u, s0, do.float().contiguous(),
+            None if ds is None else ds.float().contiguous())
+        return (dr, dk, dv, dlw, du, None if s0 is None else ds0, None,
+                None)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -222,7 +291,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, *, tile=None, hw=None,
         h, e, c, d, f, dtype_bits=x.element_size() * 8, cache=cc))
     TILES["moe_gmm"] = launch_tile(c, tile)
     plain = _use_plain(x, force)
-    _no_backward("moe_gmm", plain, x, w)
+    if _needs_grad(x, w):
+        return _MoeGmm.apply(x, w, tile, plain)
     if plain:
         return moe_gmm_ref(x, w)
     return moe_gmm_kernel(x, w, tile)
@@ -317,7 +387,8 @@ def rglru_scan(a, b, h0, *, force: Optional[str] = None):
     """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` from ``h0`` over
     (B, T, W) fp32 ``a``, ``b`` -> (y (B, T, W) fp32, h_last (B, W))."""
     plain = _use_plain(a, force)
-    _no_backward("rglru_scan", plain, a, b, h0)
+    if _needs_grad(a, b, h0):
+        return _RgLru.apply(a, b, h0, plain)
     if plain:
         return rglru_ref(a, b, h0)
     return rglru_kernel(a.contiguous(), b.contiguous(), h0.contiguous())
@@ -328,7 +399,8 @@ def rwkv6(r, k, v, log_w, u, s0=None, *, chunk: int = CHUNK,
     """RWKV6 linear attention over (B, T, H, dh) from the state ``s0``
     (zeros when None) -> (o fp32, final state (B, H, dh, dh) fp32)."""
     plain = _use_plain(r, force)
-    _no_backward("rwkv6", plain, r, k, v, log_w, u, s0)
+    if _needs_grad(r, k, v, log_w, u, s0):
+        return _Rwkv6.apply(r, k, v, log_w, u, s0, chunk, plain)
     if plain:
         return rwkv6_ref(r, k, v, log_w, u, s0, chunk=chunk)
     return rwkv6_kernel(r.contiguous(), k.contiguous(), v.contiguous(),

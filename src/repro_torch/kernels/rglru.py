@@ -27,6 +27,16 @@ A ragged W and T are masked, where the TPU wrapper asserts that W divides
 into blocks.
 
 ``rglru_ref`` is the plain version: the sequential recurrence in torch.
+
+The backward (:func:`rglru_scan_bwd`, ``csrc/rglru_scan_bwd.cu``) has no
+Pallas counterpart: ``repro`` trains through plain JAX. From the forward's
+``a``, its output ``y``, ``h0`` and the gradients ``dy`` and ``dh_last`` it
+walks the reverse recurrence ``g_t = dy_t + a_{t+1} g_{t+1}`` (``g_{T-1} =
+dy_{T-1} + dh_last``) and returns ``da_t = g_t y_{t-1}`` (``h0`` at t =
+0), ``db_t = g_t`` and ``dh0 = a_0 g_0``: a thread per (batch row,
+channel), each block of steps' loads issued at once. Its plain version
+:func:`rglru_bwd_ref` rounds each product and sum where the kernel does,
+so the two are bit-equal on the card.
 """
 
 from __future__ import annotations
@@ -37,9 +47,11 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["rglru_ref", "rglru_scan", "form"]
+__all__ = ["rglru_ref", "rglru_scan", "form", "rglru_bwd_ref",
+           "rglru_scan_bwd"]
 
 NAME = "rglru_scan"
+NAME_BWD = "rglru_scan_bwd"
 CHANNELS = 32      # channels a CTA (one lane each); csrc/rglru_scan.cu
 WARPS = 4          # checks these three
 MAX_STAGES = 2     # ring slots; more measured no faster (PERF.md §6)
@@ -58,6 +70,23 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     if not ys:
         return af.new_empty(a.shape), h
     return torch.stack(ys, dim=1), h
+
+
+def rglru_bwd_ref(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
+                  dy: torch.Tensor, dh_last=None):
+    """Plain backward in fp32: (da, db (B, T, W), dh0 (B, W)) from the
+    forward's ``a``, output ``y`` and ``h0`` and the gradients ``dy`` and
+    ``dh_last`` (None: zeros). T = 0 passes ``dh_last`` through to dh0."""
+    af, yf, dyf = a.float(), y.float(), dy.float()
+    ag = torch.zeros_like(h0, dtype=torch.float32) if dh_last is None \
+        else dh_last.float()
+    da, db = torch.empty_like(af), torch.empty_like(af)
+    for t in reversed(range(a.shape[1])):
+        g = dyf[:, t] + ag
+        db[:, t] = g
+        da[:, t] = g * (yf[:, t - 1] if t else h0.float())
+        ag = af[:, t] * g
+    return da, db, ag
 
 
 def smem_bytes(window: int, stages: int) -> int:
@@ -163,3 +192,71 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
                            f"{lib.rglru_scan_error_string(err).decode()}")
     build.LAUNCHES[NAME] += 1
     return y, h_last
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan_backward.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+    lib.rglru_scan_backward.restype = ci
+    lib.rglru_scan_bwd_error_string.argtypes = [ci]
+    lib.rglru_scan_bwd_error_string.restype = ctypes.c_char_p
+    lib.rglru_scan_bwd_attrs.argtypes = [ctypes.POINTER(ci)]
+    lib.rglru_scan_bwd_attrs.restype = ci
+
+
+def bwd_attrs() -> dict:
+    """The compiled backward kernel on the current CUDA device: threads a
+    CTA, registers a thread, CTAs an SM holds, bytes spilled a thread."""
+    lib = build.load(NAME_BWD, _bind_bwd)
+    out = (ctypes.c_int * 4)()
+    err = lib.rglru_scan_bwd_attrs(out)
+    if err:
+        msg = lib.rglru_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"rglru_scan_bwd_attrs failed: {msg}")
+    return dict(zip(("threads", "registers", "ctas_per_sm", "spill_bytes"),
+                    out))
+
+
+def rglru_scan_bwd(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
+                   dy: torch.Tensor, dh_last=None):
+    """Launch the backward kernel on the current stream: (B, T, W) fp32
+    ``a``, ``y`` (the forward's output) and ``dy``, (B, W) fp32 ``h0`` and
+    ``dh_last`` (or None), contiguous, on one CUDA device -> (da, db
+    (B, T, W), dh0 (B, W)) fp32. One launch, counted under ``NAME_BWD``."""
+    states = (h0,) + (() if dh_last is None else (dh_last,))
+    args = (a, y, dy) + states
+    if not all(t.is_cuda and t.device == a.device for t in args):
+        raise ValueError("rglru_scan_bwd: every input must lie on one CUDA "
+                         "device")
+    if any(t.dtype != torch.float32 for t in args):
+        raise TypeError("rglru_scan_bwd: takes fp32")
+    if a.dim() != 3 or y.shape != a.shape or dy.shape != a.shape or any(
+            t.shape != (a.shape[0], a.shape[2]) for t in states):
+        raise ValueError(f"rglru_scan_bwd: a, y and dy must be (B, T, W) and "
+                         f"h0, dh_last (B, W), got {tuple(a.shape)}, "
+                         f"{tuple(y.shape)}, {tuple(dy.shape)}, "
+                         f"{tuple(h0.shape)}")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("rglru_scan_bwd: inputs must be contiguous")
+    bsz, t, w = a.shape
+    if bsz >= 2 ** 31 or w * t >= 2 ** 31:
+        raise ValueError(f"rglru_scan_bwd: shape {tuple(a.shape)} out of "
+                         f"range")
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    if bsz == 0 or w == 0:
+        return da, db, dh0
+    if t == 0:
+        return da, db, dh0.zero_() if dh_last is None else dh0.copy_(dh_last)
+    lib = build.load(NAME_BWD, _bind_bwd)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rglru_scan_backward(
+            a.data_ptr(), y.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dh0.data_ptr(), bsz, t, w, stream)
+    if err:
+        raise RuntimeError(f"rglru_scan_bwd launch failed: "
+                           f"{lib.rglru_scan_bwd_error_string(err).decode()}")
+    build.LAUNCHES[NAME_BWD] += 1
+    return da, db, dh0

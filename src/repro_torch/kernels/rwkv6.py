@@ -31,6 +31,23 @@ step has ``log_w`` 0 and ``k`` = ``v`` = 0, so it leaves S as it is).
 
 Both accumulate in fp32, as ``repro`` does; they sum in other orders, so
 they agree to fp32 rounding, not bit for bit.
+
+The backward (:func:`rwkv6_bwd`, ``csrc/rwkv6_bwd.cu``) has no Pallas
+counterpart: ``repro`` trains through plain JAX. It takes the inputs, the
+output's gradient ``do`` and the final state's ``ds`` (or None) and returns
+the gradients of r, k, v (in their dtype), of log_w, u and s0 (fp32). Its
+plain version, :func:`rwkv6_bwd_ref`, walks the recurrence backward with
+the explicit formulas, from G = dS_final::
+
+    dr_t  = do_t (w_t * S_{t-1} + (u * k_t)^T v_t)^T
+    dk_t  = r_t * u (do_t . v_t) + G v_t
+    dv_t  = (r_t . (u * k_t)) do_t + G^T k_t
+    du   += r_t * k_t (do_t . v_t)
+    dlw_t = w_t * rowsum((r_t^T do_t + G) * S_{t-1})
+    G     = diag(w_t) (G + r_t^T do_t);   ds0 = G at the end
+
+The kernel computes the same values another way (see its source): no
+state is recovered by dividing by w_t, which underflows.
 """
 
 from __future__ import annotations
@@ -42,9 +59,11 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["chunk_scan", "rwkv6_ref", "rwkv6", "form"]
+__all__ = ["chunk_scan", "rwkv6_ref", "rwkv6", "form", "rwkv6_bwd_ref",
+           "rwkv6_bwd"]
 
 NAME = "rwkv6"
+NAME_BWD = "rwkv6_bwd"
 CHUNK = 32        # rwkv6_pallas's and rwkv_chunked's default
 MAX_HEAD_DIM = 128   # csrc/rwkv6.cu checks all three
 MAX_CHUNK = 64
@@ -72,10 +91,11 @@ def chunk_scan(r, k, v, log_w, u, s0=None, *, chunk: int):
         rc, kc, vc = rf[:, i], kf[:, i], vf[:, i]           # (B, C, H, K)
         le = torch.cumsum(lw[:, i], dim=1)                  # inclusive logs
         # pairwise decay exp(le_i - le_j) for j < i (exp of <= 0); the
-        # masked entries are never multiplied, so their inf is dropped
+        # difference is masked before the exp, so no entry overflows and
+        # the backward multiplies no masked inf by 0 (a NaN gradient)
         diff = le[:, :, None] - le[:, None, :]              # (B,C,C,H,K)
-        a = torch.where(tri, torch.exp(diff),
-                        torch.zeros((), device=r.device))
+        zero = torch.zeros((), device=r.device)
+        a = torch.where(tri, torch.exp(torch.where(tri, diff, zero)), zero)
         intra = torch.einsum("bihd,bjhd,bijhd->bhij", rc, kc, a)
         diag = torch.einsum("bihd,hd,bihd->bhi", rc, uf, kc)
         intra = intra + diag[..., None] * eye
@@ -102,6 +122,41 @@ def rwkv6_ref(r, k, v, log_w, u, s0=None, *, chunk: int = CHUNK):
                           for a in (r, k, v, log_w))
     o, s = chunk_scan(r, k, v, log_w, u, s0, chunk=c)
     return o[:, :t], s
+
+
+def rwkv6_bwd_ref(r, k, v, log_w, u, s0, do, ds=None):
+    """Plain backward: the explicit formulas of the module docstring in
+    fp32, a reverse walk over the states S_{t-1} of a sequential forward
+    (every exponent <= 0, so finite at any decay) -> (dr, dk, dv in their
+    inputs' dtypes; dlog_w (B, T, H, dh), du (H, dh), ds0 (B, H, dh, dh)
+    fp32). ``s0`` and ``ds`` may be None (zeros)."""
+    b, t, h, dk = r.shape
+    rf, kf, vf, dof = (a.float() for a in (r, k, v, do))
+    w = torch.exp(log_w.float())
+    uf = u.float()
+    zeros = torch.zeros((b, h, dk, dk), device=r.device)
+    s = zeros if s0 is None else s0.float()
+    prev = []                                   # S_{t-1}, t = 0 .. T-1
+    for i in range(t):
+        prev.append(s)
+        s = w[:, i, ..., None] * s \
+            + kf[:, i, ..., :, None] * vf[:, i, ..., None, :]
+    g = zeros if ds is None else ds.float()
+    dr, dkk, dv, dlw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros((h, dk), device=r.device)
+    for i in reversed(range(t)):
+        rt, kt, vt, dot, wt = rf[:, i], kf[:, i], vf[:, i], dof[:, i], w[:, i]
+        c = (dot * vt).sum(-1, keepdim=True)                   # (B, H, 1)
+        dr[:, i] = wt * torch.einsum("bhde,bhe->bhd", prev[i], dot) \
+            + uf * kt * c
+        du = du + (rt * kt * c).sum(0)
+        dkk[:, i] = rt * uf * c + torch.einsum("bhde,bhe->bhd", g, vt)
+        dv[:, i] = (rt * uf * kt).sum(-1, keepdim=True) * dot \
+            + torch.einsum("bhde,bhd->bhe", g, kt)
+        rdo = rt[..., :, None] * dot[..., None, :]
+        dlw[:, i] = wt * ((rdo + g) * prev[i]).sum(-1)
+        g = wt[..., None] * (g + rdo)
+    return dr.to(r.dtype), dkk.to(k.dtype), dv.to(v.dtype), dlw, du, g
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -194,3 +249,104 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{lib.rwkv6_error_string(err).decode()}")
     build.LAUNCHES[NAME] += 1
     return o, s
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rwkv6_backward.argtypes = [vp] * 15 + [ci] * 5 + [vp]
+    lib.rwkv6_backward.restype = ci
+    lib.rwkv6_bwd_error_string.argtypes = [ci]
+    lib.rwkv6_bwd_error_string.restype = ctypes.c_char_p
+    lib.rwkv6_bwd_form.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.rwkv6_bwd_form.restype = ci
+    lib.rwkv6_bwd_max_head_dim.argtypes = []
+    lib.rwkv6_bwd_max_head_dim.restype = ci
+    if lib.rwkv6_bwd_max_head_dim() != MAX_HEAD_DIM:
+        raise RuntimeError("rwkv6_bwd.cu's head dim limit differs from "
+                           "MAX_HEAD_DIM")
+
+
+def bwd_form(dh: int, dtype=torch.bfloat16, state_grad: bool = False) -> dict:
+    """The backward kernel's form at head dim ``dh`` for r, k, v of
+    ``dtype``, with or without a final state's gradient, on the current
+    CUDA device: threads a CTA (one CTA per (b, h)), registers a thread,
+    dynamic shared memory bytes, CTAs an SM holds, steps a stage, bytes
+    spilled a thread."""
+    lib = build.load(NAME_BWD, _bind_bwd)
+    out = (ctypes.c_int * 6)()
+    err = lib.rwkv6_bwd_form(dh, int(dtype == torch.bfloat16),
+                             int(state_grad), out)
+    if err:
+        msg = lib.rwkv6_bwd_error_string(err).decode()
+        raise RuntimeError(f"rwkv6_bwd_form({dh}) failed: {msg}")
+    return dict(zip(("threads", "registers", "smem_bytes", "ctas_per_sm",
+                     "stage_steps", "spill_bytes"), out))
+
+
+def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              log_w: torch.Tensor, u: torch.Tensor,
+              s0: Optional[torch.Tensor], do: torch.Tensor,
+              ds: Optional[torch.Tensor] = None):
+    """Launch the backward kernel on the current stream: the forward's
+    inputs as :func:`rwkv6` takes them, ``do`` (B, T, H, dh) fp32 and
+    ``ds`` (B, H, dh, dh) fp32 or None, contiguous, on one CUDA device ->
+    (dr, dk, dv in r's dtype; dlog_w (B, T, H, dh), du (H, dh), ds0 (B, H,
+    dh, dh) fp32). One launch, counted under ``NAME_BWD``; du is summed
+    over the batch from the kernel's per-row sums in a fixed order, so two
+    calls are bit-equal."""
+    args = (r, k, v, log_w, u, do) + tuple(
+        x for x in (s0, ds) if x is not None)
+    if not all(x.is_cuda and x.device == r.device for x in args):
+        raise ValueError("rwkv6_bwd: every input must lie on one CUDA "
+                         "device")
+    if r.dtype not in (torch.bfloat16, torch.float32) \
+            or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6_bwd: r, k, v must all be bf16 or all fp32, "
+                        f"got {r.dtype}, {k.dtype}, {v.dtype}")
+    if any(x.dtype != torch.float32 for x in args[3:]):
+        raise TypeError("rwkv6_bwd: log_w, u, do, s0 and ds must be fp32")
+    if r.dim() != 4 or any(x.shape != r.shape for x in (k, v, log_w, do)):
+        raise ValueError(f"rwkv6_bwd: r, k, v, log_w and do must share one "
+                         f"(B, T, H, dh) shape, got {tuple(r.shape)}")
+    b, t, h, dh = r.shape
+    if tuple(u.shape) != (h, dh) or any(
+            x is not None and tuple(x.shape) != (b, h, dh, dh)
+            for x in (s0, ds)):
+        raise ValueError(f"rwkv6_bwd: u must be ({h}, {dh}), s0 and ds "
+                         f"({b}, {h}, {dh}, {dh})")
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("rwkv6_bwd: inputs must be contiguous")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"rwkv6_bwd: the kernel takes head dim "
+                         f"1-{MAX_HEAD_DIM}, got {dh}")
+    if b * h >= 2 ** 31 or t >= 2 ** 31:
+        raise ValueError(f"rwkv6_bwd: shape {tuple(r.shape)} out of range")
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
+    dlw = torch.empty((b, t, h, dh), **f32)
+    du_rows = torch.empty((b, h, dh), **f32)
+    ds0 = torch.empty((b, h, dh, dh), **f32)
+    if b * h == 0:
+        return dr, dk, dv, dlw, du_rows.sum(0), ds0
+    if t == 0:
+        return (dr, dk, dv, dlw, torch.zeros((h, dh), **f32),
+                ds0.zero_() if ds is None else ds0.copy_(ds))
+    # the dS part's per-step sums, read back by the reverse walk
+    work = torch.empty((b, t, h, dh), **f32) if ds is not None else None
+    lib = build.load(NAME_BWD, _bind_bwd)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rwkv6_backward(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u.data_ptr(), ptr(s0), do.data_ptr(), ptr(ds), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du_rows.data_ptr(),
+            ds0.data_ptr(), ptr(work), b, t, h, dh,
+            int(r.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"rwkv6_bwd launch failed: "
+                           f"{lib.rwkv6_bwd_error_string(err).decode()}")
+    build.LAUNCHES[NAME_BWD] += 1
+    return dr, dk, dv, dlw, du_rows.sum(0), ds0

@@ -5,8 +5,12 @@
 trains full-width qwen1.5-0.5b (random weights from ``--seed``, batch 8 x
 128 of the synthetic stream) on the card (``--device cuda``, the default; it
 fails if there is none), every MLP product and causal attention, forward
-and backward, on the hand-written kernels. ``--device cpu --reduced`` runs
-the plain versions on the CPU with a tiny config:
+and backward, on the hand-written kernels; so do ``--arch
+granite-moe-1b-a400m`` (its dense expert products on ``moe_gmm`` and its
+backward), ``recurrentgemma-2b`` (the RG-LRU on ``rglru_scan`` and
+``rglru_scan_bwd``) and ``rwkv6-1.6b`` (``rwkv6`` and ``rwkv6_bwd``).
+``--device cpu --reduced`` runs the plain versions on the CPU with a tiny
+config:
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --reduced --steps 200 --ckpt-dir /tmp/ckpt
@@ -16,8 +20,7 @@ Fault tolerance, as in ``repro``: a checkpoint every ``--ckpt-every`` steps
 from the latest complete checkpoint; the data stream is a pure function of
 the step, so a resumed run sees exactly the batches it would have; on
 SIGTERM the current step finishes, a checkpoint is written and the run
-returns. Families whose kernels have no backward yet (rglru, rwkv6, MoE
-experts) train on the CPU only.
+returns.
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@ gradient accumulation (``repro.train.step``'s counterpart).
 Gradients come from ``torch.autograd.grad`` over the parameter leaves
 (which the step marks as requiring grad), so the step returns a tree of
 gradients as ``repro``'s ``jax.value_and_grad`` does, and nothing is left
-in ``.grad``. On a card every MLP product and every causal or unmasked
-attention, forward and backward, runs on the hand-written kernels
-(``kernels.ops``); ``force="plain"`` takes the plain versions.
+in ``.grad``. On a card every MLP product, dense expert product, causal
+or unmasked attention, RG-LRU scan and RWKV6 pass, forward and backward,
+runs on the hand-written kernels (``kernels.ops``); ``force="plain"``
+takes the plain versions.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@ the plain backward of attention (``flash_attention.attention_bwd_ref``) and
 of the tiled matmul (``matmul_tiled.matmul_bwd_ref``) against ``jax.grad``
 of the JAX package's plain functions on the same numpy inputs, and the
 ``torch.autograd.Function``s that ``kernels.ops`` wraps them in (the wiring
-that the card runs with the CUDA backward kernels), and the kernels without
-a backward still training through their plain versions here.
+that the card runs with the CUDA backward kernels). The other kernels'
+gradients are tests/test_torch_scan_grad.py's.
 
 Tolerances: in fp32, 2e-4 of the largest gradient (tests/test_kernels.py:23's
 fp32 bound): both sides sum the same products in other orders, which moves
@@ -153,39 +153,3 @@ def test_matmul_function_skips_unneeded_grads():
     assert x.grad is None and w.grad.shape == w.shape
     with torch.no_grad():
         assert ops.matmul(x, w).grad_fn is None
-
-
-def test_kernels_without_backward_train_their_plain_versions_here():
-    """On the CPU, ``moe_gmm``, ``rglru_scan`` and ``rwkv6`` take their plain
-    versions, which carry autograd; on a card the same calls raise (the
-    ``cuda`` tests hold that)."""
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn(2, 5, 8, generator=g).bfloat16().requires_grad_(True)
-    w = torch.randn(2, 8, 6, generator=g).bfloat16().requires_grad_(True)
-    ops.moe_gmm(x, w).float().sum().backward()
-    assert x.grad is not None and w.grad is not None
-    a = torch.rand(2, 7, 4, generator=g).requires_grad_(True)
-    b = torch.randn(2, 7, 4, generator=g).requires_grad_(True)
-    y, h = ops.rglru_scan(a, b, torch.zeros(2, 4))
-    (y.sum() + h.sum()).backward()
-    assert a.grad is not None and b.grad is not None
-    r, k, v = (torch.randn(1, 20, 2, 8, generator=g).requires_grad_(True)
-               for _ in range(3))
-    log_w = (-torch.rand(1, 20, 2, 8, generator=g)).requires_grad_(True)
-    u = torch.randn(2, 8, generator=g).requires_grad_(True)
-    o, s = ops.rwkv6(r, k, v, log_w, u)
-    (o.sum() + s.sum()).backward()
-    assert all(t.grad is not None for t in (r, k, v, log_w, u))
-
-
-def test_no_backward_guard_raises_for_a_launch_only():
-    """The guard that keeps a CUDA launch from cutting the gradient: it
-    raises for a launch (not plain) on a tensor that needs grad, and never
-    under no_grad or for the plain path."""
-    t = torch.zeros(2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops._no_backward("rwkv6", False, t)
-    ops._no_backward("rwkv6", True, t)
-    with torch.no_grad():
-        ops._no_backward("rwkv6", False, t)
-    ops._no_backward("rwkv6", False, t.detach(), None)

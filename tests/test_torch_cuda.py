@@ -239,7 +239,9 @@ def test_prefill_on_kernels_vs_plain(gen):
                             "flash_attention": cfg.n_layers,
                             "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
                             "rwkv6": 0, "moe_gmm": 0,
-                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
+                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
+                            "moe_gmm_bwd": 0, "rglru_scan_bwd": 0,
+                            "rwkv6_bwd": 0}
     want, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill",
                           force="plain")
     v = cfg.vocab_size
@@ -344,7 +346,9 @@ def test_new_family_on_the_card_vs_cpu(gen, arch):
         "flash_attention": cfg.n_layers * (2 if enc else 1) + enc,
         "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
         "rwkv6": 0, "moe_gmm": 0,
-                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
+                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
+                            "moe_gmm_bwd": 0, "rglru_scan_bwd": 0,
+                            "rwkv6_bwd": 0}
     for card, cpu in zip(out["cuda"][0], out["cpu"][0]):
         assert bool(torch.isfinite(card).all())
         assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -795,7 +799,8 @@ def test_recurrent_family_on_the_card_vs_cpu(gen, arch):
         "matmul_tiled": 3 * sum(k != "rwkv" for k in kinds),
         "flash_attention": kinds.count("attn"), "staircase_fused": 0, "staircase_cta": 0,
         "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
-        "moe_gmm": 0, "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
+        "moe_gmm": 0, "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
+        "moe_gmm_bwd": 0, "rglru_scan_bwd": 0, "rwkv6_bwd": 0}
     v = cfg.vocab_size
     card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
     assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -1027,7 +1032,9 @@ def test_moe_family_on_the_card_vs_cpu(gen, strategy):
                             "flash_attention": cfg.n_layers,
                             "staircase_fused": 0, "staircase_cta": 0, "rglru_scan": 0,
                             "rwkv6": 0, "moe_gmm": 3 * cfg.n_layers,
-                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0}
+                            "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
+                            "moe_gmm_bwd": 0, "rglru_scan_bwd": 0,
+                            "rwkv6_bwd": 0}
     v = cfg.vocab_size
     card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
     assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -1593,26 +1600,207 @@ def test_matmul_bwd_kernel_vs_plain(gen, m, k, n):
         assert err <= 2.0 ** -7 * 2 * want.abs().max().item()
 
 
-def test_kernels_without_backward_raise_under_grad(gen):
-    """``moe_gmm``, ``rglru_scan`` and ``rwkv6`` have no backward kernel:
-    on a tensor that needs grad they raise instead of detaching; under
-    no_grad they launch."""
-    x = randn(gen, 2, 64, 64).requires_grad_(True)
-    w = randn(gen, 2, 64, 64)
-    with pytest.raises(RuntimeError, match="moe_gmm.*no backward"):
-        ops.moe_gmm(x, w)
-    a = torch.rand(2, 8, 64, device="cuda", requires_grad=True)
-    b = torch.randn(2, 8, 64, device="cuda")
-    with pytest.raises(RuntimeError, match="rglru_scan.*no backward"):
-        ops.rglru_scan(a, b, torch.zeros(2, 64, device="cuda"))
-    r = randn(gen, 1, 32, 2, 64).requires_grad_(True)
-    kk, vv = randn(gen, 1, 32, 2, 64), randn(gen, 1, 32, 2, 64)
-    log_w = -torch.rand(1, 32, 2, 64, device="cuda")
-    u = torch.randn(2, 64, device="cuda")
-    with pytest.raises(RuntimeError, match="rwkv6.*no backward"):
-        ops.rwkv6(r, kk, vv, log_w, u)
-    with torch.no_grad():
-        assert ops.moe_gmm(x, w).shape == (2, 64, 64)
+# the new backwards' cases: granite's training products (E 32, 1024 tokens:
+# gate/up with x broadcast, down), a capacity buffer, ragged edges; the
+# RG-LRU at recurrentgemma's training shape, ragged W and T, one step; RWKV6
+# at rwkv6-1.6b's training shape, steep decays from a state with a state
+# cotangent, ragged T, the padded head dims 16, 20, 96 and 128
+MOE_BWD_CASES = [(32, 1024, 1024, 512, True), (32, 1024, 512, 1024, False),
+                 (32, 161, 1024, 512, False), (2, 65, 64, 63, False),
+                 (3, 33, 31, 40, True)]
+RGLRU_BWD_CASES = [(8, 128, 2560), (8, 128, 2500), (2, 97, 2501),
+                   (1, 1, 7), (3, 300, 33)]
+RWKV_BWD_CASES = [
+    (8, 128, 32, 64, None, False, torch.bfloat16),   # the training path
+    (2, 97, 4, 64, None, True, torch.bfloat16),
+    (2, 96, 4, 64, -54.6, True, torch.float32),
+    (2, 96, 4, 64, -8.0, True, torch.float32),
+    (2, 40, 2, 16, -3.4e-4, True, torch.float32),
+    (1, 33, 2, 128, None, True, torch.float32),
+    (2, 45, 2, 20, None, False, torch.bfloat16),
+    (2, 50, 2, 96, None, True, torch.bfloat16),
+    (1, 1, 2, 64, None, True, torch.float32),
+]
+
+
+def bwd_close(got, want, what):
+    """fp32 gradients within 2e-4 of the largest (the fp32 bound of
+    tests/test_kernels.py:23: both sum in fp32, in other orders); bf16 ones
+    within two bf16 steps of the largest (each an fp32 sum rounded once)."""
+    tol = 2e-4 if want.dtype == torch.float32 else 2.0 ** -6
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    assert got.dtype == want.dtype or got.dtype != torch.float32, what
+    assert bool(torch.isfinite(got.float()).all()), what
+    assert err <= tol * max(want.abs().max().item(), 1e-30), (what, err)
+
+
+@pytest.mark.parametrize("e,c,d,f,broadcast", MOE_BWD_CASES)
+def test_moe_gmm_bwd_kernel_vs_plain(gen, e, c, d, f, broadcast):
+    """dX = dY W^T and dW = X^T dY: two launches of the kernel, counted as
+    ``moe_gmm_bwd``, against the plain version (two bf16 steps of the
+    largest, as the matmul backward's), bit-equal on a repeat."""
+    x = randn(gen, c, d).expand(e, c, d) if broadcast else randn(gen, e, c, d)
+    w, dy = randn(gen, e, d, f), randn(gen, e, c, f)
+    before = dict(ops.LAUNCHES)
+    got = mg.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_gmm_bwd"] == before["moe_gmm_bwd"] + 2
+    assert ops.LAUNCHES["moe_gmm"] == before["moe_gmm"]
+    for name, g, want in zip(("dx", "dw"), got, mg.moe_gmm_bwd_ref(x, w, dy)):
+        assert g.shape == want.shape and g.dtype == torch.bfloat16
+        bwd_close(g, want, name)
+    again = mg.moe_gmm_bwd(x, w, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert mg.moe_gmm_bwd(x, w, dy, (False, True))[0] is None
+
+
+@pytest.mark.parametrize("b,t,w", RGLRU_BWD_CASES)
+@pytest.mark.parametrize("dh_last", [False, True])
+def test_rglru_bwd_kernel_vs_plain(gen, b, t, w, dh_last):
+    """The reverse walk on the card equals the plain backward bit for bit:
+    both round each product and sum in the same order (no FMA), and a
+    repeat gives the same bits."""
+    a, x, h0 = rglru_inputs(gen, b, t, w)
+    y, _ = rg.rglru_scan(a, x, h0)
+    dy = torch.randn(b, t, w, generator=gen, device="cuda")
+    dh = torch.randn(b, w, generator=gen, device="cuda") if dh_last else None
+    before = ops.LAUNCHES["rglru_scan_bwd"]
+    got = rg.rglru_scan_bwd(a, y, h0, dy, dh)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rglru_scan_bwd"] == before + 1
+    for g, want in zip(got, rg.rglru_bwd_ref(a, y, h0, dy, dh)):
+        assert torch.equal(g, want)
+    assert all(torch.equal(p, q) for p, q in
+               zip(got, rg.rglru_scan_bwd(a, y, h0, dy, dh)))
+
+
+@pytest.mark.parametrize("case", RWKV_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_rwkv6_bwd_kernel_vs_plain(gen, case):
+    """The backward kernel against the plain backward's explicit formulas:
+    finite at the decay extremes, within ``bwd_close`` of each gradient's
+    largest; a repeat gives the same bits (du summed over the batch in a
+    fixed order, no atomics)."""
+    b, t, h, dh, lw, state, dtype = case
+    r, k, v, log_w, u, s0 = rwkv_inputs(gen, b, t, h, dh, lw, state, dtype)
+    do = torch.randn(b, t, h, dh, generator=gen, device="cuda")
+    ds = torch.randn(b, h, dh, dh, generator=gen, device="cuda") \
+        if state else None
+    before = ops.LAUNCHES["rwkv6_bwd"]
+    got = rw.rwkv6_bwd(r, k, v, log_w, u, s0, do, ds)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rwkv6_bwd"] == before + 1
+    want = rw.rwkv6_bwd_ref(r, k, v, log_w, u, s0, do, ds)
+    for name, g, w in zip(("dr", "dk", "dv", "dlog_w", "du", "ds0"), got,
+                          want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        bwd_close(g, w, name)
+    again = rw.rwkv6_bwd(r, k, v, log_w, u, s0, do, ds)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+def test_rwkv6_bwd_kernel_form_and_refusals(gen):
+    """The form at the training path's head dim (a CTA of 4 x 64 threads
+    per (b, h), no spills), and what the wrapper refuses: a head dim past
+    128, mixed dtypes, a do that is not fp32."""
+    f = rw.bwd_form(64)
+    assert f["threads"] == 256 and f["spill_bytes"] == 0, f
+    r, k, v, log_w, u, _ = rwkv_inputs(gen, 1, 8, 2, 129)
+    do = torch.randn(1, 8, 2, 129, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        rw.rwkv6_bwd(r, k, v, log_w, u, None, do)
+    r, k, v, log_w, u, _ = rwkv_inputs(gen, 1, 8, 2, 64)
+    with pytest.raises(TypeError):
+        rw.rwkv6_bwd(r.bfloat16(), k, v, log_w, u, None, do[..., :64])
+    with pytest.raises(TypeError):
+        rw.rwkv6_bwd(r, k, v, log_w, u, None, do[..., :64].contiguous()
+                     .bfloat16())
+
+
+def test_scan_functions_train_on_the_kernels(gen):
+    """``ops.moe_gmm``, ``ops.rglru_scan`` and ``ops.rwkv6`` on CUDA tensors
+    that need grad: the forward and the backward launch the kernels, and
+    the gradients match the same calls with ``force="plain"``."""
+    x = randn(gen, 96, 64).requires_grad_(True)
+    w = randn(gen, 4, 64, 48).requires_grad_(True)
+    a = (torch.rand(2, 40, 64, generator=gen, device="cuda") * 0.7 + 0.3) \
+        .requires_grad_(True)
+    bb = torch.randn(2, 40, 64, generator=gen, device="cuda",
+                     requires_grad=True)
+    h0 = torch.zeros(2, 64, device="cuda")
+    rwi = [t.requires_grad_(True) for t in
+           rwkv_inputs(gen, 2, 40, 2, 64, dtype=torch.bfloat16)[:5]]
+
+    def grads(force):
+        y = ops.moe_gmm(x.expand(4, 96, 64), w, force=force)
+        ys, _ = ops.rglru_scan(a, bb, h0, force=force)
+        o, _ = ops.rwkv6(*rwi, force=force)
+        loss = y.float().square().mean() + ys.square().mean() \
+            + o.square().mean()
+        return torch.autograd.grad(loss, [x, w, a, bb] + rwi)
+    ops.reset_launches()
+    got = grads(None)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
+        "moe_gmm": 1, "moe_gmm_bwd": 2, "rglru_scan": 1,
+        "rglru_scan_bwd": 1, "rwkv6": 1, "rwkv6_bwd": 1}
+    for g, want in zip(got, grads("plain")):
+        assert g.dtype == want.dtype
+        err = (g.float() - want.float()).abs().max().item()
+        assert err <= 4e-2 * want.float().abs().max().item()
+
+
+def train_launches(cfg, steps: int = 1) -> dict:
+    """The kernels' launches of ``steps`` train steps, remat none: per
+    layer and step, a dense gated MLP's 3 products and 6 backward products
+    (2 and 4 ungated), an MoE layer's 3 expert products and 6 backward
+    products, and one forward and one backward of each global attention,
+    RG-LRU scan and RWKV6 pass (local attention is plain torch)."""
+    kinds = cfg.layer_kinds()
+    mlps = [m for _, m in tfm.layer_plan(cfg)]
+    per = (3 if cfg.mlp_gated else 2) * mlps.count("dense")
+    out = {"matmul_tiled": per, "matmul_tiled_bwd": 2 * per,
+           "moe_gmm": 3 * mlps.count("moe"),
+           "moe_gmm_bwd": 6 * mlps.count("moe"),
+           "flash_attention": kinds.count("attn"),
+           "flash_attention_bwd": kinds.count("attn"),
+           "rglru_scan": kinds.count("rglru"),
+           "rglru_scan_bwd": kinds.count("rglru"),
+           "rwkv6": kinds.count("rwkv"), "rwkv6_bwd": kinds.count("rwkv")}
+    return {k: n * steps for k, n in out.items() if n}
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("granite-moe-1b-a400m", dict(n_layers=2, d_model=256, n_heads=4,
+                                  d_ff=512, vocab=250, n_experts=8)),
+    ("recurrentgemma-2b", dict(n_layers=3, d_model=256, vocab=250)),
+    ("rwkv6-1.6b", dict(n_layers=2, d_model=256, vocab=250))])
+def test_train_step_families_on_kernels_vs_plain(gen, arch, kw):
+    """A reduced step of each family with a scan or expert kernel on the
+    kernels against ``force="plain"``: launches exact per layer, the loss
+    within 1e-3 relative and each leaf's gradient within 4e-2 of its
+    largest (bf16 forwards rounding at other points)."""
+    from repro_torch.train import step as tstep
+    cfg = reduced_config(get_config(arch), **kw)
+    params = tfm.init_params(cfg, gen)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 250, size=(4, 65))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tc = tstep.TrainConfig(remat="none", moe_strategy="dense")
+    ops.reset_launches()
+    lk, _, gk = tstep.grads_fn(params, batch, cfg, tc)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == \
+        train_launches(cfg)
+    lp, _, gp = tstep.grads_fn(params, batch, cfg, tc, force="plain")
+    assert abs(float(lk) - float(lp)) <= 1e-3 * abs(float(lp))
+    scales = grad_scales(gp)
+    for (path, a), (_, b) in zip(tstep.named_leaves(gk),
+                                 tstep.named_leaves(gp)):
+        assert bool(torch.isfinite(a).all()), path
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 4e-2 * max(scales[path], 1e-30), (path, err)
 
 
 def test_train_step_on_kernels_vs_plain(gen):

@@ -263,9 +263,10 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
     assert p != build.library_path("matmul_tiled")
     assert set(build.CUDA_SOURCES) == {"matmul_tiled", "flash_attention",
                                        "rwkv6", "moe_gmm", "rglru_scan",
-                                       "flash_attention_bwd"}
+                                       "flash_attention_bwd",
+                                       "rglru_scan_bwd", "rwkv6_bwd"}
     assert set(build.TRITON_KERNELS) == {"staircase_fused", "staircase_cta"}
-    assert build.EXTRA_COUNTS == ("matmul_tiled_bwd",)
+    assert build.EXTRA_COUNTS == ("matmul_tiled_bwd", "moe_gmm_bwd")
     assert set(build.LAUNCHES) == set(build.CUDA_SOURCES) \
         | set(build.TRITON_KERNELS) | set(build.EXTRA_COUNTS)
     assert all((build.CSRC / f"{n}.cu").is_file()
