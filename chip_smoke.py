@@ -542,10 +542,15 @@ def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
     kernels = [n for n in nodes if 'label="{KERNEL' in n]
     tiles: dict = {}
     for n in kernels:
-        hit = re.search(r"gemm_kernelILi(\d+)ELb([01])E", n)
+        # gemm_kernel<BM, CW, SOLO, XM, WK>: the backward's forms are
+        # named with their layout
+        hit = re.search(r"gemm_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])"
+                        r"ELb([01])E", n)
         if hit:
-            key = (f"{'prefill' if hit.group(2) == '1' else 'decode'} "
-                   f"{hit.group(1)}x64")
+            bm, cw, solo, xm, wk = map(int, hit.groups())
+            key = (f"{'prefill' if solo else 'decode'} {bm}x{64 * cw}"
+                   + (" x MN-major" if xm else "")
+                   + (" w K-major" if wk else ""))
             tiles[key] = tiles.get(key, 0) + 1
     return len(kernels), {name: sum(name in n for n in kernels)
                           for name in sorted(set(TRACE_NAMES.values()))}, \
@@ -1826,6 +1831,16 @@ def gemm_forms(mt, mg) -> None:
                   f"{module.NAME} {kind} form on {tile} {got} differs from "
                   f"{want}")
             log(f"{module.NAME} {kind} form on {tile} on the card: {got}")
+        # the backward's forms, in each layout it reads
+        for tile, want in mt.BWD_FORMS.items():
+            for x_mn, w_k in ((False, False), (True, False), (False, True)):
+                got = module.bwd_form(tile, x_mn, w_k)
+                check({k: got[k] for k in want} == want and
+                      got["spill_bytes"] == 0,
+                      f"{module.NAME} backward form on {tile} (x_mn {x_mn}, "
+                      f"w_k {w_k}) {got} differs from {want}")
+                log(f"{module.NAME} backward form on {tile}, x MN-major "
+                    f"{x_mn}, w K-major {w_k}, on the card: {got}")
 
 
 def fig5_on_card(mods) -> dict:
@@ -3805,6 +3820,9 @@ TRAIN_HELD_LEAVES = (("embed", "tok_emb"), ("attn", "wq"), ("mlp", "w_up"),
 # unmasked encoder over 150 frames and its cross-attention, 32 queries on
 # 150 keys)
 TRAIN_MATMULS = ((1024, 1024, 2816), (1024, 2816, 1024))
+# shapes that BWD_TILE_RATE was not fitted on, for --gemm-bwd's per-tile
+# times: recurrentgemma-2b's MLP (up/gate and down) at 1024 tokens
+HELD_OUT_MATMULS = ((1024, 2560, 7680), (1024, 7680, 2560))
 TRAIN_FLASH = ((8, 128, 128, 16, 16, 64, "causal"),
                (4, 150, 150, 16, 16, 64, "none"),
                (4, 32, 150, 16, 16, 64, "none"))
@@ -3852,19 +3870,152 @@ def library_bwd_ms(torch, fn, args: tuple, reps: int = 20) -> tuple:
     return profiled_busy(torch, prof)[0] / reps, "profiled kernels"
 
 
+def one_call_graph(torch, fn, args: tuple, path: Path) -> tuple:
+    """The kernel nodes of one call of ``fn(*args)`` captured in a CUDA
+    graph (``graph_kernels``): (their number, the GEMM nodes by form)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)                            # warm-up before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    with kept_graphs(torch):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn(*args)
+    n, _, tiles = graph_kernels(graph, path)
+    del graph
+    return n, tiles
+
+
+def copied_matmul_bwd(mt, x, w, dy):
+    """The matmul backward before the operand-major forms, for comparison:
+    W^T and X^T copied contiguous, then two launches of the forward's
+    default form."""
+    return (mt.matmul_tiled(dy, w.t().contiguous(), count=mt.NAME_BWD),
+            mt.matmul_tiled(x.t().contiguous(), dy, count=mt.NAME_BWD))
+
+
+def copied_moe_gmm_bwd(mg, x, w, dy):
+    """The grouped backward before the operand-major forms: W^T copied
+    contiguous, X^T too (a broadcast x's once), then two launches of the
+    forward's form."""
+    e, c, d = x.shape
+    xt = x[0].t().contiguous().expand(e, d, c) if x.stride(0) == 0 \
+        else x.transpose(1, 2).contiguous()
+    return (mg.moe_gmm(dy, w.transpose(1, 2).contiguous(), count=mg.NAME_BWD),
+            mg.moe_gmm(xt, dy, count=mg.NAME_BWD))
+
+
+def bwd_products(torch, mt, lib: tuple, forward, x, w, dy,
+                 what: str) -> dict:
+    """The backward's two products (dX = dY W^T: dY and the view W^T; dW =
+    X^T dY: the view X^T and dY), 3-D as ``launch_bwd`` takes them: each
+    one's picked tile and layout, each backward tile's time on it (the
+    rates behind ``BWD_TILE_RATE``), each tile's output held bit-equal to
+    the same tile reading contiguous copies of the same values and to a
+    repeat, and on the forward's default tile to the library's forward
+    form (``forward(x3, w3, tile)``)."""
+    from repro_torch.core.gpu import device_spec
+    name, bind = lib
+    out = {}
+    for p, (a, b) in (("dx", (dy, w.transpose(-2, -1))),
+                      ("dw", (x.transpose(-2, -1), dy))):
+        a3, b3 = (t if t.dim() == 3 else t[None] for t in (a, b))
+        e, m, k = a3.shape
+        n = b3.shape[2]
+        mt.launch_bwd(name, bind, a3, b3, mt.NAME_BWD)
+        pick, x_mn, w_k = (mt.LAST_BWD[f] for f in ("tile", "x_mn", "w_k"))
+        layout = ("x MN-major" if x_mn else "w K-major" if w_k
+                  else "as the forward")
+        tiles = {}
+        for t in ([mt.DECODE_TILE] if m <= mt.DECODE_BLOCK_M
+                  else mt.BWD_TILES):
+            got = mt.launch_bwd(name, bind, a3, b3, mt.NAME_BWD, t)
+            copied = mt.launch_bwd(name, bind, a3.contiguous(),
+                                   b3.contiguous(), mt.NAME_BWD, t)
+            again = mt.launch_bwd(name, bind, a3, b3, mt.NAME_BWD, t)
+            torch.cuda.synchronize()
+            check(torch.equal(got, copied) and torch.equal(got, again),
+                  f"{what} {p} on {t}: the view read where it lies differs "
+                  f"from a contiguous copy, or a repeat moves a bit")
+            f = mt.read_bwd_form(name, bind, t, x_mn, w_k, "cuda")
+            tiles[f"{t[0]}x{t[1]}"] = {
+                "ms": time_ms(
+                    torch, lambda u, v, t=t: mt.launch_bwd(
+                        name, bind, u, v, mt.NAME_BWD, t), (a3, b3)),
+                "ctas": mt.bwd_grid_blocks(e, m, n, k, t,
+                                           device_spec(0).sm_count),
+                "registers": f["registers"], "spill_bytes": f["spill_bytes"]}
+        # the forward's form (each stage's products waited for) and the
+        # backward's on the forward's default tile and contiguous operands
+        t = mt.DECODE_TILE if m <= mt.DECODE_BLOCK_M else mt.DEFAULT_TILE
+        ac, bc = a3.contiguous(), b3.contiguous()
+        check(torch.equal(forward(ac, bc, t),
+                          mt.launch_bwd(name, bind, ac, bc, mt.NAME_BWD, t)),
+              f"{what} {p}: the forward's form and the backward's differ on "
+              f"{t}")
+        out[p] = {"shape": f"E={e} M={m} K={k} N={n}", "layout": layout,
+                  "pick": f"{pick[0]}x{pick[1]}", "tiles": tiles}
+        log(f"{what} {p} ({out[p]['shape']}, {layout}): pick "
+            f"{out[p]['pick']}; per tile ms "
+            + ", ".join(
+                f"{key} {v['ms']:.4f} "
+                f"({v['ctas']} CTAs, {v['registers']} regs, "
+                f"{v['spill_bytes']} B spilled)"
+                for key, v in tiles.items()) + "; each bit-equal to the "
+            f"same tile on contiguous copies and to a repeat; "
+            f"on {t[0]}x{t[1]} bit-equal to the forward's form")
+    return out
+
+
+def bwd_row(torch, what: str, new, old, plain, library, args: tuple,
+            b_ms: float, b_by: str, err: float) -> dict:
+    """The times of one backward at a training shape, all in one run: the
+    kernels reading their operands where they lie (``ms``), the old path
+    (the transposed copies, then the forward's form), the copies alone, the
+    plain version and the library; each captured once in a CUDA graph,
+    whose kernel nodes must be 2 for the new backward."""
+    tag = what.replace(" ", "_").replace("=", "")
+    nodes, tiles = one_call_graph(torch, new, args,
+                                  GRAPH_DUMPS / f"bwd-{tag}.dot")
+    old_nodes, old_tiles = one_call_graph(torch, old, args,
+                                          GRAPH_DUMPS / f"bwd-old-{tag}.dot")
+    check(nodes == 2 and sum(tiles.values()) == 2,
+          f"{what}: one backward call's graph has {nodes} kernel nodes "
+          f"({tiles}), not the two GEMMs")
+    row = {"max_abs_err": err, "ms": time_ms(torch, new, args),
+           "old_ms": time_ms(torch, old, args),
+           "plain_ms": time_ms(torch, plain, args),
+           "library_ms": time_ms(torch, library, args),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "graph_nodes": nodes, "old_graph_nodes": old_nodes,
+           "graph_tiles": tiles}
+    row["bound_share"] = b_ms / row["ms"]
+    log(f"{what}: max_abs_err {err:.4g} ms {row['ms']:.4f} ({nodes} kernel "
+        f"nodes a call: {tiles}) old path {row['old_ms']:.4f} ({old_nodes} "
+        f"nodes: {old_tiles}) plain_ms {row['plain_ms']:.4f} library_ms "
+        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+        f"{100 * row['bound_share']:.1f}% of it)")
+    return row
+
+
 def compare_matmul_bwd(torch, mt, case: tuple, gen) -> dict:
     """The matmul backward of one (M, K) @ (K, N) product at a training
-    shape: dX = dY W^T and dW = X^T dY on the kernel (two launches, W^T and
-    X^T copied contiguous first) against the plain version (two bf16 steps
-    of the largest value), its time, the transposes' time alone, the plain
-    version's, and the two products of torch.matmul on transposed views
-    (what aten's mm backward runs)."""
+    shape: dX = dY W^T and dW = X^T dY on the kernel (two launches reading
+    W^T and X^T where they lie) against the plain version (two bf16 steps
+    of the largest value), two calls bit-equal; its time beside the old
+    path's (transposed copies, then the forward's form), the copies' alone,
+    the plain version's and the two products of torch.matmul on transposed
+    views (what aten's mm backward runs); each product on every backward
+    tile (``bwd_products``)."""
     m, k, n = case
     x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
     w = torch.randn(k, n, generator=gen, device="cuda").bfloat16()
     dy = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
     got = mt.matmul_bwd(x, w, dy)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, mt.matmul_bwd(x, w, dy))),
+          f"matmul_tiled_bwd {case}: a second call differs")
     err = 0.0
     for g, ref in zip(got, mt.matmul_bwd_ref(x, w, dy)):
         ref = ref.float()
@@ -3875,21 +4026,21 @@ def compare_matmul_bwd(torch, mt, case: tuple, gen) -> dict:
         err = max(err, e)
     b_ms, b_by = bound_ms(4.0 * m * n * k,
                           2.0 * (2 * m * k + 2 * k * n + m * n))
-    row = {"case": f"M={m} K={k} N={n} (dX {m}x{n} @ {n}x{k}, dW {k}x{m} "
-                   f"@ {m}x{n})",
-           "max_abs_err": err,
-           "ms": time_ms(torch, lambda *a: mt.matmul_bwd(*a), (x, w, dy)),
-           "transposes_ms": time_ms(torch, lambda a, b: (
-               b.t().contiguous(), a.t().contiguous()), (x, w)),
-           "plain_ms": time_ms(torch, mt.matmul_bwd_ref, (x, w, dy)),
-           "library_ms": time_ms(torch, lambda a, b, d: (
-               torch.matmul(d, b.t()), torch.matmul(a.t(), d)), (x, w, dy)),
-           "bound_ms": b_ms, "bound_by": b_by}
-    log(f"matmul_tiled_bwd {row['case']}: max_abs_err {err:.4g} ms "
-        f"{row['ms']:.4f} (transposed copies {row['transposes_ms']:.4f}) "
-        f"plain_ms {row['plain_ms']:.4f} library_ms "
-        f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}, "
-        f"{100 * b_ms / row['ms']:.1f}% of it)")
+    name = f"M={m} K={k} N={n}"
+    row = {"case": f"{name} (dX {m}x{n} @ {n}x{k}, dW {k}x{m} @ {m}x{n})"}
+    row.update(bwd_row(
+        torch, f"matmul_tiled_bwd {name}", lambda *a: mt.matmul_bwd(*a),
+        lambda *a: copied_matmul_bwd(mt, *a), mt.matmul_bwd_ref,
+        lambda a, b, d: (torch.matmul(d, b.t()), torch.matmul(a.t(), d)),
+        (x, w, dy), b_ms, b_by, err))
+    row["transposes_ms"] = time_ms(torch, lambda a, b: (
+        b.t().contiguous(), a.t().contiguous()), (x, w))
+    row["products"] = bwd_products(
+        torch, mt, (mt.NAME, mt._bind), lambda u, v, t: mt.matmul_tiled(
+            u[0], v[0], t, count=mt.NAME_BWD)[None], x, w, dy,
+        f"matmul_tiled_bwd {name}")
+    log(f"matmul_tiled_bwd {name}: the old path's transposed copies alone "
+        f"{row['transposes_ms']:.4f} ms")
     return row
 
 
@@ -4108,12 +4259,14 @@ def bwd_err(torch, what: str, names: tuple, got, want) -> float:
     return worst
 
 
-def compare_moe_gmm_bwd(torch, mg, case: tuple, gen) -> dict:
+def compare_moe_gmm_bwd(torch, mt, mg, case: tuple, gen) -> dict:
     """The grouped matmul's backward at a training shape: dX = dY W^T and
-    dW = X^T dY on the kernel (two launches after W^T and X^T are copied
-    contiguous) against the plain version, two calls bit-equal, its time,
-    the copies' alone, the plain version's and two ``torch.bmm`` on
-    transposed views. A broadcast x is read once (one X^T copy)."""
+    dW = X^T dY on the kernel (two launches reading W^T and X^T where they
+    lie; a broadcast x through its one matrix) against the plain version,
+    two calls bit-equal; its time beside the old path's (the copies, then
+    the forward's form), the copies' alone, the plain version's and two
+    ``torch.bmm`` on transposed views; each product on every backward tile
+    (``bwd_products``)."""
     e, c, d, f, broadcast = case
     xb = torch.randn(*((c, d) if broadcast else (e, c, d)), generator=gen,
                      device="cuda").bfloat16()
@@ -4133,27 +4286,26 @@ def compare_moe_gmm_bwd(torch, mg, case: tuple, gen) -> dict:
                   mg.moe_gmm_bwd_ref(view(xb), w, dy))
     b_ms, b_by = bound_ms(4.0 * e * c * d * f, 2.0 * (
         xb.numel() + w.numel() + dy.numel() + e * c * d + e * d * f))
-
-    def copies(a, b):
-        return (b.transpose(1, 2).contiguous(),
-                a.t().contiguous() if broadcast
-                else a.transpose(1, 2).contiguous())
     row = {"case": f"{name} (dX {c}x{f} @ {f}x{d}, dW {d}x{c} @ {c}x{f} per "
-                   f"expert)", "max_abs_err": err,
-           "ms": time_ms(torch, lambda a, b, g: mg.moe_gmm_bwd(view(a), b, g),
-                         (xb, w, dy)),
-           "transposes_ms": time_ms(torch, copies, (xb, w)),
-           "plain_ms": time_ms(torch, lambda a, b, g: mg.moe_gmm_bwd_ref(
-               view(a), b, g), (xb, w, dy)),
-           "library_ms": time_ms(torch, lambda a, b, g: (
-               torch.bmm(g, b.transpose(1, 2)),
-               torch.bmm(view(a).transpose(1, 2), g)), (xb, w, dy)),
-           "bound_ms": b_ms, "bound_by": b_by}
-    log(f"moe_gmm_bwd {row['case']}: two calls bit-equal; max_abs_err "
-        f"{err:.4g} ms {row['ms']:.4f} (transposed copies "
-        f"{row['transposes_ms']:.4f}) plain_ms {row['plain_ms']:.4f} "
-        f"library_ms {row['library_ms']:.4f} (two torch.bmm) bound_ms "
-        f"{b_ms:.4f} ({b_by}, {100 * b_ms / row['ms']:.1f}% of it)")
+                   f"expert)"}
+    row.update(bwd_row(
+        torch, f"moe_gmm_bwd {name}",
+        lambda a, b, g: mg.moe_gmm_bwd(view(a), b, g),
+        lambda a, b, g: copied_moe_gmm_bwd(mg, view(a), b, g),
+        lambda a, b, g: mg.moe_gmm_bwd_ref(view(a), b, g),
+        lambda a, b, g: (torch.bmm(g, b.transpose(1, 2)),
+                         torch.bmm(view(a).transpose(1, 2), g)),
+        (xb, w, dy), b_ms, b_by, err))
+    row["transposes_ms"] = time_ms(torch, lambda a, b: (
+        b.transpose(1, 2).contiguous(),
+        a.t().contiguous() if broadcast else a.transpose(1, 2).contiguous()),
+        (xb, w))
+    row["products"] = bwd_products(
+        torch, mt, (mg.NAME, mg._bind), lambda u, v, t: mg.moe_gmm(
+            u, v, t, count=mg.NAME_BWD), view(xb), w, dy,
+        f"moe_gmm_bwd {name}")
+    log(f"moe_gmm_bwd {name}: two calls bit-equal; the old path's "
+        f"transposed copies alone {row['transposes_ms']:.4f} ms")
     return row
 
 
@@ -4652,7 +4804,7 @@ def train_phase(torch, np, mods, card: str) -> dict:
     finally:
         set_alloc("expandable_segments:False")
     # (h) those backward kernels at their training shapes
-    moe_bwd = [compare_moe_gmm_bwd(torch, mods["mg"], c, gen)
+    moe_bwd = [compare_moe_gmm_bwd(torch, mods["mt"], mods["mg"], c, gen)
                for c in TRAIN_MOE]
     rg_bwd = [compare_rglru_bwd(torch, mods["rg"], c, gen)
               for c in TRAIN_RGLRU]
@@ -4783,6 +4935,26 @@ def main() -> None:
         # the Table 2 phase alone
         table2 = table2_phase(torch, np, mods, card)
         print(json.dumps({"table2": table2}), flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
+    if "--gemm-bwd" in argv:
+        # the GEMM backward alone: both GEMMs' forms, the forward at the
+        # main paths' prefill shapes, the backward at its training shapes
+        gemm_forms(mt, mg)
+        fwd = [compare_matmul(torch, mt, c, gen) for c in
+               [(512, 1024, 2816), (512, 2816, 1024)]] + \
+            [compare_moe_gmm(torch, mt, mg, c, gen) for c in
+             [(32, 512, 1024, 512, True), (32, 512, 512, 1024, False)]]
+        bwd = [compare_matmul_bwd(torch, mt, c, gen)
+               for c in TRAIN_MATMULS + HELD_OUT_MATMULS] \
+            + [compare_moe_gmm_bwd(torch, mt, mg, c, gen) for c in TRAIN_MOE]
+        (ROOT / "build").mkdir(exist_ok=True)
+        (ROOT / "build" / "gemm_bwd.json").write_text(json.dumps(
+            {"card": card, "forward": fwd, "backward": bwd}, indent=1))
+        print(json.dumps({"forward_ms": [r["ms"] for r in fwd],
+                          "backward_ms": [r["ms"] for r in bwd]}),
+              flush=True)
         if DEFERRED:
             fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
         return
@@ -5027,6 +5199,12 @@ def main() -> None:
             # every training shape timed; the launches are the family's
             # launch.train run's
             kernels[-1]["cases"] = trained[name]
+        if name in ("matmul_tiled_bwd", "moe_gmm_bwd"):
+            # the GEMM backward's rows without their per-tile times (its
+            # "products", logged per tile)
+            kernels[-1]["cases"] = [
+                {k: v for k, v in r.items() if k != "products"}
+                for r in kernels[-1]["cases"]]
         if name in ("moe_gmm", "rglru_scan", "rwkv6"):
             # the family's training path's forward launches
             arch = {"moe_gmm": MOE_ARCH, "rglru_scan": RECURRENT_ARCHS[0],

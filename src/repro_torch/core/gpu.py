@@ -19,6 +19,7 @@ registry; it defines ``HardwareSpec`` before it does, and the package's
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.kernels.matmul_tiled import BLOCK_M, BLOCK_N
@@ -67,6 +68,13 @@ class GpuSpec(HardwareSpec):
                                    base.vmem_bytes)),
             l2_bytes=int(getattr(props, "L2_cache_size", base.l2_bytes)),
             hbm_bytes=int(props.total_memory))
+
+
+@functools.lru_cache(maxsize=None)
+def device_spec(device: int) -> GpuSpec:
+    """``GpuSpec.from_device`` of CUDA device ``device``, read once: the
+    spec a kernel wrapper prices its grid with at each launch."""
+    return GpuSpec.from_device(f"cuda:{device}")
 
 
 def is_gpu(hw: HardwareSpec) -> bool:

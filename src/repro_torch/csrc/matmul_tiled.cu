@@ -22,6 +22,12 @@
 // Ragged M, N and K are masked in the kernel (zero-filled by TMA, or by the
 // element-wise loads where TMA cannot take the strides), with no host
 // padding.
+//
+// The backward (matmul_tiled_bwd_bf16; no Pallas counterpart) runs the same
+// mainloop on the operands where they lie: dX = dY W^T reads W (K, N) as a
+// K-major w, dW = X^T dY reads X (M, K) as an MN-major x, so no transposed
+// copy is made, on the backward's tiles (BWD_TILES, up to two consumer
+// warpgroups on one x tile).
 
 #include "gemm_sm90.cuh"
 
@@ -48,7 +54,26 @@ int matmul_tiled_block_k() { return gemm_sm90::BK; }
 // at once, local (spilled) bytes a thread. Returns 0 or a cudaError_t: the
 // occupancy that paper Eq. 3's wave count divides by.
 int matmul_tiled_form(int decode, int block_m, int device, int* out) {
-  return gemm_sm90::form(decode, block_m, device, out);
+  return gemm_sm90::form(0, decode, block_m, gemm_sm90::BN, 0, 0, device,
+                         out);
+}
+
+// The backward's prefill tiles as (rows, columns) pairs into out (at most
+// cap pairs); returns their number.
+int matmul_tiled_bwd_tiles(int* out, int cap) {
+  for (int i = 0; i < gemm_sm90::N_BWD_TILES && i < cap; ++i) {
+    out[2 * i] = gemm_sm90::BWD_TILES[i][0];
+    out[2 * i + 1] = gemm_sm90::BWD_TILES[i][1];
+  }
+  return gemm_sm90::N_BWD_TILES;
+}
+
+// The backward's form (decode != 0: the decode tile, 64 x 64; else one of
+// the backward's tiles) with x MN-major (xm) or w K-major (wk), as
+// matmul_tiled_form.
+int matmul_tiled_bwd_form(int decode, int block_m, int block_n, int xm,
+                          int wk, int device, int* out) {
+  return gemm_sm90::form(1, decode, block_m, block_n, xm, wk, device, out);
 }
 
 // decode != 0: the decode form over `splits` chunks (ws: splits x M x N
@@ -61,8 +86,28 @@ int matmul_tiled_bf16(const void* x, const void* w, void* out, void* ws,
                       void* counters, int M, int N, int K, int decode,
                       int splits, int vec, int block_m, int device,
                       void* stream) {
-  return gemm_sm90::launch(x, w, out, ws, counters, 1, M, N, K, 0, K, decode,
-                           splits, vec, block_m, device, stream);
+  return gemm_sm90::launch(x, w, out, ws, counters, 1, M, N, K, 0, K,
+                           (long long)K * N, N, 0, 0, 0, decode, splits,
+                           vec, block_m, gemm_sm90::BN, device, stream);
+}
+
+// A product of the backward, out[e] (M, N) = x[e] (M, K) @ w[e] (K, N):
+// x with expert stride sx_e (0: one x for every expert), unit K stride
+// and row stride sx_r, or (xm) unit M stride and K stride sx_r; w with
+// expert stride sw_e, unit N stride and row stride sw_r, or (wk) unit K
+// stride and N stride sw_r; out (E, M, N) contiguous. The tile (block_m,
+// block_n) is the decode tile (decode != 0) or one of
+// matmul_tiled_bwd_tiles; vec != 0 promises 16-byte aligned x and w and
+// strides that are multiples of 8. Otherwise as matmul_tiled_bf16.
+int matmul_tiled_bwd_bf16(const void* x, const void* w, void* out, void* ws,
+                          void* counters, int E, int M, int N, int K,
+                          long long sx_e, long long sx_r, long long sw_e,
+                          long long sw_r, int xm, int wk, int decode,
+                          int splits, int vec, int block_m, int block_n,
+                          int device, void* stream) {
+  return gemm_sm90::launch(x, w, out, ws, counters, E, M, N, K, sx_e, sx_r,
+                           sw_e, sw_r, xm, wk, 1, decode, splits, vec,
+                           block_m, block_n, device, stream);
 }
 
 const char* matmul_tiled_error_string(int err) {

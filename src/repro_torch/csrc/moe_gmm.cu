@@ -24,6 +24,12 @@
 // SPLIT_K = 256 (1024 CTAs for gate/up and for down), summed in chunk order
 // by each tile's last CTA. The capacity buffers (C = 161) take the prefill
 // form. Ragged C, D and F are masked in the kernel, with no host padding.
+//
+// The backward (moe_gmm_bwd_bf16; no Pallas counterpart) runs the same
+// mainloop on the operands where they lie: dX = dY W^T reads w (E, D, F)
+// as a K-major w, dW = X^T dY reads x as an MN-major x (a broadcast x
+// through its one (C, D) map), so no transposed copy is made, on the
+// backward's tiles.
 
 #include "gemm_sm90.cuh"
 
@@ -50,7 +56,24 @@ int moe_gmm_block_k() { return gemm_sm90::BK; }
 // at once, local (spilled) bytes a thread. Returns 0 or a cudaError_t: the
 // occupancy that paper Eq. 3's wave count divides by.
 int moe_gmm_form(int decode, int block_m, int device, int* out) {
-  return gemm_sm90::form(decode, block_m, device, out);
+  return gemm_sm90::form(0, decode, block_m, gemm_sm90::BN, 0, 0, device,
+                         out);
+}
+
+// The backward's prefill tiles as (rows of C, columns of F) pairs into out
+// (at most cap pairs); returns their number.
+int moe_gmm_bwd_tiles(int* out, int cap) {
+  for (int i = 0; i < gemm_sm90::N_BWD_TILES && i < cap; ++i) {
+    out[2 * i] = gemm_sm90::BWD_TILES[i][0];
+    out[2 * i + 1] = gemm_sm90::BWD_TILES[i][1];
+  }
+  return gemm_sm90::N_BWD_TILES;
+}
+
+// The backward's form, as matmul_tiled_bwd_form.
+int moe_gmm_bwd_form(int decode, int block_c, int block_f, int xm, int wk,
+                     int device, int* out) {
+  return gemm_sm90::form(1, decode, block_c, block_f, xm, wk, device, out);
 }
 
 // x: expert stride sx_e and row stride sx_r in elements, unit D stride;
@@ -67,7 +90,21 @@ int moe_gmm_bf16(const void* x, const void* w, void* out, void* ws,
                  long long sx_r, int decode, int splits, int vec,
                  int block_c, int device, void* stream) {
   return gemm_sm90::launch(x, w, out, ws, counters, E, C, F, D, sx_e, sx_r,
-                           decode, splits, vec, block_c, device, stream);
+                           (long long)D * F, F, 0, 0, 0, decode, splits,
+                           vec, block_c, gemm_sm90::BN, device, stream);
+}
+
+// A product of the backward, as matmul_tiled_bwd_bf16 with (C, D, F) for
+// (M, K, N): x (E, C, D) and w (E, D, F) read where they lie.
+int moe_gmm_bwd_bf16(const void* x, const void* w, void* out, void* ws,
+                     void* counters, int E, int C, int F, int D,
+                     long long sx_e, long long sx_r, long long sw_e,
+                     long long sw_r, int xm, int wk, int decode, int splits,
+                     int vec, int block_c, int block_f, int device,
+                     void* stream) {
+  return gemm_sm90::launch(x, w, out, ws, counters, E, C, F, D, sx_e, sx_r,
+                           sw_e, sw_r, xm, wk, 1, decode, splits, vec,
+                           block_c, block_f, device, stream);
 }
 
 const char* moe_gmm_error_string(int err) {

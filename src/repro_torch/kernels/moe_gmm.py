@@ -24,11 +24,13 @@ padded on the host. The grid is not persistent: its CTA count
 
 The backward (:func:`moe_gmm_bwd`) has no Pallas counterpart (``repro``
 trains through plain JAX): dX_e = dY_e W_e^T and dW_e = X_e^T dY_e, each
-one launch of the same kernel, counted under ``NAME_BWD``, after W^T and
-X^T are copied contiguous (the kernel reads its second operand as a
-contiguous (E, K, N) array). A broadcast x (expert stride 0) has one X^T,
-copied once and broadcast again; its dX is returned per expert, (E, C, D),
-each rounded to x's dtype, and the broadcast's own backward sums it over E.
+one launch of the mainloop's backward forms (``matmul_tiled.launch_bwd``),
+counted under ``NAME_BWD``, reading W^T and X^T where they lie (the views
+``w.transpose(1, 2)``, a K-major w, and ``x.transpose(1, 2)``, an MN-major
+x): no transposed copy. A broadcast x (expert stride 0) is read through
+its one (C, D) matrix by every expert; its dX is returned per expert, (E,
+C, D), each rounded to x's dtype, and the broadcast's own backward sums it
+over E.
 """
 
 from __future__ import annotations
@@ -39,9 +41,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.matmul_tiled import (BLOCK_K, DECODE_BLOCK_M,
-                                              SPLIT_K, check_tiles,
-                                              kernel_form, launch_tile,
-                                              raw_stream, read_form,
+                                              SPLIT_K, bind_bwd, check_tiles,
+                                              kernel_form, launch_bwd,
+                                              launch_tile, raw_stream,
+                                              read_bwd_form, read_form,
                                               schedule, workspace)
 from repro_torch.kernels.matmul_tiled import BLOCK_M as BLOCK_C
 from repro_torch.kernels.matmul_tiled import BLOCK_N as BLOCK_F
@@ -72,19 +75,16 @@ def moe_gmm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
 def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                 need=(True, True)):
     """The backward of ``x @ w`` per expert on the kernel: dX = dY @ W^T
-    and dW = X^T @ dY (where ``need`` asks for them), each a launch of
-    :func:`moe_gmm` on the default tile counted under ``NAME_BWD``. W^T
-    and X^T are contiguous copies; a broadcast x's X^T is one (D, C) copy
-    broadcast over the experts."""
+    and dW = X^T @ dY (where ``need`` asks for them), each one launch of
+    the backward forms (``matmul_tiled.launch_bwd``) counted under
+    ``NAME_BWD``: W^T and X^T are the views ``w.transpose(1, 2)`` and
+    ``x.transpose(1, 2)`` (a broadcast x's keeps its expert stride 0),
+    read where they lie."""
     dy = dy.contiguous()
-    dx = moe_gmm(dy, w.transpose(1, 2).contiguous(), count=NAME_BWD) \
+    dx = launch_bwd(NAME, _bind, dy, w.transpose(1, 2), NAME_BWD) \
         if need[0] else None
-    dw = None
-    if need[1]:
-        e, c, d = x.shape
-        xt = x[0].t().contiguous().expand(e, d, c) if x.stride(0) == 0 \
-            else x.transpose(1, 2).contiguous()
-        dw = moe_gmm(xt, dy, count=NAME_BWD)
+    dw = launch_bwd(NAME, _bind, x.transpose(1, 2), dy, NAME_BWD) \
+        if need[1] else None
     return dx, dw
 
 
@@ -107,6 +107,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.moe_gmm_form.argtypes = [ci, ci, ci, ctypes.c_void_p]
     lib.moe_gmm_form.restype = ci
     check_tiles(lib, "moe_gmm")
+    bind_bwd(lib, "moe_gmm")
     got = []
     for fn in (lib.moe_gmm_block_c, lib.moe_gmm_block_f,
                lib.moe_gmm_decode_block_c, lib.moe_gmm_split_k,
@@ -124,6 +125,13 @@ def form(kind: str, device="cuda", tile=None) -> dict:
     ``device``, as ``matmul_tiled.form``: the same mainloop, so the same
     ``matmul_tiled.FORMS`` on the CPU."""
     return read_form(NAME, _bind, kind, device, tile)
+
+
+def bwd_form(tile, x_mn: bool = False, w_k: bool = False,
+             device="cuda") -> dict:
+    """The backward form on ``tile`` in the given layout on ``device``, as
+    ``matmul_tiled.bwd_form``."""
+    return read_bwd_form(NAME, _bind, tile, x_mn, w_k, device)
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, tile=None, *,

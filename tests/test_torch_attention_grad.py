@@ -145,6 +145,34 @@ def test_matmul_function_backward_vs_jax_grad(m, k, n, dtype):
         _close(t.grad, np.asarray(g.astype(jnp.float32)), tol)
 
 
+@pytest.mark.parametrize("m,k,n", [(64, 96, 80), (100, 130, 70)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_bwd_ref_on_transposed_views_vs_jax_vjp(m, k, n, dtype):
+    """``matmul_bwd_ref`` on operands that are transposed views (x, w and
+    dY each the ``.t()`` of a contiguous array), as the backward's kernel
+    now reads them where they lie: its result on contiguous copies bit for
+    bit, and jax's vjp of x @ w within the same tolerances."""
+    rng = np.random.default_rng(7 * m + n)
+    x, w, dy = (rng.standard_normal(s).astype(np.float32) for s in
+                ((m, k), (k, n), (m, n)))
+    td = getattr(torch, dtype)
+    tx, tw, tdy = (torch.from_numpy(a.T.copy()).to(td).t()
+                   for a in (x, w, dy))
+    assert not any(t.is_contiguous() for t in (tx, tw, tdy))
+    got = mt.matmul_bwd_ref(tx, tw, tdy)
+    want = mt.matmul_bwd_ref(tx.contiguous(), tw.contiguous(),
+                             tdy.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    jd = getattr(jnp, dtype)
+    _, vjp = jax.vjp(lambda a, b: jnp.matmul(
+        a, b, preferred_element_type=jnp.float32).astype(jd),
+        *(jnp.asarray(t.float().numpy()).astype(jd) for t in (tx, tw)))
+    jg = vjp(jnp.asarray(tdy.float().numpy()).astype(jd))
+    tol = FP32_TOL if dtype == "float32" else 2 * BF16_STEP
+    for t, g in zip(got, jg):
+        _close(t, np.asarray(g.astype(jnp.float32)), tol)
+
+
 def test_matmul_function_skips_unneeded_grads():
     """A weight that needs grad under an input that does not: only dW."""
     x = torch.randn(70, 32).bfloat16()

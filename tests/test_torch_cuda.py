@@ -1655,6 +1655,116 @@ def test_moe_gmm_bwd_kernel_vs_plain(gen, e, c, d, f, broadcast):
     assert mg.moe_gmm_bwd(x, w, dy, (False, True))[0] is None
 
 
+# the backward's products, each (x, w) as the backward hands them: (name,
+# x view, w view) of dX = dY W^T (w K-major) and dW = X^T dY (x MN-major)
+def _bwd_products(gen, e, m, k, n, broadcast=False):
+    if e == 0:
+        x, w, dy = randn(gen, m, k), randn(gen, k, n), randn(gen, m, n)
+        return [("dx", dy[None], w.t()[None]), ("dw", x.t()[None], dy[None])]
+    x = randn(gen, m, k).expand(e, m, k) if broadcast else randn(gen, e, m, k)
+    w, dy = randn(gen, e, k, n), randn(gen, e, m, n)
+    return [("dx", dy, w.transpose(1, 2)), ("dw", x.transpose(1, 2), dy)]
+
+
+def _bwd_tiles(m):
+    return [mt.DECODE_TILE] if m <= mt.DECODE_BLOCK_M else list(mt.BWD_TILES)
+
+
+# (E, M, K, N, x broadcast): E 0 is matmul_bwd's 2-D product; the
+# matmul backward's sweep and MOE_BWD_CASES
+GEMM_BWD_CASES = [(0, 1024, 1024, 2816, False), (0, 1024, 2816, 1024, False),
+                  (0, 300, 130, 72, False), (0, 48, 256, 200, False)] + \
+    [(e, c, d, f, b) for e, c, d, f, b in MOE_BWD_CASES]
+
+
+@pytest.mark.parametrize("case", GEMM_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_gemm_bwd_forms_vs_plain_and_copies(gen, case):
+    """Each backward product on each of its tiles, read where it lies (w
+    K-major for dX, x MN-major for dW): within two bf16 steps of the plain
+    product, bit-equal on a repeat, and bit-equal to the same tile reading
+    a contiguous copy of the same values (the layout moves no bit)."""
+    e, m, k, n, broadcast = case
+    name, bind = (mt.NAME, mt._bind) if e == 0 else (mg.NAME, mg._bind)
+    for what, x, w in _bwd_products(gen, e, m, k, n, broadcast):
+        want = mg.moe_gmm_ref(x, w).float()
+        for tile in _bwd_tiles(x.shape[1]):
+            got = mt.launch_bwd(name, bind, x, w, "moe_gmm_bwd", tile)
+            torch.cuda.synchronize()
+            assert mt.LAST_BWD["tile"] == tile
+            strides = mt.operand_layout(x.shape, x.stride(), w.shape,
+                                        w.stride())[2:]
+            if x.shape[0] > 1:
+                strides += (x.stride(0), w.stride(0))
+            assert mt.LAST_BWD["loads"] == (
+                "tma" if all(v % 8 == 0 for v in strides)
+                else "elementwise"), (what, tile)
+            assert (mt.LAST_BWD["x_mn"], mt.LAST_BWD["w_k"]) == \
+                (what == "dw" and x.shape[2] > 1, what == "dx"
+                 and w.shape[1] > 1 and w.shape[2] > 1), (what, tile)
+            err = (got.float() - want).abs().max().item()
+            assert err <= 2.0 ** -6 * max(want.abs().max().item(), 1e-30), \
+                (what, tile, err)
+            assert torch.equal(got, mt.launch_bwd(name, bind, x, w,
+                                                  "moe_gmm_bwd", tile))
+            copied = mt.launch_bwd(name, bind, x.contiguous(), w.contiguous(),
+                                   "moe_gmm_bwd", tile)
+            assert (mt.LAST_BWD["x_mn"], mt.LAST_BWD["w_k"]) == \
+                (False, False)
+            assert torch.equal(got, copied), (what, tile)
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 1024, 2816), (300, 130, 72),
+                                   (48, 256, 200), (1024, 2816, 1024)])
+def test_gemm_forward_equals_backward_form_on_its_tile(gen, m, k, n):
+    """The forward's own forms are unchanged: on (128, 64) and the decode
+    tile the forward's output equals the backward form's on the same
+    contiguous operands bit for bit (the same products in the same
+    order)."""
+    x, w = randn(gen, m, k), randn(gen, k, n)
+    tile = mt.DECODE_TILE if m <= mt.DECODE_BLOCK_M else (128, 64)
+    fwd = mt.matmul_tiled(x, w, None if m <= mt.DECODE_BLOCK_M else tile)
+    bwd = mt.launch_bwd(mt.NAME, mt._bind, x[None], w[None],
+                        "matmul_tiled_bwd", tile)[0]
+    assert torch.equal(fwd, bwd)
+
+
+def test_gemm_bwd_forms_on_the_card(gen):
+    """Every backward form builds, as ``BWD_FORMS`` has it, with no
+    spilled registers, in each layout; the decode form refuses a prefill
+    tile; the forward's forms keep ``FORMS``."""
+    for tile, want in mt.BWD_FORMS.items():
+        for x_mn, w_k in ((False, False), (True, False), (False, True)):
+            for module in (mt, mg):
+                f = module.bwd_form(tile, x_mn, w_k)
+                assert {k: f[k] for k in want} == want, (tile, x_mn, w_k)
+                assert f["spill_bytes"] == 0 and f["registers"] <= 255
+    with pytest.raises(ValueError, match="decode form"):
+        mt.launch_bwd(mt.NAME, mt._bind, randn(gen, 1, 48, 64),
+                      randn(gen, 1, 64, 64), "matmul_tiled_bwd", (128, 64))
+    for (kind, tile), want in mt.FORMS.items():
+        f = mt.form(kind, tile=tile)
+        assert {k: f[k] for k in want} == want
+
+
+def test_gemm_bwd_refuses_what_it_cannot_read(gen):
+    """A layout with no unit stride, or both operands transposed, raises:
+    nothing is copied and no plain version runs."""
+    x, w = randn(gen, 64, 256)[:, ::2], randn(gen, 128, 96)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="neither"):
+        mt.launch_bwd(mt.NAME, mt._bind, x[None], w[None],
+                      "matmul_tiled_bwd")
+    xt, wt = randn(gen, 128, 96).t(), randn(gen, 64, 128).t()
+    with pytest.raises(ValueError, match="not both"):
+        mt.launch_bwd(mt.NAME, mt._bind, xt[None], wt[None],
+                      "matmul_tiled_bwd")
+    with pytest.raises(ValueError, match="no backward tile"):
+        mt.launch_bwd(mt.NAME, mt._bind, randn(gen, 1, 128, 64),
+                      randn(gen, 1, 64, 64), "matmul_tiled_bwd", (256, 64))
+    assert dict(ops.LAUNCHES) == before
+
+
 @pytest.mark.parametrize("b,t,w", RGLRU_BWD_CASES)
 @pytest.mark.parametrize("dh_last", [False, True])
 def test_rglru_bwd_kernel_vs_plain(gen, b, t, w, dh_last):

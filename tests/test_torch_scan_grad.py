@@ -103,6 +103,49 @@ def test_moe_gmm_bwd_ref_vs_jax_vjp(case, dtype, broadcast):
     _close(tx.grad, jdx, tol if not broadcast else 2 * tol, "x.grad")
 
 
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gmm_bwd_ref_on_transposed_views_vs_jax_vjp(dtype, broadcast):
+    """``moe_gmm_bwd_ref`` on transposed views (x, w and dY each the
+    ``transpose(1, 2)`` of a contiguous array; a broadcast x the expansion
+    of a ``.t()`` view), as the backward's kernel now reads them: its
+    result on contiguous copies bit for bit, and jax's vjp of
+    ``moe_gmm_ref`` within the same tolerances."""
+    e, c, d, f = MOE_CASES[1]
+    rng = np.random.default_rng(11 + broadcast)
+    x = rng.standard_normal((c, d) if broadcast else (e, c, d)) \
+        .astype(np.float32)
+    w = rng.standard_normal((e, d, f)).astype(np.float32)
+    dy = rng.standard_normal((e, c, f)).astype(np.float32)
+    td = getattr(torch, dtype)
+    if broadcast:
+        tx = torch.from_numpy(x.T.copy()).to(td).t().expand(e, c, d)
+    else:
+        tx = torch.from_numpy(x.transpose(0, 2, 1).copy()).to(td) \
+            .transpose(1, 2)
+    tw, tdy = (torch.from_numpy(a.transpose(0, 2, 1).copy()).to(td)
+               .transpose(1, 2) for a in (w, dy))
+    assert not any(t.is_contiguous() for t in (tx, tw, tdy))
+    got = mg.moe_gmm_bwd_ref(tx, tw, tdy)
+    want = mg.moe_gmm_bwd_ref(tx.contiguous(), tw.contiguous(),
+                              tdy.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    dx = got[0].float().sum(0) if broadcast else got[0]
+    jd = getattr(jnp, dtype)
+
+    def f_(a, b):
+        a = jnp.broadcast_to(a, (e, c, d)) if broadcast else a
+        return jref.moe_gmm_ref(a, b)
+    xin = tx[0] if broadcast else tx
+    _, vjp = jax.vjp(f_, *(jnp.asarray(t.float().numpy()).astype(jd)
+                           for t in (xin, tw)))
+    jdx, jdw = (np.asarray(g.astype(jnp.float32))
+                for g in vjp(jnp.asarray(tdy.float().numpy()).astype(jd)))
+    tol = FP32_TOL if dtype == "float32" else 2 * BF16_STEP
+    _close(dx, jdx, tol if not broadcast else 2 * tol, "dx")
+    _close(got[1], jdw, tol, "dw")
+
+
 def test_moe_gmm_function_vs_autograd_of_plain():
     """The Function's gradients against autograd through ``moe_gmm_ref``
     itself, on the capacity strategy's shape (x not broadcast, fp32); and
