@@ -210,10 +210,13 @@ the target) and ``nvcc``:
    cast tree, its step cache's prefill replay bit-equal to the eager
    forward; (e) the backward kernels at the training shapes (the matmul
    backward at the up/gate and down products, transposed copies timed
-   alone; the attention backward at qwen's causal shape and
-   seamless-m4t-medium's unmasked encoder and cross-attention), each
-   against its plain version, two attention backward calls bit-equal,
-   timed beside the plain version, ``torch.matmul`` and SDPA's backward;
+   alone; the attention backward at qwen's and granite's causal shapes,
+   seamless-m4t-medium's unmasked encoder and cross-attention, and two
+   long sequences off the path), each against its plain version, two
+   attention backward calls bit-equal and one launch each, timed beside
+   the plain version, ``torch.matmul`` and SDPA's backward (the attention
+   backward also each of its roles alone, its CTAs, CTAs an SM and
+   waves);
    then the families whose expert or scan kernels train on their own
    backward kernels, each at full width: granite-moe-1b-a400m (dense experts
    on ``moe_gmm`` and ``moe_gmm_bwd``, causal attention),
@@ -238,10 +241,11 @@ the target) and ``nvcc``:
 
     python3 chip_smoke.py --parent SRC
 
-does all of that, and also builds the attention and RWKV6 kernels of the
-tree under SRC (e.g. the parent commit unpacked into ``build/parent/src``)
-and loads its RG-LRU wrapper, holds each against the plain version and
-times it beside this tree's in every attention, RWKV6 and RG-LRU case.
+does all of that, and also builds the attention, attention backward and
+RWKV6 kernels of the tree under SRC (e.g. the parent commit unpacked into
+``build/parent/src``) and loads its RG-LRU wrapper, holds each against the
+plain version and times it beside this tree's in every attention,
+attention backward, RWKV6 and RG-LRU case.
 
 Any failed check exits non-zero (Fig. 5's flat-stair check after every
 phase has run, with no result line). Without a card, or outside a
@@ -262,6 +266,12 @@ result line.
 
 runs only phase 7 and its kernel shapes and prints them as one JSON line,
 and no result line.
+
+    python3 chip_smoke.py --flash-bwd [--parent SRC]
+
+runs only the attention backward's cases of phase 9 (e) (beside the
+backward of the tree under SRC, if given) and prints them as one JSON
+line, and no result line.
 
     python3 chip_smoke.py --train
 
@@ -563,7 +573,7 @@ def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
 TRACE_NAMES = {"matmul_tiled": "gemm_sm90", "moe_gmm": "gemm_sm90",
                "matmul_tiled_bwd": "gemm_sm90", "moe_gmm_bwd": "gemm_sm90",
                "flash_attention": "flash_attention_kernel",
-               "flash_attention_bwd": "dkdv_kernel",
+               "flash_attention_bwd": "flash_attention_bwd_kernel",
                "rglru_scan": "rglru_scan_kernel", "rwkv6": "rwkv6_kernel",
                "rglru_scan_bwd": "rglru_scan_bwd_kernel",
                "rwkv6_bwd": "rwkv6_bwd_kernel"}
@@ -818,6 +828,43 @@ def parent_flash(torch, build, src: Path):
         return out
 
     log(f"parent flash_attention built from {cu}")
+    return call
+
+
+def parent_flash_bwd(torch, build, src: Path):
+    """The attention backward of the tree under ``src`` (e.g. the parent
+    commit), built as its own library and called through the same C entry
+    (``flash_attention_bwd_bf16``; a ``delta`` scratch is passed, which
+    trees before the one-launch kernel write): a function (q, k, v, o, lse,
+    do, mask) -> (dq, dk, dv), not counted in ``LAUNCHES``."""
+    import ctypes
+    cu = src / "repro_torch" / "csrc" / "flash_attention_bwd.cu"
+    check(cu.is_file(), f"{cu} is missing")
+    out = build.build_dir() / "parent_flash_attention_bwd.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                           str(out), str(cu)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_bf16.argtypes = [vp] * 10 + [ci] * 7 + [
+        ctypes.c_float, vp]
+    lib.flash_attention_bwd_bf16.restype = ci
+
+    def call(q, k, v, o, lse, do, mask):
+        b, sq, h, dh = q.shape
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty_like(lse)
+        err = lib.flash_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, k.shape[2],
+            dh, {"none": 0, "causal": 1}[mask], 1.0 / math.sqrt(dh),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's flash_attention_bwd failed: {err}")
+        return dq, dk, dv
+
+    log(f"parent flash_attention_bwd built from {cu}")
     return call
 
 
@@ -3825,7 +3872,11 @@ TRAIN_MATMULS = ((1024, 1024, 2816), (1024, 2816, 1024))
 HELD_OUT_MATMULS = ((1024, 2560, 7680), (1024, 7680, 2560))
 TRAIN_FLASH = ((8, 128, 128, 16, 16, 64, "causal"),
                (4, 150, 150, 16, 16, 64, "none"),
-               (4, 32, 150, 16, 16, 64, "none"))
+               (4, 32, 150, 16, 16, 64, "none"),
+               (8, 128, 128, 16, 8, 64, "causal"))
+# and off the path, at the forward's two long sequences
+LONG_FLASH_BWD = ((4, 2048, 2048, 16, 16, 64, "causal"),
+                  (1, 4096, 4096, 8, 2, 128, "causal"))
 # the families trained at full width in (f)-(h), the largest first, each
 # freed before the next, and (g)'s steps of launch.train for each
 TRAIN_FAMILIES = RECURRENT_ARCHS + (MOE_ARCH,)
@@ -4044,12 +4095,33 @@ def compare_matmul_bwd(torch, mt, case: tuple, gen) -> dict:
     return row
 
 
-def compare_flash_bwd(torch, fa, case: tuple, gen) -> dict:
-    """The attention backward at one shape: the kernel against
-    ``attention_bwd_ref`` on the kernel forward's O and lse (each gradient
-    within 4e-2 of its largest), two calls bit-equal, the forward with its
-    lse equal to the forward alone, its time, the plain version's and
-    SDPA's backward through autograd."""
+def flash_bwd_role_ms(torch, fa, args: tuple, mask: str, role: int) -> float:
+    """Device ms of the backward kernel's launch with one role's CTAs alone
+    (0 dK/dV, 1 dQ), through the library's timing entry: no gradient is
+    whole, and nothing is counted."""
+    lib = fa.build.load(fa.NAME_BWD, fa._bind_bwd)
+
+    def call(q, k, v, o, lse, do):
+        b, sq, h, dh = q.shape
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        err = lib.flash_attention_bwd_role_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, k.shape[1], h, k.shape[2], dh,
+            {"none": 0, "causal": 1}[mask], 1.0 / math.sqrt(dh), role,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"flash_attention_bwd_role_bf16 failed: {err}")
+    return time_ms(torch, call, args)
+
+
+def compare_flash_bwd(torch, fa, case: tuple, gen, parent=None) -> dict:
+    """The attention backward at one shape: the kernel (and the parent
+    tree's, if given) against ``attention_bwd_ref`` on the kernel forward's
+    O and lse (each gradient within 4e-2 of its largest), two calls
+    bit-equal, one launch a call, the forward with its lse equal to the
+    forward alone; the times of the kernel, the parent's, the plain version
+    and SDPA's backward through autograd; the kernel's form, CTAs of each
+    role, CTAs an SM and the grid's waves by paper Eq. 3 (S = 132)."""
     b, sq, skv, h, kv, dh, mask = case
     q = torch.randn(b, sq, h, dh, generator=gen, device="cuda").bfloat16()
     k = torch.randn(b, skv, kv, dh, generator=gen, device="cuda").bfloat16()
@@ -4058,20 +4130,33 @@ def compare_flash_bwd(torch, fa, case: tuple, gen) -> dict:
     o, lse = fa.flash_attention(q, k, v, mask_kind=mask, lse=True)
     check(torch.equal(o, fa.flash_attention(q, k, v, mask_kind=mask)),
           f"flash_attention {case}: the forward with lse differs")
+    launches = fa.build.LAUNCHES
+    count = launches["flash_attention_bwd"]
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind=mask)
     torch.cuda.synchronize()
+    check(launches["flash_attention_bwd"] == count + 1,
+          f"flash_attention_bwd {case}: a call counted "
+          f"{launches['flash_attention_bwd'] - count} launches")
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind=mask)
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"flash_attention_bwd {case}: a second call differs")
-    err = 0.0
-    for name, g, ref in zip(("dq", "dk", "dv"), got, fa.attention_bwd_ref(
-            q, k, v, o, lse, do, mask_kind=mask)):
+    del again
+    want = fa.attention_bwd_ref(q, k, v, o, lse, do, mask_kind=mask)
+    err = p_err = 0.0
+    p_got = parent(q, k, v, o, lse, do, mask) if parent else None
+    for i, (name, ref) in enumerate(zip(("dq", "dk", "dv"), want)):
         ref = ref.float()
-        e = (g.float() - ref).abs().max().item()
         tol = TRAIN_TOL * ref.abs().max().item()
-        check(bool(torch.isfinite(g.float()).all()) and e <= tol,
+        e = (got[i].float() - ref).abs().max().item()
+        check(bool(torch.isfinite(got[i].float()).all()) and e <= tol,
               f"flash_attention_bwd {case} {name}: max_abs_err {e} > {tol}")
         err = max(err, e)
+        if parent:
+            pe = (p_got[i].float() - ref).abs().max().item()
+            check(pe <= tol, f"parent flash_attention_bwd {case} {name}: "
+                  f"max_abs_err {pe} > {tol}")
+            p_err = max(p_err, pe)
+    del want, p_got
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
@@ -4091,24 +4176,49 @@ def compare_flash_bwd(torch, fa, case: tuple, gen) -> dict:
                           2.0 * (4 * b * sq * h * dh + 4 * b * skv * kv * dh)
                           + 4.0 * b * h * sq)
     lib_ms, lib_how = library_bwd_ms(torch, library, (dot,))
+    args = (q, k, v, o, lse, do)
+
+    def plain(*a):
+        return fa.attention_bwd_ref(*a, mask_kind=mask)
+    # the plain version holds (B, H, Sq, Skv) fp32 scores: at long
+    # sequences (8-16 GiB of them) it is timed eagerly, 4 calls between
+    # events, since a CUDA graph's private pool of that size stayed
+    # reserved after the graph was freed and left the later phases short
+    plain_ms = time_ms(torch, plain, args) if sq * skv <= 256 * 256 else \
+        stream_ms(torch, lambda: plain(*args), reps=4)
     row = {"case": f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} dh={dh} {mask}",
            "max_abs_err": err, "tol": TRAIN_TOL,
            "ms": time_ms(torch, lambda *a: fa.flash_attention_bwd(
-               *a, mask_kind=mask), (q, k, v, o, lse, do)),
-           "plain_ms": time_ms(torch, lambda *a: fa.attention_bwd_ref(
-               *a, mask_kind=mask), (q, k, v, o, lse, do)),
+               *a, mask_kind=mask), args),
+           "parent_ms": None if parent is None else time_ms(
+               torch, lambda *a: parent(*a, mask), args),
+           "parent_max_abs_err": p_err if parent else None,
+           "plain_ms": plain_ms,
            "library_ms": lib_ms, "library_timed": lib_how,
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           "dkdv_role_ms": flash_bwd_role_ms(torch, fa, args, mask, 0),
+           "dq_role_ms": flash_bwd_role_ms(torch, fa, args, mask, 1)}
     f = fa.bwd_form(dh)
     n_kv, n_q = fa.bwd_grid_blocks(b, sq, skv, h, kv)
+    waves = math.ceil((n_kv + n_q) / (132 * f["ctas_per_sm"]))
+    row.update({"ctas_dkdv": n_kv, "ctas_dq": n_q,
+                "ctas_per_sm": f["ctas_per_sm"], "waves": waves,
+                "registers": f["registers"], "spill_bytes": f["spill_bytes"]})
+    modeled = fa.bwd_waves(b, sq, skv, h, kv, dh)
+    check(f["spill_bytes"] == 0 and waves == modeled,
+          f"flash_attention_bwd {case}: form {f}, {waves} waves against "
+          f"bwd_waves {modeled}")
     log(f"flash_attention_bwd {row['case']}: max_abs_err {err:.4g} (of "
-        f"the largest gradient x {TRAIN_TOL}) ms {row['ms']:.4f} plain_ms "
-        f"{row['plain_ms']:.4f} library_ms (SDPA flash backward, {lib_how}) "
-        f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, "
-        f"{100 * b_ms / row['ms']:.1f}% of it); form: dK/dV {n_kv} CTAs, dQ "
-        f"{n_q} CTAs of {f['threads']} threads, {f['smem_bytes']} B shared, "
-        f"registers {f['dkdv_registers']}/{f['dq_registers']}, spilled "
-        f"{f['dkdv_spill_bytes']}/{f['dq_spill_bytes']} B")
+        f"the largest gradient x {TRAIN_TOL}) ms {row['ms']:.4f} parent_ms "
+        + ("not timed" if parent is None else f"{row['parent_ms']:.4f}")
+        + f" plain_ms {row['plain_ms']:.4f} library_ms (SDPA flash "
+        f"backward, {lib_how}) {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+        f"{100 * b_ms / row['ms']:.1f}% of it); roles alone: dK/dV "
+        f"{row['dkdv_role_ms']:.4f}, dQ {row['dq_role_ms']:.4f} ms; form: "
+        f"one launch, dK/dV {n_kv} + dQ {n_q} CTAs of {f['threads']} threads, "
+        f"{f['ctas_per_sm']} an SM, {waves} waves (Eq. 3, S = 132), "
+        f"{f['stages']} stages, {f['smem_bytes']} B shared, "
+        f"{f['registers']} registers, {f['spill_bytes']} B spilled")
     return row
 
 
@@ -4609,6 +4719,15 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
                                           "stream_ms")} for st in stats]}
 
 
+def log_memory(torch, what: str) -> None:
+    """The caching allocator's and the card's memory, for a phase that
+    needs much of it."""
+    free, total = torch.cuda.mem_get_info()
+    log(f"{what} {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+        f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card")
+
+
 def train_phase(torch, np, mods, card: str) -> dict:
     """Full-width qwen1.5-0.5b's training: (a) one step's gradients on the
     kernels and on the plain versions from the same weights and batch,
@@ -4785,7 +4904,9 @@ def train_phase(torch, np, mods, card: str) -> dict:
     # (e) the backward kernels at their training shapes
     mm = [compare_matmul_bwd(torch, mods["mt"], c, gen)
           for c in TRAIN_MATMULS]
-    fl = [compare_flash_bwd(torch, mods["fa"], c, gen) for c in TRAIN_FLASH]
+    fl = [compare_flash_bwd(torch, mods["fa"], c, gen,
+                            mods.get("parent_flash_bwd"))
+          for c in TRAIN_FLASH + LONG_FLASH_BWD]
     # (f), (g) the families on their expert and scan kernels' backwards.
     # A family's step holds up to 62 GiB; on a cache that this process's
     # earlier phases shaped, recurrentgemma's first CLI step ran out of
@@ -4795,6 +4916,7 @@ def train_phase(torch, np, mods, card: str) -> dict:
     # is restored after them
     gc.collect()
     torch.cuda.empty_cache()
+    log_memory(torch, "train (f) starts with")
     set_alloc = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
         or torch.cuda.memory._set_allocator_settings
     set_alloc("expandable_segments:True")
@@ -4803,6 +4925,7 @@ def train_phase(torch, np, mods, card: str) -> dict:
                     for arch in TRAIN_FAMILIES}
     finally:
         set_alloc("expandable_segments:False")
+    log_memory(torch, "train (h) starts with")
     # (h) those backward kernels at their training shapes
     moe_bwd = [compare_moe_gmm_bwd(torch, mods["mt"], mods["mg"], c, gen)
                for c in TRAIN_MOE]
@@ -4958,6 +5081,17 @@ def main() -> None:
         if DEFERRED:
             fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
         return
+    if "--flash-bwd" in argv:
+        # the attention backward alone at its cases, beside the parent
+        # tree's if given
+        parent = parent_flash_bwd(torch, build, Path(argv[argv.index(
+            "--parent") + 1]).resolve()) if "--parent" in argv else None
+        rows = [compare_flash_bwd(torch, fa, c, gen, parent)
+                for c in TRAIN_FLASH + LONG_FLASH_BWD]
+        print(json.dumps({"flash_bwd": six_digits(rows)}), flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
     if "--train" in argv:
         # the training phase alone
         trained = train_phase(torch, np, mods, card)
@@ -4971,6 +5105,7 @@ def main() -> None:
     if "--parent" in argv:
         psrc = Path(argv[argv.index("--parent") + 1]).resolve()
         parent = parent_flash(torch, build, psrc)
+        mods["parent_flash_bwd"] = parent_flash_bwd(torch, build, psrc)
         parent_rw = parent_rwkv6(torch, build, psrc)
         parent_rg = parent_rglru(torch, build, psrc)
     # recurrentgemma-2b's prefill shape, a ragged W (TMA), one step, a

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's kernels (gemm_sm90.cuh, the
-// mainloop of matmul_tiled and moe_gmm, and flash_attention.cu): mbarriers,
-// TMA tensor loads, wgmma shared-memory descriptors and tensor-map encoding.
+// mainloop of matmul_tiled and moe_gmm, flash_attention.cu and its
+// backward, rglru_scan.cu): mbarriers, TMA tensor loads, wgmma
+// shared-memory descriptors and tensor-map encoding.
 
 #pragma once
 

@@ -21,9 +21,10 @@ before it imports Triton, so the compiled kernel stays in the gitignored
 one right after the launch returned without error, and nowhere else. Each
 counts one per call: a product in the decode form of ``matmul_tiled`` or
 ``moe_gmm`` sums its K chunks inside the same launch, and a call of
-``flash_attention_bwd`` is its three passes. The matmul backward's products
-launch ``matmul_tiled``'s kernel and count under ``matmul_tiled_bwd``, the
-grouped matmul's launch ``moe_gmm``'s and count under ``moe_gmm_bwd``.
+``flash_attention_bwd`` is one launch of both its roles. The matmul
+backward's products launch ``matmul_tiled``'s kernel and count under
+``matmul_tiled_bwd``, the grouped matmul's launch ``moe_gmm``'s and count
+under ``moe_gmm_bwd``.
 """
 
 from __future__ import annotations

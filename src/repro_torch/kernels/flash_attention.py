@@ -18,10 +18,14 @@ operations.
 The backward (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``)
 has no Pallas counterpart: ``repro`` trains through plain JAX. It takes the
 forward's output and its row log-sum-exp (``flash_attention(..., lse=True)``)
-and recomputes P, FlashAttention-2's scheme: a dK/dV pass per (batch x kv
-head, 64-key block) and a dQ pass per (batch x head, 64-query block), on
-``mma.sync``, with no atomics (two calls are bit-equal). Masks ``causal``
-and ``none``. Its plain version is :func:`attention_bwd_ref`.
+and recomputes P, FlashAttention-2's scheme, in one launch of two CTA roles:
+a dK/dV CTA per (batch x kv head, 64-key block) and a dQ CTA per (batch x
+head, 64-query block), ordered heaviest walk first (:func:`bwd_order`). A
+CTA is one warpgroup at dh 64 and two that split its walk at dh 128
+(:data:`BWD_FORMS`); its tiles come through TMA into a ring, every product
+runs on ``wgmma``, and it computes D = rowsum(dO * O) for its own rows. No
+atomics (two calls are bit-equal). Masks ``causal`` and ``none``. Its plain
+version is :func:`attention_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -47,6 +51,18 @@ FORMS = {64: {"stages": 4, "threads": 160, "smem_bytes": 74888,
          128: {"stages": 2, "threads": 160, "smem_bytes": 83016,
                "ctas_per_sm": 2}}
 _MASKS = {"none": 0, "causal": 1, "local": 2}
+# The backward's CTA at each head dim as csrc/flash_attention_bwd.cu builds
+# it (one kernel, both roles): threads (one warpgroup at dh 64, two at dh
+# 128), dynamic shared memory bytes (1024 of alignment, 2 + 3 x stages
+# 64-row tiles, L and D a stage, the barriers), the CTAs an SM holds and
+# the ring's stages. :func:`bwd_form` reads the same, with registers and
+# spills, on the card.
+BWD_FORMS = {64: {"threads": 128, "smem_bytes": 67608, "ctas_per_sm": 3,
+                  "stages": 2},
+             128: {"threads": 256, "smem_bytes": 133144, "ctas_per_sm": 1,
+                   "stages": 2}}
+# products of a block of each role's walk: the weights of the grid's order
+BWD_COST_KV, BWD_COST_Q = 4, 3
 
 
 def _mask(sq: int, skv: int, mask_kind: str, window: int, device):
@@ -226,6 +242,12 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.flash_attention_bwd_form.argtypes = [ci, ctypes.POINTER(ci)]
     lib.flash_attention_bwd_form.restype = ci
+    lib.flash_attention_bwd_order.argtypes = [ci] * 6 + [
+        ctypes.POINTER(ci), ci]
+    lib.flash_attention_bwd_order.restype = ci
+    lib.flash_attention_bwd_role_bf16.argtypes = [vp] * 9 + [ci] * 7 + [
+        ctypes.c_float, ci, vp]
+    lib.flash_attention_bwd_role_bf16.restype = ci
     lib.flash_attention_bwd_block.argtypes = []
     lib.flash_attention_bwd_block.restype = ci
     if lib.flash_attention_bwd_block() != BLOCK_Q:
@@ -233,24 +255,83 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
                            "BLOCK_Q")
 
 
-def bwd_form(dh: int) -> dict:
-    """The backward's passes at head dim ``dh`` on the current CUDA device:
-    threads a CTA, dynamic shared memory bytes, and registers and spilled
-    bytes a thread of the dK/dV and the dQ pass."""
+def bwd_form(dh: int, device="cuda") -> dict:
+    """The backward kernel's form at head dim ``dh``: threads a CTA, dynamic
+    shared memory bytes, CTAs an SM holds and ring stages (both roles run in
+    the one kernel); on a CUDA device also registers and bytes spilled a
+    thread, read from the built kernel; :data:`BWD_FORMS` on the CPU."""
+    if torch.device(device).type == "cpu":
+        return dict(BWD_FORMS[dh])
     lib = build.load(NAME_BWD, _bind_bwd)
     out = (ctypes.c_int * 6)()
     err = lib.flash_attention_bwd_form(dh, out)
     if err:
         msg = lib.flash_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_bwd_form({dh}) failed: {msg}")
-    return dict(zip(("threads", "smem_bytes", "dkdv_registers",
-                     "dkdv_spill_bytes", "dq_registers", "dq_spill_bytes"),
-                    out))
+    return dict(zip(("threads", "smem_bytes", "registers", "spill_bytes",
+                     "ctas_per_sm", "stages"), out))
 
 
 def bwd_grid_blocks(b: int, sq: int, skv: int, h: int, kv: int) -> tuple:
-    """CTAs of the backward's dK/dV pass and dQ pass."""
+    """CTAs of the backward's two roles in its one launch: (dK/dV, dQ)."""
     return -(-skv // BLOCK_KV) * b * kv, -(-sq // BLOCK_Q) * b * h
+
+
+def bwd_waves(b: int, sq: int, skv: int, h: int, kv: int, dh: int) -> int:
+    """Paper Eq. 3's waves of the backward's grid: its CTAs over S SMs
+    (``core.gpu.H100_SXM``'s 132) times the CTAs an SM holds
+    (:data:`BWD_FORMS`)."""
+    from repro_torch.core.gpu import H100_SXM
+    per_wave = H100_SXM.sm_count * BWD_FORMS[dh]["ctas_per_sm"]
+    return -(-sum(bwd_grid_blocks(b, sq, skv, h, kv)) // per_wave)
+
+
+def bwd_walk(role: int, blk: int, sq: int, skv: int, h: int, kv: int,
+             mask_kind: str) -> list:
+    """The blocks a CTA of the backward walks, in its order: for a dK/dV CTA
+    (role 0) of key block ``blk``, (head in the GQA group, query block) from
+    the first query block that sees one of its keys (causal) or 0; for a dQ
+    CTA (role 1) of query block ``blk``, its key blocks up to the last it
+    sees."""
+    causal = mask_kind == "causal"
+    if role == 0:
+        first = blk * BLOCK_KV // BLOCK_Q if causal else 0
+        return [(g, i) for g in range(h // kv)
+                for i in range(first, -(-sq // BLOCK_Q))]
+    hi = min(skv, (blk + 1) * BLOCK_Q, sq) if causal else skv
+    return list(range(-(-hi // BLOCK_KV)))
+
+
+def bwd_order(b: int, sq: int, skv: int, h: int, kv: int, mask_kind: str,
+              device="cpu") -> list:
+    """The backward grid's CTAs in ``blockIdx`` order, as (role, block, batch
+    x head): levels of ``b * kv`` dK/dV CTAs (role 0; key blocks 0, 1, ...)
+    and of ``b * h`` dQ CTAs (role 1; query blocks last to first), merged by
+    the products of their walks (:data:`BWD_COST_KV`, :data:`BWD_COST_Q` a
+    block), heaviest first, ties to dK/dV. On a CUDA device, the kernel's
+    own ``cta_of`` as its library computes it on the host."""
+    if torch.device(device).type == "cuda":
+        lib = build.load(NAME_BWD, _bind_bwd)
+        n = sum(bwd_grid_blocks(b, sq, skv, h, kv))
+        out = (ctypes.c_int * (3 * n))()
+        lib.flash_attention_bwd_order(b, sq, skv, h, kv, _MASKS[mask_kind],
+                                      out, n)
+        return [tuple(out[3 * i:3 * i + 3]) for i in range(n)]
+    nkv, nq = -(-skv // BLOCK_KV), -(-sq // BLOCK_Q)
+
+    def cost(role, blk):
+        n = len(bwd_walk(role, blk, sq, skv, h, kv, mask_kind))
+        return (BWD_COST_KV if role == 0 else BWD_COST_Q) * n
+    order, j, i = [], 0, nq - 1
+    while j < nkv or i >= 0:
+        take_kv = j < nkv and (i < 0 or cost(0, j) >= cost(1, i))
+        order += [(0, j, x) for x in range(b * kv)] if take_kv else \
+            [(1, i, x) for x in range(b * h)]
+        if take_kv:
+            j += 1
+        else:
+            i -= 1
+    return order
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, mask_kind: str = "causal"):
@@ -258,8 +339,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, mask_kind: str = "causal"):
     dv) of attention over q (B, Sq, H, dh) and k, v (B, Skv, KV, dh) from
     the forward's output ``o``, its row log-sum-exp ``lse`` (fp32 (B, H,
     Sq), from ``flash_attention(..., lse=True)``) and the output's gradient
-    ``do``. Masks ``none`` and ``causal``. One call is three launches
-    (D = rowsum(dO * O), the dK/dV pass, the dQ pass) and counts one."""
+    ``do``. Masks ``none`` and ``causal``. One call is one launch: the
+    dK/dV and dQ CTAs of :func:`bwd_order`, each computing D = rowsum(dO *
+    O) for its own rows."""
     _check("flash_attention_bwd", q, k, v, (o, do))
     if mask_kind not in BWD_MASKS:
         raise ValueError(f"flash_attention_bwd: mask_kind {mask_kind!r} not "
@@ -274,13 +356,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, mask_kind: str = "causal"):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or h == 0 or sq == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = build.load(NAME_BWD, _bind_bwd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), None, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kv, dh,
             _MASKS[mask_kind], 1.0 / math.sqrt(dh), stream)
     if err:

@@ -26,8 +26,8 @@ Gradients. ``matmul``, ``moe_gmm``, ``flash_attention``, ``rglru_scan``
 and ``rwkv6`` are ``torch.autograd.Function``s when grad is enabled and an
 input requires it: on a CUDA tensor the forward and the backward run the
 hand-written kernels (the GEMMs' dX and dW products; the attention kernel
-with its row log-sum-exp, then ``flash_attention_bwd``; ``rglru_scan_bwd``;
-``rwkv6_bwd``), on the CPU (or with ``force="plain"``) the plain forward
+with its row log-sum-exp, then ``flash_attention_bwd``, one ``wgmma``
+launch; ``rglru_scan_bwd``; ``rwkv6_bwd``), on the CPU (or with ``force="plain"``) the plain forward
 and the plain backward's explicit formulas. Serving, under ``no_grad`` or
 on tensors that need no grad, takes the forward alone.
 """

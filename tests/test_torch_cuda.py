@@ -1488,9 +1488,10 @@ def test_hrank_scores_card_vs_cpu(gen):
 # training: the backward kernels and a train step on the card
 # ---------------------------------------------------------------------------
 # (B, Sq, Skv, H, KV, dh, mask): full-width qwen1.5-0.5b's training shape,
-# GQA groups 2 and 7, dh 128, ragged S, seamless-m4t-medium's unmasked
-# encoder (150 frames) and cross-attention (32 queries on 150 keys), Sq !=
-# Skv unmasked
+# granite-moe-1b-a400m's (GQA group 2), GQA groups 2 and 7, dh 128, ragged
+# S, seamless-m4t-medium's unmasked encoder (150 frames) and
+# cross-attention (32 queries on 150 keys), Sq != Skv unmasked, and the two
+# long sequences of the forward's cases (many ring refills, both head dims)
 BWD_CASES = [(8, 128, 128, 16, 16, 64, "causal"),
              (4, 128, 128, 16, 8, 64, "causal"),
              (1, 70, 70, 7, 1, 64, "causal"),
@@ -1498,7 +1499,10 @@ BWD_CASES = [(8, 128, 128, 16, 16, 64, "causal"),
              (1, 100, 100, 4, 4, 64, "causal"),
              (2, 150, 150, 16, 16, 64, "none"),
              (4, 32, 150, 16, 16, 64, "none"),
-             (1, 40, 97, 7, 1, 128, "none")]
+             (1, 40, 97, 7, 1, 128, "none"),
+             (8, 128, 128, 16, 8, 64, "causal"),
+             (4, 2048, 2048, 16, 16, 64, "causal"),
+             (1, 4096, 4096, 8, 2, 128, "causal")]
 
 
 def _bwd_inputs(gen, b, sq, skv, h, kv, dh, mask):
@@ -1531,9 +1535,7 @@ def test_flash_bwd_kernel_vs_plain(gen, case):
             err <= 4e-2 * w.abs().max().item(), (name, err)
 
 
-@pytest.mark.parametrize("case", BWD_CASES[:1] + BWD_CASES[3:4]
-                         + BWD_CASES[6:7],
-                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_kernel_repeats_bit_equal(gen, case):
     """No atomics: two backward calls on the same inputs are bit-equal."""
     q, k, v, o, lse, do = _bwd_inputs(gen, *case)
@@ -1560,9 +1562,13 @@ def test_flash_kernel_lse_is_the_plain_lse(gen, case):
 
 
 def test_flash_bwd_kernel_form_and_refusals(gen):
+    """The backward's one kernel as built: the form ``BWD_FORMS`` states
+    (threads, shared memory, CTAs an SM, stages), no spills; and what the
+    wrapper refuses."""
     for dh in fa.HEAD_DIMS:
         f = fa.bwd_form(dh)
-        assert f["threads"] == 128 and f["dkdv_registers"] <= 255
+        assert {k: f[k] for k in fa.BWD_FORMS[dh]} == fa.BWD_FORMS[dh]
+        assert f["registers"] <= 255 and f["spill_bytes"] == 0
     q, k, v, o, lse, do = _bwd_inputs(gen, 1, 64, 64, 4, 4, 64, "causal")
     with pytest.raises(ValueError, match="mask_kind"):
         fa.flash_attention_bwd(q, k, v, o, lse, do, mask_kind="local")
@@ -1571,6 +1577,16 @@ def test_flash_bwd_kernel_form_and_refusals(gen):
     with pytest.raises(RuntimeError, match="masks"):
         ops.flash_attention(q.requires_grad_(True), k, v, mask_kind="local",
                             window=16)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_kernel_order_is_bwd_order(gen, case):
+    """The kernel's grid order (its ``cta_of``, compiled for the host in the
+    same library) is the module's ``bwd_order``, which the CPU tests hold
+    to the gradient and to visiting every visible pair once a role."""
+    b, sq, skv, h, kv, _, mask = case
+    assert fa.bwd_order(b, sq, skv, h, kv, mask, device="cuda") == \
+        fa.bwd_order(b, sq, skv, h, kv, mask)
 
 
 # full-width qwen1.5-0.5b's backward shapes at 8 x 128 tokens (up/gate
