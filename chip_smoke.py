@@ -231,21 +231,24 @@ the target) and ``nvcc``:
    a rounding far at random weights); (g) ``launch.train --arch`` for 10
    steps, the counts set to 0 just before and read just after: exact
    launches, each step's loss, wall and stream ms, tokens/s, peak memory;
-   (h) each new backward kernel at its training shape against its plain
-   backward (the RWKV6 one also at log_w -8 and -54.6 from a state with a
-   state cotangent, the RG-LRU one at a ragged W and T), two calls
+   then one step traced as qwen's (c) (busy time, idle share, the top
+   ops); (h) each new backward kernel at its training shape against its
+   plain backward (the RWKV6 one also at log_w -8 and -54.6 from a state
+   with a state cotangent, the RG-LRU one at a ragged W and T), two calls
    bit-equal, timed beside the plain version and, for the grouped
-   matmul, two ``torch.bmm`` on transposed views;
+   matmul, two ``torch.bmm`` on transposed views (the RWKV6 one with its
+   form: launches a call, CTAs of each launch, registers, spills);
 10. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --parent SRC
 
-does all of that, and also builds the attention, attention backward and
-RWKV6 kernels of the tree under SRC (e.g. the parent commit unpacked into
-``build/parent/src``) and loads its RG-LRU wrapper, holds each against the
-plain version and times it beside this tree's in every attention,
-attention backward, RWKV6 and RG-LRU case.
+does all of that, and also builds the attention, attention backward,
+RWKV6 and RWKV6 backward kernels of the tree under SRC (e.g. the parent
+commit unpacked into ``build/parent/src``) and loads its RG-LRU wrapper,
+holds each against the plain version and times it beside this tree's in
+every attention, attention backward, RWKV6, RG-LRU and (h) RWKV6 backward
+case, and traces an rwkv6 train step on its RWKV6 backward too.
 
 Any failed check exits non-zero (Fig. 5's flat-stair check after every
 phase has run, with no result line). Without a card, or outside a
@@ -271,6 +274,13 @@ and no result line.
 
 runs only the attention backward's cases of phase 9 (e) (beside the
 backward of the tree under SRC, if given) and prints them as one JSON
+line, and no result line.
+
+    python3 chip_smoke.py --rwkv6-bwd [--parent SRC]
+
+runs only the RWKV6 backward's cases of phase 9 (h) and three off the
+training path (a ragged T of 97, head dim 128, T 1024 at batch 1), beside
+the backward of the tree under SRC if given, and prints them as one JSON
 line, and no result line.
 
     python3 chip_smoke.py --train
@@ -301,6 +311,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GRAPH_DUMPS = ROOT / "build" / "graphs"   # the step cache's graphs as DOT
+TRACE_DUMPS = ROOT / "build" / "traces"   # profiler traces (Chrome JSON)
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -534,13 +545,12 @@ def kept_graphs(torch):
         torch.cuda.CUDAGraph = base
 
 
-def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
-    """The kernel nodes of a captured CUDA graph (kept by ``kept_graphs``),
-    read from its DOT dump (``cudaGraphDebugDotPrint``, verbose, written
-    to ``path``): (their number, {port kernel trace name: nodes that
-    launch it}, the GEMM nodes by tile as ``gemm_tiles`` names them). A
-    replay launches every node once, so this is what one replay runs,
-    whatever a profiler records of it."""
+def kernel_nodes(graph, path: Path) -> list:
+    """The kernel nodes of a captured CUDA graph (kept by ``kept_graphs``)
+    as the text of each, read from its DOT dump
+    (``cudaGraphDebugDotPrint``, verbose, written to ``path``). A replay
+    launches every node once, so this is what one replay runs, whatever a
+    profiler records of it."""
     import re
     import warnings
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -549,7 +559,15 @@ def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
         graph.debug_dump(str(path))
     text = path.read_text()
     nodes = re.split(r'(?m)^\s*"?graph_\d+_node_\d+"?\s*\[', text)[1:]
-    kernels = [n for n in nodes if 'label="{KERNEL' in n]
+    return [n for n in nodes if 'label="{KERNEL' in n]
+
+
+def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
+    """The kernel nodes of a captured CUDA graph (``kernel_nodes``): (their
+    number, {port kernel trace name: nodes that launch it}, the GEMM nodes
+    by tile as ``gemm_tiles`` names them)."""
+    import re
+    kernels = kernel_nodes(graph, path)
     tiles: dict = {}
     for n in kernels:
         # gemm_kernel<BM, CW, SOLO, XM, WK>: the backward's forms are
@@ -569,14 +587,15 @@ def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
 
 # each port kernel's name in a device trace: the two GEMM wrappers launch
 # the one kernel of csrc/gemm_sm90.cuh, the staircase is not on a served
-# step
+# step; a counted RWKV6 backward runs rwkv6_bwd_scan and rwkv6_bwd_chunk
+# once each, so the second stands for the call
 TRACE_NAMES = {"matmul_tiled": "gemm_sm90", "moe_gmm": "gemm_sm90",
                "matmul_tiled_bwd": "gemm_sm90", "moe_gmm_bwd": "gemm_sm90",
                "flash_attention": "flash_attention_kernel",
                "flash_attention_bwd": "flash_attention_bwd_kernel",
                "rglru_scan": "rglru_scan_kernel", "rwkv6": "rwkv6_kernel",
                "rglru_scan_bwd": "rglru_scan_bwd_kernel",
-               "rwkv6_bwd": "rwkv6_bwd_kernel"}
+               "rwkv6_bwd": "rwkv6_bwd_chunk"}
 
 
 def traced_expected(launches: dict) -> dict:
@@ -901,6 +920,50 @@ def parent_rwkv6(torch, build, src: Path):
         return o, s
 
     log(f"parent rwkv6 built from {cu}")
+    return call
+
+
+def parent_rwkv6_bwd(torch, build, src: Path):
+    """The RWKV6 backward of the tree under ``src`` (e.g. the parent
+    commit), built as its own library and called through its C entry
+    ``rwkv6_backward`` in the form before the chunked kernel (a walk per
+    (b, h): per-(b, h) sums of du, a per-step scratch where ``ds`` is
+    given): a function (r, k, v, log_w, u, s0, do, ds) -> (dr, dk, dv,
+    dlog_w, du, ds0), not counted in ``LAUNCHES``."""
+    import ctypes
+    cu = src / "repro_torch" / "csrc" / "rwkv6_bwd.cu"
+    check(cu.is_file(), f"{cu} is missing")
+    out = build.build_dir() / "parent_rwkv6_bwd.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                           str(out), str(cu)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rwkv6_backward.argtypes = [vp] * 15 + [ci] * 5 + [vp]
+    lib.rwkv6_backward.restype = ci
+
+    def call(r, k, v, log_w, u, s0, do, ds=None):
+        b, t, h, dh = r.shape
+        f32 = dict(dtype=torch.float32, device="cuda")
+        dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
+        dlw = torch.empty(b, t, h, dh, **f32)
+        ds0 = torch.empty(b, h, dh, dh, **f32)
+        du = torch.empty(b, h, dh, **f32)
+        work = torch.empty(b, t, h, dh, **f32) if ds is not None else None
+        err = lib.rwkv6_backward(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            do.data_ptr(), None if ds is None else ds.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
+            du.data_ptr(), ds0.data_ptr(),
+            None if work is None else work.data_ptr(),
+            b, t, h, dh, int(r.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's rwkv6_backward failed: {err}")
+        return dr, dk, dv, dlw, du.sum(0), ds0
+
+    log(f"parent rwkv6_bwd built from {cu}")
     return call
 
 
@@ -2242,7 +2305,8 @@ def compare_rwkv6(torch, rw, case: tuple, gen, parent=None) -> dict:
     """One RWKV6 case: the kernel (and the parent tree's, if given) against
     the plain version within RWKV6_RTOL, two launches bit-equal, the form
     logged, and the times of the kernel, the parent's and the plain
-    version beside the bound."""
+    version beside the bound; whether the parent's output and state are
+    bit-equal to this tree's is logged."""
     b, t, h, dh, lw, s0, dtype, chunk = case
     chunk = min(chunk, t)
     args = rwkv6_inputs(torch, case, gen)
@@ -2262,11 +2326,15 @@ def compare_rwkv6(torch, rw, case: tuple, gen, parent=None) -> dict:
     o2, s2 = kern(*args)
     check(torch.equal(o, o2) and torch.equal(s, s2),
           f"rwkv6 {name}: a second launch differs")
+    same = None
     if parent is not None:
         parent = functools.partial(parent, chunk=chunk)
-        p_fin, _, p_rel = rwkv6_errors(torch, *parent(*args), ro, rs)
+        po, ps = parent(*args)
+        p_fin, _, p_rel = rwkv6_errors(torch, po, ps, ro, rs)
         check(p_fin and p_rel <= RWKV6_RTOL, f"parent rwkv6 {name}: finite "
               f"{p_fin}, relative error {p_rel} > {RWKV6_RTOL}")
+        same = torch.equal(o, po) and torch.equal(s, ps)
+        del po, ps
     del ro, rs, o2, s2
     flops, nbytes = rwkv6_work(b, t, h, dh, chunk, args[0].element_size(),
                                s0)
@@ -2277,12 +2345,14 @@ def compare_rwkv6(torch, rw, case: tuple, gen, parent=None) -> dict:
            "parent_ms": None if parent is None else time_ms(torch, parent,
                                                             args),
            "plain_ms": time_ms(torch, plain, args, reps=10),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "parent_bit_equal": same}
     f = rw.form(dh, chunk, dtype)
     log(f"rwkv6 {name}: finite, two launches bit-equal; max_abs_err "
         f"{err:.4g} relative {rel:.3g} (tol {RWKV6_RTOL}) ms "
         f"{row['ms']:.4f} parent_ms "
-        + ("not timed" if parent is None else f"{row['parent_ms']:.4f}")
+        + ("not timed" if parent is None else f"{row['parent_ms']:.4f} "
+           f"(bit-equal to this tree's: {same})")
         + f" plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}, "
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB); no library call "
         f"computes it; form: {b * h * -(-dh // f['value_block'])} CTAs of "
@@ -3881,6 +3951,8 @@ LONG_FLASH_BWD = ((4, 2048, 2048, 16, 16, 64, "causal"),
 # freed before the next, and (g)'s steps of launch.train for each
 TRAIN_FAMILIES = RECURRENT_ARCHS + (MOE_ARCH,)
 TRAIN_FAMILY_STEPS = 10
+# rounds of the traced rwkv6 step on each RWKV6 backward, with --parent
+TRACED_ROUNDS = 4
 # the new backward kernels at the training shapes (8 x 128 tokens):
 # granite's expert products (E 32: gate/up with x broadcast, down);
 # recurrentgemma's RG-LRU (W 2560), a ragged W, a ragged T and W; rwkv6's
@@ -3891,6 +3963,12 @@ TRAIN_RGLRU = ((8, 128, 2560), (8, 128, 2500), (2, 97, 2501))
 TRAIN_RWKV = ((8, 128, 32, 64, None, False, "bfloat16"),
               (8, 128, 32, 64, -8.0, True, "float32"),
               (8, 128, 32, 64, -54.6, True, "float32"))
+# the RWKV6 backward off the training path (``--rwkv6-bwd``): a ragged T of
+# 97 from a state, head dim 128 (chunks of 16 rows) with dS at log_w -8,
+# and T 1024 at batch 1 (32 chunks, launch 1's longest walk)
+RWKV_BWD_OFF_PATH = ((8, 97, 32, 64, None, True, "bfloat16"),
+                     (4, 128, 16, 128, -8.0, True, "float32"),
+                     (1, 1024, 2, 64, None, False, "bfloat16"))
 # a backward kernel's gradients against its plain backward's, relative to
 # each gradient's largest: in fp32 2e-4 (the fp32 bound of
 # tests/test_kernels.py:23; both sum in fp32, in other orders); in bf16 a
@@ -3921,9 +3999,11 @@ def library_bwd_ms(torch, fn, args: tuple, reps: int = 20) -> tuple:
     return profiled_busy(torch, prof)[0] / reps, "profiled kernels"
 
 
-def one_call_graph(torch, fn, args: tuple, path: Path) -> tuple:
+def one_call_graph(torch, fn, args: tuple, path: Path,
+                   nodes: bool = False) -> tuple:
     """The kernel nodes of one call of ``fn(*args)`` captured in a CUDA
-    graph (``graph_kernels``): (their number, the GEMM nodes by form)."""
+    graph (``graph_kernels``): (their number, the GEMM nodes by form), or
+    with ``nodes`` the text of each node (``kernel_nodes``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -3933,6 +4013,10 @@ def one_call_graph(torch, fn, args: tuple, path: Path) -> tuple:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             fn(*args)
+    if nodes:
+        out = kernel_nodes(graph, path)
+        del graph
+        return out
     n, _, tiles = graph_kernels(graph, path)
     del graph
     return n, tiles
@@ -4239,6 +4323,39 @@ def profiled_busy(torch, prof) -> tuple:
     return busy, [(e.key, round(ms(e), 3), e.count) for e in ops_[:12]]
 
 
+def profiled_step(torch, tstep, toptim, cfg, tc, params, batch,
+                  steps: int) -> tuple:
+    """One train step of ``tstep.build_train_step`` (AdamW on its cosine
+    schedule over ``steps``) profiled after two warm-up steps, on
+    ``params`` (updated in place): (its kernels' busy ms, its wall ms under
+    the profiler, the device's idle share of that wall or None where the
+    profiler saw no device time, the ops whose kernels took most in the
+    next step, and the optimizer state and step function, for more steps).
+    The busy and idle come from a step traced on the device alone (the
+    profiler's host cost, which stretches the wall, is least there); the
+    ops from the next step, traced on the host too."""
+    from torch.profiler import ProfilerActivity, profile
+    opt = toptim.adamw_init(params)
+    step_fn = tstep.build_train_step(cfg, tc, toptim.cosine_schedule(
+        3e-3, 1, steps))
+    for i in range(2):
+        step_fn(params, opt, batch, i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt, batch, 2)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = profiled_busy(torch, prof)[0]
+    idle = 1 - busy / wall if busy > 0 else None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(params, opt, batch, 3)
+        torch.cuda.synchronize()
+    return busy, wall, idle, profiled_busy(torch, prof)[1], opt, step_fn
+
+
 def grad_scales(torch, flat: dict) -> dict:
     """Each leaf's largest |grad|, the scale its error is held to; a key
     bias ``bk`` (whose gradient is 0 but for rounding: softmax is invariant
@@ -4459,13 +4576,56 @@ def compare_rglru_bwd(torch, rg, case: tuple, gen) -> dict:
     return row
 
 
-def compare_rwkv6_bwd(torch, rw, case: tuple, gen) -> dict:
-    """The RWKV6 backward at a training shape: the kernel against
-    ``rwkv6_bwd_ref`` (the explicit formulas), finite, two calls
-    bit-equal, its time and the plain version's beside the bound. The
-    bound counts the kernel's own work per (b, h) and step: 5 dh^2
-    operations in the forward walk (S do_t, the state update), 7 in the
-    reverse (G v_t, G^T k_t, G's update), 6 more with a state cotangent."""
+def kernel_forms(torch, fn, args: tuple, path: Path,
+                 reps: int = 10) -> dict:
+    """Each kernel that ``fn(*args)`` runs on the device, by name, as a
+    ``torch.profiler`` trace of ``reps`` eager calls after one warm-up call
+    records its launches (exported as Chrome JSON to ``path``): {name:
+    {"recorded": its launches in the trace, "ms": device ms a launch,
+    "ctas": the CTAs of its grid, "threads": a CTA's, "registers": a
+    thread's}} (None where the trace has no such field; the CTAs, threads
+    and registers must be the same in every launch). The profiler may
+    miss launches of a short call, so the launches a call come from
+    ``one_call_graph``, not from here."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    seen: dict = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if str(e.get("cat", "")).lower() != "kernel":
+            continue
+        a = e.get("args", {})
+        k = seen.setdefault(e["name"], {"n": 0, "us": 0.0, "form": set()})
+        k["n"] += 1
+        k["us"] += float(e.get("dur", 0))
+        k["form"].add((math.prod(a["grid"]) if "grid" in a else None,
+                       math.prod(a["block"]) if "block" in a else None,
+                       a.get("registers per thread")))
+    out = {}
+    for name, k in seen.items():
+        check(len(k["form"]) == 1, f"{name}: launches of forms {k['form']}")
+        ctas, threads, regs = k["form"].pop()
+        out[name] = {"recorded": k["n"], "ms": k["us"] / 1e3 / k["n"],
+                     "ctas": ctas, "threads": threads, "registers": regs}
+    return out
+
+
+def compare_rwkv6_bwd(torch, rw, case: tuple, gen, parent=None) -> dict:
+    """The RWKV6 backward at a case: the kernel (and the parent tree's, if
+    given) against ``rwkv6_bwd_ref`` (the explicit formulas), finite, two
+    calls bit-equal, its time, the parent's and the plain version's beside
+    the bound, and its form: the kernels one call runs and the CTAs and
+    threads of each launch (read from a profiler trace of the calls),
+    registers and spills (none allowed). The bound counts the
+    function's work per (b, h) and step, not the chunked kernel's: 5 dh^2
+    operations to recompute S (S do_t, the state update), 7 for G (G v_t,
+    G^T k_t, G's update), 6 more with a state cotangent."""
     b, t, h, dh, lw, state, dtype = case
     dt = getattr(torch, dtype)
     r, k, v, log_w, u, s0 = rwkv6_inputs(
@@ -4481,27 +4641,77 @@ def compare_rwkv6_bwd(torch, rw, case: tuple, gen) -> dict:
             + (f" log_w={lw}" if lw is not None else ""))
     check(all(torch.equal(p, q) for p, q in zip(got, rw.rwkv6_bwd(*args))),
           f"rwkv6_bwd {name}: a second call differs")
-    err = bwd_err(torch, f"rwkv6_bwd {name}",
-                  ("dr", "dk", "dv", "dlog_w", "du", "ds0"), got,
-                  rw.rwkv6_bwd_ref(*args))
+    names = ("dr", "dk", "dv", "dlog_w", "du", "ds0")
+    want = rw.rwkv6_bwd_ref(*args)
+    err = bwd_err(torch, f"rwkv6_bwd {name}", names, got, want)
+    p_err = bwd_err(torch, f"the parent's rwkv6_bwd {name}", names,
+                    parent(*args), want) if parent else None
     esz = r.element_size()
     flops = (18.0 if state else 12.0) * b * h * t * dh * dh
     nbytes = (b * t * h * dh * (6.0 * esz + 12) + 8.0 * h * dh
               + (12.0 if state else 4.0) * b * h * dh * dh)
     b_ms, b_by = bound_ms(flops, nbytes, peak=PEAK_FP32_FLOPS)
     f = rw.bwd_form(dh, dt, state)
+    check(f["spill_bytes"] == 0 and f["scan_spill_bytes"] == 0,
+          f"rwkv6_bwd {name}: spills in its form {f}")
+    # what one call runs on the device: its kernels from one call captured
+    # in a CUDA graph (each of the two kernels once, then du's sum over
+    # the batch and the chunks), their grids and times from a profiler
+    # trace of the calls
+    tag = "rwkv6_bwd-" + "".join(c if c.isalnum() else "_" for c in name)
+    nodes = one_call_graph(torch, rw.rwkv6_bwd, args,
+                           GRAPH_DUMPS / f"{tag}.dot", nodes=True)
+    n_of = {w: sum(f"rwkv6_bwd_{w}" in n for n in nodes)
+            for w in ("scan", "chunk")}
+    check(n_of == {"scan": 1, "chunk": 1},
+          f"rwkv6_bwd {name}: one call's graph has {len(nodes)} kernel "
+          f"nodes, {n_of} of its two kernels")
+    ran = kernel_forms(torch, rw.rwkv6_bwd, args, TRACE_DUMPS / f"{tag}.json")
+    scan, chunk = ([ran[k] for k in ran if f"rwkv6_bwd_{w}" in k]
+                   for w in ("scan", "chunk"))
+    check(len(scan) == 1 and len(chunk) == 1 and all(
+        x[0]["ctas"] and x[0]["threads"] for x in (scan, chunk)),
+          f"rwkv6_bwd {name}: the trace holds no grid or block of its "
+          f"kernels {ran}")
+    scan, chunk = scan[0], chunk[0]
     row = {"case": name, "max_abs_err": err,
            "ms": time_ms(torch, rw.rwkv6_bwd, args),
+           "parent_ms": None if parent is None else time_ms(
+               torch, parent, args),
+           "parent_max_abs_err": p_err,
            "plain_ms": time_ms(torch, rw.rwkv6_bwd_ref, args, reps=4),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "kernels_a_call": len(nodes),
+           "kernels": {k: x["recorded"] for k, x in ran.items()},
+           "chunk": f["chunk"],
+           "ctas_scan": scan["ctas"], "ctas_chunk": chunk["ctas"],
+           "registers": f["registers"], "scan_registers": f["scan_registers"],
+           "ctas_per_sm": f["ctas_per_sm"],
+           "scan_ctas_per_sm": f["scan_ctas_per_sm"],
+           "smem_bytes": f["smem_bytes"], "spill_bytes": f["spill_bytes"],
+           "scan_spill_bytes": f["scan_spill_bytes"]}
+    row["bound_share"] = b_ms / row["ms"]
+    # each launch's device time (eager, profiled), and the rest (du's sum)
+    row["launch_ms"] = {"launch 1": scan["ms"], "launch 2": chunk["ms"],
+                        "other": sum(x["ms"] for x in ran.values())
+                        - scan["ms"] - chunk["ms"]}
     log(f"rwkv6_bwd {name}: finite, two calls bit-equal; max_abs_err "
-        f"{err:.4g} ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-        f"bound_ms {b_ms:.5f} ({b_by}, {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB; {100 * b_ms / row['ms']:.1f}% of it); no "
-        f"library call computes it; form: {b * h} CTAs of {f['threads']} "
-        f"threads, {f['stage_steps']} steps a stage, {f['registers']} "
-        f"registers, {f['smem_bytes']} B shared, {f['ctas_per_sm']} CTAs an "
-        f"SM, {f['spill_bytes']} B spilled")
+        f"{err:.4g} ms {row['ms']:.4f} parent_ms "
+        + ("not timed" if parent is None else
+           f"{row['parent_ms']:.4f} (max_abs_err {p_err:.4g})")
+        + f" plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}, "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"{100 * row['bound_share']:.1f}% of it); no library call computes "
+        f"it; form: {row['kernels_a_call']} kernels a call (graph nodes; "
+        f"launches the profiler recorded in 10 calls: {row['kernels']}), "
+        f"chunks of {f['chunk']} rows; launch 1 "
+        f"{scan['ctas']} CTAs of {scan['threads']} threads, "
+        f"{f['scan_registers']} registers, "
+        f"{f['scan_ctas_per_sm']} CTAs an SM, {f['scan_spill_bytes']} B "
+        f"spilled; launch 2 {chunk['ctas']} CTAs of {chunk['threads']} "
+        f"threads, {f['registers']} registers, {f['smem_bytes']} B shared, "
+        f"{f['ctas_per_sm']} CTAs an SM, {f['spill_bytes']} B spilled; "
+        f"profiled ms a call {row['launch_ms']}")
     return row
 
 
@@ -4597,9 +4807,12 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
     check); (g) ``launch.train --arch``
     for ``TRAIN_FAMILY_STEPS`` steps at its defaults, with the counts set
     to 0 just before and read just after: exact launches, each step's
-    loss, wall and stream ms, tokens/s and the peak memory."""
+    loss, wall and stream ms, tokens/s and the peak memory; then one step
+    traced (``profiled_step``), for rwkv6 also on the parent tree's RWKV6
+    backward where ``--parent`` gave one."""
     from repro_torch.launch.train import main as train_main, to_device
     from repro_torch.train import data as tdata
+    from repro_torch.train import optim as toptim
     from repro_torch.train import step as tstep
     tfm, ops = mods["tfm"], mods["ops"]
     t_fam = time.perf_counter()
@@ -4703,6 +4916,61 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (wall / 1e3)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # (g), traced: one step profiled as qwen's (c), from (f)'s weights and
+    # batch; for rwkv6, if the parent tree's RWKV6 backward is given, that
+    # step on each backward in turn over TRACED_ROUNDS rounds, each from
+    # the same weights, so that their difference shows beside its spread
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    batch = to_device(tdata.augment_for_arch(src.batch(0), cfg, TRAIN_SEQ),
+                      "cuda")
+    traced: dict = {}
+    kernels = [("kernel", ops.rwkv6_bwd)]
+    if "rwkv6" in arch and mods.get("parent_rwkv6_bwd"):
+        kernels.append(("parent rwkv6_bwd", mods["parent_rwkv6_bwd"]))
+    rounds = TRACED_ROUNDS if len(kernels) > 1 else 1
+    init = [t.detach().clone() for _, t in tstep.named_leaves(params)] \
+        if rounds > 1 else None
+    saved = ops.rwkv6_bwd
+    try:
+        for i in range(rounds):
+            for what, fn in kernels:
+                if init is not None:
+                    with torch.no_grad():
+                        for (_, t), t0 in zip(tstep.named_leaves(params),
+                                              init):
+                            t.copy_(t0)
+                ops.rwkv6_bwd = fn
+                busy, p_wall, idle, top, *_ = profiled_step(
+                    torch, tstep, toptim, cfg, tc, params, batch,
+                    TRAIN_FAMILY_STEPS)
+                traced.setdefault(what, []).append(
+                    {"busy_ms": busy, "profiled_wall_ms": p_wall,
+                     "idle": idle})
+                log(f"train (g) {arch} one step traced on the device "
+                    f"({what}, round {i + 1} of {rounds}): wall "
+                    f"{p_wall:.3f} ms under the profiler, its kernels busy "
+                    f"{busy:.3f} ms, device idle "
+                    + ("not measured (no device time)" if idle is None
+                       else f"{100 * idle:.1f}%") + " of that wall; in the "
+                    f"next step the ops whose kernels took most (op, device "
+                    f"ms, calls) {top}")
+    finally:
+        ops.rwkv6_bwd = saved
+    if rounds > 1:
+        busy = {w: [x["busy_ms"] for x in traced[w]] for w, _ in kernels}
+        med = {w: float(np.median(b)) for w, b in busy.items()}
+        log(f"train (g) {arch} traced steps' kernels busy, alternating "
+            f"over {rounds} rounds from the same weights: "
+            + "; ".join(f"{w} median {med[w]:.3f} ms, {min(b):.3f}-"
+                        f"{max(b):.3f}" for w, b in busy.items())
+            + f"; parent - kernel {med['parent rwkv6_bwd'] - med['kernel']:.3f}"
+            " ms (medians)")
+    del init
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"train summary {card}: {arch} full width ({n_params / 1e6:.1f} M "
         f"params), batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat none, dense "
         f"experts: step wall {wall:.3f} ms, stream {stream:.3f} ms (medians "
@@ -4714,7 +4982,7 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
             "held_peak_bytes": peak_f, "loss_rel": rel,
             "loss_order_floor": loss_floor,
             "worst_grad": worst[0], "order_floor": fl[0],
-            "held_passes": held, "n_params": n_params,
+            "held_passes": held, "n_params": n_params, "traced": traced,
             "steps": [{k: st[k] for k in ("step", "loss", "wall_ms",
                                           "stream_ms")} for st in stats]}
 
@@ -4830,30 +5098,8 @@ def train_phase(torch, np, mods, card: str) -> dict:
         f"{small[-1]:.4f} (best of the last 5 {min(small[-5:]):.4f})")
 
     # (c) one step profiled (the CLI's step, on (a)'s weights)
-    opt = toptim.adamw_init(params)
-    step_fn = tstep.build_train_step(cfg, tc, toptim.cosine_schedule(
-        3e-3, 1, TRAIN_STEPS))
-    for i in range(2):
-        step_fn(params, opt, batch, i)
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-    # busy and idle of one window, a step traced on the device alone (the
-    # profiler's host cost, which stretches the wall beyond (b)'s
-    # unprofiled steps, is least there); the ops come from the next step,
-    # traced on the host too
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, _, m = step_fn(params, opt, batch, 2)
-        float(m["loss"])
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    busy = profiled_busy(torch, prof)[0]
-    idle = 1 - busy / prof_wall if busy > 0 else None
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step_fn(params, opt, batch, 3)
-        torch.cuda.synchronize()
-    top = profiled_busy(torch, prof)[1]
+    busy, prof_wall, idle, top, opt, step_fn = profiled_step(
+        torch, tstep, toptim, cfg, tc, params, batch, TRAIN_STEPS)
     log(f"train (c) one step traced on the device: wall {prof_wall:.3f} "
         f"ms under the profiler, its kernels busy {busy:.3f} ms, device "
         "idle " + ("not measured (no device time)" if idle is None
@@ -4931,7 +5177,8 @@ def train_phase(torch, np, mods, card: str) -> dict:
                for c in TRAIN_MOE]
     rg_bwd = [compare_rglru_bwd(torch, mods["rg"], c, gen)
               for c in TRAIN_RGLRU]
-    rw_bwd = [compare_rwkv6_bwd(torch, mods["rw"], c, gen)
+    rw_bwd = [compare_rwkv6_bwd(torch, mods["rw"], c, gen,
+                                mods.get("parent_rwkv6_bwd"))
               for c in TRAIN_RWKV]
     tok_s = tokens / (wall / 1e3)
     log(f"train summary {card}: {ARCH} full width, batch {TRAIN_BATCH} x "
@@ -5092,6 +5339,17 @@ def main() -> None:
         if DEFERRED:
             fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
         return
+    if "--rwkv6-bwd" in argv:
+        # the RWKV6 backward alone at its training shapes and off the path,
+        # beside the parent tree's if given
+        parent = parent_rwkv6_bwd(torch, build, Path(argv[argv.index(
+            "--parent") + 1]).resolve()) if "--parent" in argv else None
+        rows = [compare_rwkv6_bwd(torch, rw, c, gen, parent)
+                for c in TRAIN_RWKV + RWKV_BWD_OFF_PATH]
+        print(json.dumps({"rwkv6_bwd": six_digits(rows)}), flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
     if "--train" in argv:
         # the training phase alone
         trained = train_phase(torch, np, mods, card)
@@ -5106,6 +5364,7 @@ def main() -> None:
         psrc = Path(argv[argv.index("--parent") + 1]).resolve()
         parent = parent_flash(torch, build, psrc)
         mods["parent_flash_bwd"] = parent_flash_bwd(torch, build, psrc)
+        mods["parent_rwkv6_bwd"] = parent_rwkv6_bwd(torch, build, psrc)
         parent_rw = parent_rwkv6(torch, build, psrc)
         parent_rg = parent_rglru(torch, build, psrc)
     # recurrentgemma-2b's prefill shape, a ragged W (TMA), one step, a
@@ -5298,6 +5557,9 @@ def main() -> None:
             kernels[-1]["table2_sweeps"] = {
                 what: rows[name] for what, rows in table2["sweeps"].items()
                 if name in rows}
+        if name == "rwkv6_bwd":
+            # the kernels one counted call runs: its graph's kernel nodes
+            kernels[-1]["kernels_a_call"] = row["kernels_a_call"]
         if name == "matmul_tiled":
             # its cases at the Table 2 convnet's conv products
             kernels[-1]["table2_cases"] = [

@@ -78,20 +78,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rwkv6_common.cuh"
+
 namespace {
 
 constexpr int DV_MAIN = 64;               // value columns a CTA owns (half
                                           // where they do not fit)
 constexpr int WARPS = 16;
 constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_DH = 128;
 constexpr int MAX_CHUNK = 64;
-constexpr int SUB = 16;                   // rows of a sub-chunk
-constexpr int MAX_SMEM = 232448;          // an H100 block's shared memory
 static_assert(THREADS >= MAX_DH, "the cumulative sum takes a thread a "
                                  "channel");
 
-__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 __host__ __device__ inline int tri(int a, int b) {  // X[a][b], b < a
   return a * (a - 1) / 2 + b;
 }
@@ -151,10 +149,6 @@ struct Args {
 // ---------------------------------------------------------------------------
 // device helpers
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
@@ -178,33 +172,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p,
   o[3] = __uint_as_float(a.y & 0xffff0000u);
 }
 
-// exp of an exponent <= 0 (ex2.approx; error ~2 ulp plus the rounding of
-// x log2(e), which matters only where the result is tiny)
-__device__ __forceinline__ float ex(float x) { return __expf(x); }
-
-// x = hi + lo: hi is x rounded to nearest TF32 (ties away: add half a
-// TF32 ulp to the magnitude bits, clear the 13 low bits), lo = x - hi is
-// exact in fp32 and rounded to TF32 the same way (2^-22 of x)
-__device__ __forceinline__ uint32_t tf32(uint32_t bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(__float_as_uint(x));
-  lo = tf32(__float_as_uint(x - __uint_as_float(hi)));
-}
-__device__ __forceinline__ void exact(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x);  // a bf16 value: exact in TF32
-  lo = 0;
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // c += a b at fp32 accuracy: the small terms first, then hi * hi; a bf16 b
 // (B_EXACT) has no low part
 template <bool B_EXACT>
@@ -225,28 +192,8 @@ __device__ __forceinline__ void v_frag(const T* vs, int ldv, int j0, int n0,
                                        uint32_t (&bl)[2]) {
   const float x0 = to_f(vs[(j0 + t) * ldv + n0 + g]);
   const float x1 = to_f(vs[(j0 + t + 4) * ldv + n0 + g]);
-  if (sizeof(T) == 2) {
-    exact(x0, bh[0], bl[0]);
-    exact(x1, bh[1], bl[1]);
-  } else {
-    split(x0, bh[0], bl[0]);
-    split(x1, bh[1], bl[1]);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+  split<sizeof(T) == 2>(x0, bh[0], bl[0]);
+  split<sizeof(T) == 2>(x1, bh[1], bl[1]);
 }
 
 // Calls f(i, p) for rows i < np and pieces p < pieces of a tile, the
@@ -279,20 +226,20 @@ __device__ void load_chunk(const Args<T>& a, uint8_t* st, int b, int h,
       const int c = p * E;
       const bool ok = i < n && c < D;
       const size_t gi = row0 * D + i * rstep + c;
-      cp_async16(rs + i * dp + c, ok ? a.r + gi : a.r, ok ? 16 : 0);
-      cp_async16(ks + i * dp + c, ok ? a.k + gi : a.k, ok ? 16 : 0);
+      cp_async<16>(rs + i * dp + c, ok ? a.r + gi : a.r, ok);
+      cp_async<16>(ks + i * dp + c, ok ? a.k + gi : a.k, ok);
     });
     for_pieces(np, DV / E, [&](int i, int p) {
       const int c = p * E;
       const bool ok = i < n && e0 + c < D;
       const size_t gi = row0 * D + i * rstep + e0 + c;
-      cp_async16(vs + i * ldv + c, ok ? a.v + gi : a.v, ok ? 16 : 0);
+      cp_async<16>(vs + i * ldv + c, ok ? a.v + gi : a.v, ok);
     });
     for_pieces(np, dp / 4, [&](int i, int p) {
       const int c = p * 4;
       const bool ok = i < n && c < D;
       const size_t gi = row0 * D + i * rstep + c;
-      cp_async16(ws + i * dp + c, ok ? a.lw + gi : a.lw, ok ? 16 : 0);
+      cp_async<16>(ws + i * dp + c, ok ? a.lw + gi : a.lw, ok);
     });
   } else {
     for (int idx = threadIdx.x; idx < np * dp; idx += THREADS) {
@@ -344,23 +291,6 @@ constexpr int G = 4;                      // channels a group
 constexpr int MAXG = MAX_DH / G / P;      // groups a lane
 static_assert(P == 16, "the reduce-scatter takes 16 lanes a key row");
 
-// Sums each of v's N slots over the P adjacent lanes of a key row and
-// leaves slots N/P * part .. N/P * (part + 1) - 1 in v[0 .. N/P) of lane
-// `part` (recursive halving, lane offset O first: N - N/P shuffles, in a
-// fixed order). A template step a halving, so every index is a constant.
-template <int N, int O = P / 2>
-__device__ __forceinline__ void scatter_sum(float (&v)[N], int part) {
-  constexpr int HALF = N / P * O;
-  const bool up = part & O;
-#pragma unroll
-  for (int k = 0; k < HALF; ++k) {
-    const float send = up ? v[k] : v[k + HALF];
-    const float keep = up ? v[k + HALF] : v[k];
-    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
-  if constexpr (O > 1) scatter_sum<N, O / 2>(v, part);
-}
-
 // ---------------------------------------------------------------------------
 // the kernel: one CTA per (b, h, block of DV value columns)
 // ---------------------------------------------------------------------------
@@ -405,7 +335,7 @@ rwkv6_kernel(const Args<T> a) {
   const int nch = (a.L + a.C - 1) / a.C;
   const int n0 = min(a.C, a.L);
   load_chunk<DV>(a, smem, b, h, e0, 0, n0, round16(n0));
-  cp_async_commit();
+  cp_commit();
   for (int c = 0; c < nch; ++c) {
     const int t0 = c * a.C, n = min(a.C, a.L - t0);
     const int np = round16(n), ns = np / SUB;
@@ -416,12 +346,12 @@ rwkv6_kernel(const Args<T> a) {
         smem + L.s + (s2 ? c & 1 : 0) * dp * lds * 4);
     float* Snew = reinterpret_cast<float*>(
         smem + L.s + (s2 ? (c + 1) & 1 : 0) * dp * lds * 4);
-    cp_async_wait<0>();
+    cp_wait<0>();
     __syncthreads();  // this chunk's rows and S are in place; the other
                       // chunk buffer and S buffer are free
     if (a.stages == 2 && n1 > 0) {
       load_chunk<DV>(a, st1, b, h, e0, t0 + a.C, n1, round16(n1));
-      cp_async_commit();
+      cp_commit();
     }
     const T* rs = reinterpret_cast<const T*>(st + L.r);
     const T* ks = reinterpret_cast<const T*>(st + L.k);
@@ -727,7 +657,7 @@ rwkv6_kernel(const Args<T> a) {
     if (a.stages == 1 && n1 > 0) {
       __syncthreads();  // every read of the one chunk buffer is done
       load_chunk<DV>(a, smem, b, h, e0, t0 + a.C, n1, round16(n1));
-      cp_async_commit();
+      cp_commit();
     }
   }
 

@@ -46,8 +46,16 @@ the explicit formulas, from G = dS_final::
     dlw_t = w_t * rowsum((r_t^T do_t + G) * S_{t-1})
     G     = diag(w_t) (G + r_t^T do_t);   ds0 = G at the end
 
-The kernel computes the same values another way (see its source): no
-state is recovered by dividing by w_t, which underflows.
+The kernel computes the same values another way (see its source): T cut
+into chunks of ``bwd_form(dh)["chunk"]`` rows (32; 16 at head dims whose
+chunk of 32 does not fit in shared memory). Launch 1 walks the chunks per
+(b, h): forward for the state before each chunk, backward for the
+outputs' part of the state's cotangent at each chunk's end (and ds0);
+launch 2 takes a CTA per (b, h, chunk), all independent, and computes the
+chunk's gradients from those two states with its products on the tensor
+cores (TF32 ``mma.sync`` split into high and low parts: fp32 accuracy) and
+dlog_w as a prefix and a suffix sum within the chunk. No state is recovered
+by dividing by w_t, which underflows, and every exponent is <= 0.
 """
 
 from __future__ import annotations
@@ -253,12 +261,14 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rwkv6_backward.argtypes = [vp] * 15 + [ci] * 5 + [vp]
+    lib.rwkv6_backward.argtypes = [vp] * 17 + [ci] * 5 + [vp]
     lib.rwkv6_backward.restype = ci
     lib.rwkv6_bwd_error_string.argtypes = [ci]
     lib.rwkv6_bwd_error_string.restype = ctypes.c_char_p
     lib.rwkv6_bwd_form.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
     lib.rwkv6_bwd_form.restype = ci
+    lib.rwkv6_bwd_chunk_rows.argtypes = [ci]
+    lib.rwkv6_bwd_chunk_rows.restype = ci
     lib.rwkv6_bwd_max_head_dim.argtypes = []
     lib.rwkv6_bwd_max_head_dim.restype = ci
     if lib.rwkv6_bwd_max_head_dim() != MAX_HEAD_DIM:
@@ -267,20 +277,24 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
 
 
 def bwd_form(dh: int, dtype=torch.bfloat16, state_grad: bool = False) -> dict:
-    """The backward kernel's form at head dim ``dh`` for r, k, v of
-    ``dtype``, with or without a final state's gradient, on the current
-    CUDA device: threads a CTA (one CTA per (b, h)), registers a thread,
-    dynamic shared memory bytes, CTAs an SM holds, steps a stage, bytes
-    spilled a thread."""
+    """The backward's form at head dim ``dh`` for r, k, v of ``dtype``,
+    with or without a final state's gradient, on the current CUDA device:
+    rows a ``chunk``; launch 2's (a CTA per (b, h, chunk)) threads a CTA,
+    registers a thread, dynamic shared memory bytes, CTAs an SM holds and
+    bytes spilled a thread; the same of launch 1 (a CTA per (pass, b, h,
+    block of ``value_block`` value columns)) under ``scan_*``."""
     lib = build.load(NAME_BWD, _bind_bwd)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 12)()
     err = lib.rwkv6_bwd_form(dh, int(dtype == torch.bfloat16),
                              int(state_grad), out)
     if err:
         msg = lib.rwkv6_bwd_error_string(err).decode()
         raise RuntimeError(f"rwkv6_bwd_form({dh}) failed: {msg}")
-    return dict(zip(("threads", "registers", "smem_bytes", "ctas_per_sm",
-                     "stage_steps", "spill_bytes"), out))
+    keys = ("threads", "registers", "smem_bytes", "ctas_per_sm",
+            "spill_bytes")
+    return {**dict(zip(keys, out[:5])),
+            **{f"scan_{k_}": x for k_, x in zip(keys, out[5:10])},
+            "chunk": out[10], "value_block": out[11]}
 
 
 def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -291,9 +305,11 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs as :func:`rwkv6` takes them, ``do`` (B, T, H, dh) fp32 and
     ``ds`` (B, H, dh, dh) fp32 or None, contiguous, on one CUDA device ->
     (dr, dk, dv in r's dtype; dlog_w (B, T, H, dh), du (H, dh), ds0 (B, H,
-    dh, dh) fp32). One launch, counted under ``NAME_BWD``; du is summed
-    over the batch from the kernel's per-row sums in a fixed order, so two
-    calls are bit-equal."""
+    dh, dh) fp32). Two kernel launches (the chunk-start states and
+    chunk-end cotangents, then a CTA per chunk), counted as one call under
+    ``NAME_BWD``; du is summed over the batch and the chunks from the
+    kernel's per-chunk sums in a fixed order, so two calls are
+    bit-equal."""
     args = (r, k, v, log_w, u, do) + tuple(
         x for x in (s0, ds) if x is not None)
     if not all(x.is_cuda and x.device == r.device for x in args):
@@ -324,16 +340,21 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
     dlw = torch.empty((b, t, h, dh), **f32)
-    du_rows = torch.empty((b, h, dh), **f32)
     ds0 = torch.empty((b, h, dh, dh), **f32)
     if b * h == 0:
-        return dr, dk, dv, dlw, du_rows.sum(0), ds0
+        return dr, dk, dv, dlw, torch.zeros((h, dh), **f32), ds0
     if t == 0:
         return (dr, dk, dv, dlw, torch.zeros((h, dh), **f32),
                 ds0.zero_() if ds is None else ds0.copy_(ds))
-    # the dS part's per-step sums, read back by the reverse walk
-    work = torch.empty((b, t, h, dh), **f32) if ds is not None else None
     lib = build.load(NAME_BWD, _bind_bwd)
+    n = -(-t // lib.rwkv6_bwd_chunk_rows(dh))
+    # scratch: the states before chunks 1.., G^o at the ends of chunks
+    # ..n-2, the later chunks' log decay (where ds is given), and each
+    # chunk's rows of du, summed here in a fixed order
+    states, gends = (torch.empty((b, h, n - 1, dh, dh), **f32)
+                     for _ in range(2))
+    lrest = torch.empty((b, h, n, dh), **f32) if ds is not None else None
+    du_part = torch.empty((b, n, h, dh), **f32)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -342,11 +363,12 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.rwkv6_backward(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
             u.data_ptr(), ptr(s0), do.data_ptr(), ptr(ds), dr.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du_rows.data_ptr(),
-            ds0.data_ptr(), ptr(work), b, t, h, dh,
-            int(r.dtype == torch.bfloat16), stream)
+            dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du_part.data_ptr(),
+            ds0.data_ptr(), states.data_ptr(), gends.data_ptr(), ptr(lrest),
+            b, t, h, dh, int(r.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"rwkv6_bwd launch failed: "
                            f"{lib.rwkv6_bwd_error_string(err).decode()}")
     build.LAUNCHES[NAME_BWD] += 1
-    return dr, dk, dv, dlw, du_rows.sum(0), ds0
+    du = du_part.view(b * n, h * dh).sum(0).view(h, dh)
+    return dr, dk, dv, dlw, du, ds0

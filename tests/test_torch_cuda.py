@@ -1636,6 +1636,11 @@ RWKV_BWD_CASES = [
     (2, 45, 2, 20, None, False, torch.bfloat16),
     (2, 50, 2, 96, None, True, torch.bfloat16),
     (1, 1, 2, 64, None, True, torch.float32),
+    # many chunks (32 of 32 rows), and T below one chunk
+    (1, 1024, 2, 64, None, True, torch.float32),
+    (1, 1024, 4, 64, None, False, torch.bfloat16),
+    (2, 17, 3, 64, -8.0, True, torch.float32),
+    (2, 31, 2, 128, None, False, torch.bfloat16),
 ]
 
 
@@ -1826,12 +1831,102 @@ def test_rwkv6_bwd_kernel_vs_plain(gen, case):
     assert all(torch.equal(p, q) for p, q in zip(got, again))
 
 
-def test_rwkv6_bwd_kernel_form_and_refusals(gen):
-    """The form at the training path's head dim (a CTA of 4 x 64 threads
-    per (b, h), no spills), and what the wrapper refuses: a head dim past
-    128, mixed dtypes, a do that is not fp32."""
-    f = rw.bwd_form(64)
-    assert f["threads"] == 256 and f["spill_bytes"] == 0, f
+@pytest.mark.parametrize("case", [(2, 96, 2, 64, -8.0, True, torch.float32),
+                                  (1, 97, 2, 16, None, True, torch.float32),
+                                  (2, 70, 2, 64, None, False, torch.bfloat16),
+                                  (1, 40, 2, 128, -54.6, True, torch.float32)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_rwkv6_bwd_kernel_vs_chunked_transcription(gen, case):
+    """The kernel against its chunked algorithm transcribed into torch
+    (tests/_rwkv6_bwd_chunks.py: the same passes, chunks, sub-chunk factors
+    and dlog_w sums, in torch's order of each sum), within ``bwd_close``."""
+    from _rwkv6_bwd_chunks import rwkv6_bwd_chunked
+    b, t, h, dh, lw, state, dtype = case
+    r, k, v, log_w, u, s0 = rwkv_inputs(gen, b, t, h, dh, lw, state, dtype)
+    do = torch.randn(b, t, h, dh, generator=gen, device="cuda")
+    ds = torch.randn(b, h, dh, dh, generator=gen, device="cuda") \
+        if state else None
+    got = rw.rwkv6_bwd(r, k, v, log_w, u, s0, do, ds)
+    want = rwkv6_bwd_chunked(r, k, v, log_w, u, s0, do, ds,
+                             chunk=rw.bwd_form(dh, dtype, state)["chunk"])
+    for name, g, w in zip(("dr", "dk", "dv", "dlog_w", "du", "ds0"), got,
+                          want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        bwd_close(g, w, name)
+
+
+def one_call_kernels(fn, path):
+    """The kernel nodes of one call of ``fn`` captured in a CUDA graph, as
+    the text of each node of the graph's DOT dump (written to ``path``):
+    what one replay runs."""
+    import re
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # warm-up before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(True)       # keep the graph to dump it
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.debug_dump(str(path))
+    nodes = re.split(r'(?m)^\s*"?graph_\d+_node_\d+"?\s*\[',
+                     path.read_text())[1:]
+    return [n for n in nodes if 'label="{KERNEL' in n]
+
+
+def traced_forms(fn, path):
+    """{(name, CTAs, threads a CTA)} of the kernels that three calls of
+    ``fn`` run on the device, read from a ``torch.profiler`` trace
+    (exported as Chrome JSON to ``path``) of those calls after a warm-up
+    call."""
+    import json
+    import math
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    return {(e["name"], math.prod(e["args"]["grid"]),
+             math.prod(e["args"]["block"]))
+            for e in json.loads(path.read_text())["traceEvents"]
+            if str(e.get("cat", "")).lower() == "kernel"}
+
+
+def test_rwkv6_bwd_kernel_form_and_refusals(gen, tmp_path):
+    """The form at the training path's head dim, with a call at the
+    training shape (B 8, T 128, H 32) captured in a CUDA graph and traced
+    by the profiler: three kernels a call, launch 1 (``rwkv6_bwd_scan``)
+    512 CTAs of 128 threads, a CTA per (pass, b, h) and all 64 value
+    columns, launch 2 (``rwkv6_bwd_chunk``) 1024 CTAs of 256 threads, a
+    CTA per (b, h, chunk of 32 rows), then du's sum; no spills in either;
+    16 rows a chunk at head dim 128. And what the wrapper refuses: a head
+    dim past 128, mixed dtypes, a do that is not fp32."""
+    for dtype, state in ((torch.bfloat16, False), (torch.float32, True)):
+        f = rw.bwd_form(64, dtype, state)
+        assert f["chunk"] == 32, f
+        assert f["threads"] == 256 and f["scan_threads"] == 128, f
+        assert f["spill_bytes"] == 0 and f["scan_spill_bytes"] == 0, f
+        assert f["ctas_per_sm"] >= 1 and f["scan_ctas_per_sm"] >= 1, f
+        args = rwkv_inputs(gen, 8, 128, 32, 64, None, state, dtype)
+        do = torch.randn(8, 128, 32, 64, generator=gen, device="cuda")
+        ds = torch.randn(8, 32, 64, 64, generator=gen, device="cuda") \
+            if state else None
+        def call():
+            return rw.rwkv6_bwd(*args, do, ds)
+        nodes = one_call_kernels(call, tmp_path / f"{dtype}-{state}.dot")
+        assert len(nodes) == 3, nodes
+        assert [sum(f"rwkv6_bwd_{w}" in n for n in nodes)
+                for w in ("scan", "chunk")] == [1, 1], nodes
+        ran = traced_forms(call, tmp_path / f"{dtype}-{state}.json")
+        assert {x[1:] for x in ran if "rwkv6_bwd_scan" in x[0]} == \
+            {(512, 128)}, ran
+        assert {x[1:] for x in ran if "rwkv6_bwd_chunk" in x[0]} == \
+            {(1024, 256)}, ran
+    assert rw.bwd_form(128)["chunk"] == 16
     r, k, v, log_w, u, _ = rwkv_inputs(gen, 1, 8, 2, 129)
     do = torch.randn(1, 8, 2, 129, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
