@@ -216,7 +216,16 @@ the target) and ``nvcc``:
    attention backward calls bit-equal and one launch each, timed beside
    the plain version, ``torch.matmul`` and SDPA's backward (the attention
    backward also each of its roles alone, its CTAs, CTAs an SM and
-   waves);
+   waves); then the families' backward kernels at their training shapes
+   against their plain backwards (the RWKV6 one also at log_w -8 and
+   -54.6 from a state with a state cotangent, the RG-LRU one at a ragged W
+   and T), two calls bit-equal, timed beside the plain version and, for
+   the grouped matmul, two ``torch.bmm`` on transposed views (the RWKV6
+   one with its form: launches a call, CTAs of each launch, registers,
+   spills; the RG-LRU one bit-equal to plain, with its form: the CTAs and
+   threads of its launch from a profiler trace, registers, CTAs an SM,
+   shared bytes and spills from the card, window, ring slots, route, and
+   its share of the bound);
    then the families whose expert or scan kernels train on their own
    backward kernels, each at full width: granite-moe-1b-a400m (dense experts
    on ``moe_gmm`` and ``moe_gmm_bwd``, causal attention),
@@ -232,23 +241,20 @@ the target) and ``nvcc``:
    steps, the counts set to 0 just before and read just after: exact
    launches, each step's loss, wall and stream ms, tokens/s, peak memory;
    then one step traced as qwen's (c) (busy time, idle share, the top
-   ops); (h) each new backward kernel at its training shape against its
-   plain backward (the RWKV6 one also at log_w -8 and -54.6 from a state
-   with a state cotangent, the RG-LRU one at a ragged W and T), two calls
-   bit-equal, timed beside the plain version and, for the grouped
-   matmul, two ``torch.bmm`` on transposed views (the RWKV6 one with its
-   form: launches a call, CTAs of each launch, registers, spills);
+   ops);
 10. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --parent SRC
 
 does all of that, and also builds the attention, attention backward,
-RWKV6 and RWKV6 backward kernels of the tree under SRC (e.g. the parent
-commit unpacked into ``build/parent/src``) and loads its RG-LRU wrapper,
-holds each against the plain version and times it beside this tree's in
-every attention, attention backward, RWKV6, RG-LRU and (h) RWKV6 backward
-case, and traces an rwkv6 train step on its RWKV6 backward too.
+RWKV6, RWKV6 backward, RG-LRU and RG-LRU backward kernels of the tree
+under SRC (e.g. the parent commit unpacked into ``build/parent/src``),
+holds each against the plain version (the RG-LRU forward bit-equal to
+this tree's, the RG-LRU backward bit-equal to plain) and times it beside
+this tree's in every attention, attention backward, RWKV6, RG-LRU and
+(e) RWKV6 and RG-LRU backward case, and traces the recurrentgemma-2b and
+rwkv6 train steps on its RG-LRU and RWKV6 backwards too.
 
 Any failed check exits non-zero (Fig. 5's flat-stair check after every
 phase has run, with no result line). Without a card, or outside a
@@ -278,10 +284,17 @@ line, and no result line.
 
     python3 chip_smoke.py --rwkv6-bwd [--parent SRC]
 
-runs only the RWKV6 backward's cases of phase 9 (h) and three off the
+runs only the RWKV6 backward's cases of phase 9 (e) and three off the
 training path (a ragged T of 97, head dim 128, T 1024 at batch 1), beside
 the backward of the tree under SRC if given, and prints them as one JSON
 line, and no result line.
+
+    python3 chip_smoke.py --rglru-bwd [--parent SRC]
+
+runs only the RG-LRU backward's cases of phase 9 (e) and three off the
+training path (T 2048 at batch 1 and 4, one step), each with every
+compiled form swept beside the host's pick and the backward of the tree
+under SRC if given, and prints them as one JSON line, and no result line.
 
     python3 chip_smoke.py --train
 
@@ -302,6 +315,7 @@ import functools
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -820,13 +834,7 @@ def parent_flash(torch, build, src: Path):
     ``LAUNCHES``."""
     import ctypes
     cu = src / "repro_torch" / "csrc" / "flash_attention.cu"
-    check(cu.is_file(), f"{cu} is missing")
-    out = build.build_dir() / "parent_flash_attention.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                           str(out), str(cu)], capture_output=True, text=True)
-    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
-    lib = ctypes.CDLL(str(out))
+    lib = parent_library(build, cu, "parent_flash_attention")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # trees since the training slice take a nullable lse after out
     lse = (None,) if "float* lse" in cu.read_text() else ()
@@ -846,7 +854,6 @@ def parent_flash(torch, build, src: Path):
         check(err == 0, f"the parent's flash_attention failed: {err}")
         return out
 
-    log(f"parent flash_attention built from {cu}")
     return call
 
 
@@ -858,13 +865,7 @@ def parent_flash_bwd(torch, build, src: Path):
     do, mask) -> (dq, dk, dv), not counted in ``LAUNCHES``."""
     import ctypes
     cu = src / "repro_torch" / "csrc" / "flash_attention_bwd.cu"
-    check(cu.is_file(), f"{cu} is missing")
-    out = build.build_dir() / "parent_flash_attention_bwd.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                           str(out), str(cu)], capture_output=True, text=True)
-    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
-    lib = ctypes.CDLL(str(out))
+    lib = parent_library(build, cu, "parent_flash_attention_bwd")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_bwd_bf16.argtypes = [vp] * 10 + [ci] * 7 + [
         ctypes.c_float, vp]
@@ -883,7 +884,6 @@ def parent_flash_bwd(torch, build, src: Path):
         check(err == 0, f"the parent's flash_attention_bwd failed: {err}")
         return dq, dk, dv
 
-    log(f"parent flash_attention_bwd built from {cu}")
     return call
 
 
@@ -894,14 +894,7 @@ def parent_rwkv6(torch, build, src: Path):
     ``LAUNCHES``."""
     import ctypes
     cu = src / "repro_torch" / "csrc" / "rwkv6.cu"
-    check(cu.is_file(), f"{cu} is missing")
-    out = build.build_dir() / "parent_rwkv6.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
-                           "-o", str(out), str(cu)], capture_output=True,
-                          text=True)
-    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
-    lib = ctypes.CDLL(str(out))
+    lib = parent_library(build, cu, "parent_rwkv6")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rwkv6_forward.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.rwkv6_forward.restype = ci
@@ -919,29 +912,27 @@ def parent_rwkv6(torch, build, src: Path):
         check(err == 0, f"parent rwkv6 failed: {err}")
         return o, s
 
-    log(f"parent rwkv6 built from {cu}")
     return call
 
 
 def parent_rwkv6_bwd(torch, build, src: Path):
     """The RWKV6 backward of the tree under ``src`` (e.g. the parent
     commit), built as its own library and called through its C entry
-    ``rwkv6_backward`` in the form before the chunked kernel (a walk per
-    (b, h): per-(b, h) sums of du, a per-step scratch where ``ds`` is
-    given): a function (r, k, v, log_w, u, s0, do, ds) -> (dr, dk, dv,
-    dlog_w, du, ds0), not counted in ``LAUNCHES``."""
+    ``rwkv6_backward`` with the chunked kernel's argument list and scratch,
+    as ``kernels/rwkv6.py::rwkv6_bwd`` calls it: a function (r, k, v,
+    log_w, u, s0, do, ds) -> (dr, dk, dv, dlog_w, du, ds0), not counted in
+    ``LAUNCHES``; None where the tree's ``rwkv6_bwd.cu`` and its headers
+    are this tree's (``parent_source``)."""
     import ctypes
-    cu = src / "repro_torch" / "csrc" / "rwkv6_bwd.cu"
-    check(cu.is_file(), f"{cu} is missing")
-    out = build.build_dir() / "parent_rwkv6_bwd.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                           str(out), str(cu)], capture_output=True, text=True)
-    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
-    lib = ctypes.CDLL(str(out))
+    cu = parent_source(src, "rwkv6_bwd")
+    if cu is None:
+        return None
+    lib = parent_library(build, cu, "parent_rwkv6_bwd")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rwkv6_backward.argtypes = [vp] * 15 + [ci] * 5 + [vp]
+    lib.rwkv6_backward.argtypes = [vp] * 17 + [ci] * 5 + [vp]
     lib.rwkv6_backward.restype = ci
+    lib.rwkv6_bwd_chunk_rows.argtypes = [ci]
+    lib.rwkv6_bwd_chunk_rows.restype = ci
 
     def call(r, k, v, log_w, u, s0, do, ds=None):
         b, t, h, dh = r.shape
@@ -949,45 +940,124 @@ def parent_rwkv6_bwd(torch, build, src: Path):
         dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
         dlw = torch.empty(b, t, h, dh, **f32)
         ds0 = torch.empty(b, h, dh, dh, **f32)
-        du = torch.empty(b, h, dh, **f32)
-        work = torch.empty(b, t, h, dh, **f32) if ds is not None else None
+        n = -(-t // lib.rwkv6_bwd_chunk_rows(dh))
+        states, gends = (torch.empty(b, h, n - 1, dh, dh, **f32)
+                         for _ in range(2))
+        lrest = torch.empty(b, h, n, dh, **f32) if ds is not None else None
+        du_part = torch.empty(b, n, h, dh, **f32)
         err = lib.rwkv6_backward(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
             do.data_ptr(), None if ds is None else ds.data_ptr(),
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
-            du.data_ptr(), ds0.data_ptr(),
-            None if work is None else work.data_ptr(),
+            du_part.data_ptr(), ds0.data_ptr(), states.data_ptr(),
+            gends.data_ptr(), None if lrest is None else lrest.data_ptr(),
             b, t, h, dh, int(r.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"the parent's rwkv6_backward failed: {err}")
-        return dr, dk, dv, dlw, du.sum(0), ds0
-
-    log(f"parent rwkv6_bwd built from {cu}")
+        return (dr, dk, dv, dlw, du_part.view(b * n, h * dh).sum(0).view(
+            h, dh), ds0)
     return call
 
 
+def parent_source(src: Path, name: str):
+    """``csrc/<name>.cu`` of the tree under ``src``, or None where it and
+    every header it includes, directly or not, are this tree's own: then
+    there is nothing to compare."""
+    there = src / "repro_torch" / "csrc"
+    cu = there / f"{name}.cu"
+    check(cu.is_file(), f"{cu} is missing")
+
+    def sources(d: Path) -> dict:
+        # the .cu and the csrc headers it includes, by name
+        out, todo = {}, [f"{name}.cu"]
+        while todo:
+            f = todo.pop()
+            if f not in out and (d / f).is_file():
+                out[f] = (d / f).read_bytes()
+                todo += re.findall(r'#include "([^"]+)"', out[f].decode())
+        return out
+
+    if sources(there) == sources(SRC / "repro_torch" / "csrc"):
+        log(f"the parent's {name}.cu and headers are this tree's: not built")
+        return None
+    return cu
+
+
+def parent_library(build, cu: Path, name: str):
+    """``cu`` (a source of another tree, e.g. the parent commit) built with
+    this tree's flags as its own library ``name``.so and loaded."""
+    import ctypes
+    check(cu.is_file(), f"{cu} is missing")
+    out = build.build_dir() / f"{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                           str(out), str(cu)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed for {cu}: {proc.stderr}")
+    log(f"{name} built from {cu}")
+    return ctypes.CDLL(str(out))
+
+
 def parent_rglru(torch, build, src: Path):
-    """The RG-LRU wrapper of the tree under ``src`` (e.g. the parent
-    commit), its ``kernels/rglru.py`` loaded under a private module name: a
-    function (a, b, h0) -> (y, h_last). That module imports this tree's
-    ``build``, so its launches would add to ``LAUNCHES["rglru_scan"]``: the
-    function puts the count back after each call, so that it only ever
-    holds this tree's launches."""
+    """The RG-LRU forward of the tree under ``src`` (e.g. the parent
+    commit): its ``csrc/rglru_scan.cu`` built as its own library, launched
+    in the form its ``kernels/rglru.py`` picks (that module loaded under a
+    private name for its ``form`` and ``_bind``): a function (a, b, h0) ->
+    (y, h_last), not counted in ``LAUNCHES``; None where its
+    ``rglru_scan.cu`` is this tree's."""
     import importlib.util
     path = src / "repro_torch" / "kernels" / "rglru.py"
     check(path.is_file(), f"{path} is missing")
     spec = importlib.util.spec_from_file_location("_parent_rglru", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    log(f"parent rglru_scan loaded from {path}")
+    cu = parent_source(src, "rglru_scan")
+    if cu is None:
+        return None
+    lib = parent_library(build, cu, "parent_rglru_scan")
+    mod._bind(lib)
 
     def call(a, b, h0):
-        count = build.LAUNCHES["rglru_scan"]
-        try:
-            return mod.rglru_scan(a, b, h0)
-        finally:
-            build.LAUNCHES["rglru_scan"] = count
+        bsz, t, w = a.shape
+        y, h_last = torch.empty_like(a), torch.empty_like(h0)
+        f = mod.form(bsz, t, w, aligned=a.data_ptr() % 16 == 0
+                     and b.data_ptr() % 16 == 0)
+        err = lib.rglru_scan_forward(
+            a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), bsz, t, w, f["window"], f["stages"],
+            int(f["route"] == "tma"), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's rglru_scan_forward failed: {err}")
+        return y, h_last
+    return call
+
+
+def parent_rglru_bwd(torch, build, src: Path):
+    """The RG-LRU backward of the tree under ``src`` (e.g. the parent
+    commit), built as its own library and called through its C entry
+    ``rglru_scan_backward`` with the argument list of the thread-per-channel
+    kernel (no form): a function (a, y, h0, dy, dh_last) -> (da, db, dh0),
+    not counted in ``LAUNCHES``; None where its ``rglru_scan_bwd.cu`` is
+    this tree's."""
+    import ctypes
+    cu = parent_source(src, "rglru_scan_bwd")
+    if cu is None:
+        return None
+    lib = parent_library(build, cu, "parent_rglru_scan_bwd")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan_backward.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+    lib.rglru_scan_backward.restype = ci
+
+    def call(a, y, h0, dy, dh_last=None):
+        bsz, t, w = a.shape
+        da, db, dh0 = (torch.empty_like(a), torch.empty_like(a),
+                       torch.empty_like(h0))
+        err = lib.rglru_scan_backward(
+            a.data_ptr(), y.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dh0.data_ptr(), bsz, t, w,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's rglru_scan_backward failed: {err}")
+        return da, db, dh0
     return call
 
 
@@ -2211,12 +2281,13 @@ def compare_rglru(torch, rg, case: tuple, gen, parent=None) -> dict:
     check(torch.equal(y, y2) and torch.equal(h, h2),
           f"rglru_scan {case}: a second launch differs")
     check(torch.equal(h, y[:, -1]), f"rglru_scan {case}: h_last != y[:, -1]")
+    same = None
     if parent is not None:
+        # the same kernel body in both trees: the same bits
         py, ph = parent(*args)
-        p_err = max((py - ry).abs().max().item(),
-                    (ph - rh).abs().max().item())
-        check(p_err <= tol, f"parent rglru_scan {case}: max_abs_err {p_err}"
-                            f" > tol {tol}")
+        same = torch.equal(py, y) and torch.equal(ph, h)
+        check(same, f"parent rglru_scan {case}: outputs differ from this "
+                    f"tree's")
         del py, ph
     del ry, rh, y2, h2
     # a, b read and y written once (fp32), h0 read and h_last written; one
@@ -2228,10 +2299,12 @@ def compare_rglru(torch, rg, case: tuple, gen, parent=None) -> dict:
            "parent_ms": None if parent is None else time_ms(torch, parent,
                                                             args),
            "plain_ms": time_ms(torch, rg.rglru_ref, args, reps=4),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bit_equal_parent": same}
     log(f"rglru_scan {row['case']}: two launches bit-equal; max_abs_err "
         f"{err:.4g} tol {tol:.4g} ms {row['ms']:.4f} parent_ms "
-        + ("not timed" if parent is None else f"{row['parent_ms']:.4f}")
+        + ("not timed" if parent is None else
+           f"{row['parent_ms']:.4f} (bit-equal to this tree's)")
         + f" plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}); "
         f"no library call computes it; form: {rglru_form(rg, case)}")
     return row
@@ -3947,12 +4020,17 @@ TRAIN_FLASH = ((8, 128, 128, 16, 16, 64, "causal"),
 # and off the path, at the forward's two long sequences
 LONG_FLASH_BWD = ((4, 2048, 2048, 16, 16, 64, "causal"),
                   (1, 4096, 4096, 8, 2, 128, "causal"))
-# the families trained at full width in (f)-(h), the largest first, each
+# the families trained at full width in (f) and (g), the largest first, each
 # freed before the next, and (g)'s steps of launch.train for each
 TRAIN_FAMILIES = RECURRENT_ARCHS + (MOE_ARCH,)
 TRAIN_FAMILY_STEPS = 10
-# rounds of the traced rwkv6 step on each RWKV6 backward, with --parent
+# rounds of a family's traced step on each backward, with --parent
 TRACED_ROUNDS = 4
+# the backward that train (g) swaps for the parent tree's in those rounds:
+# arch -> (the kernels.ops name its autograd Function calls, the mods key
+# of the parent's function)
+TRACED_BWD = {"recurrentgemma-2b": ("rglru_scan_bwd", "parent_rglru_bwd"),
+              "rwkv6-1.6b": ("rwkv6_bwd", "parent_rwkv6_bwd")}
 # the new backward kernels at the training shapes (8 x 128 tokens):
 # granite's expert products (E 32: gate/up with x broadcast, down);
 # recurrentgemma's RG-LRU (W 2560), a ragged W, a ragged T and W; rwkv6's
@@ -3960,6 +4038,10 @@ TRACED_ROUNDS = 4
 # runs it; fp32 from a state with a state cotangent at log_w -8 and -54.6)
 TRAIN_MOE = ((32, 1024, 1024, 512, True), (32, 1024, 512, 1024, False))
 TRAIN_RGLRU = ((8, 128, 2560), (8, 128, 2500), (2, 97, 2501))
+# the RG-LRU backward off the training path (``--rglru-bwd``):
+# recurrentgemma's attention window of 2048 steps at batch 1 and 4, the
+# forward's long cases, and one step
+RGLRU_BWD_OFF_PATH = ((1, 2048, 2560), (4, 2048, 2560), (8, 1, 2560))
 TRAIN_RWKV = ((8, 128, 32, 64, None, False, "bfloat16"),
               (8, 128, 32, 64, -8.0, True, "float32"),
               (8, 128, 32, 64, -54.6, True, "float32"))
@@ -4536,11 +4618,61 @@ def compare_moe_gmm_bwd(torch, mt, mg, case: tuple, gen) -> dict:
     return row
 
 
-def compare_rglru_bwd(torch, rg, case: tuple, gen) -> dict:
-    """The RG-LRU backward at a training shape, from a final state's
-    cotangent: the kernel against ``rglru_bwd_ref`` (the same roundings in
-    the same order, so bit-equality is logged), two calls bit-equal, its
-    time and the plain version's beside the bound."""
+def rglru_bwd_form(torch, rg, f: dict, args: tuple, tag: str) -> dict:
+    """The backward kernel as one call on ``args`` runs it in the host's
+    form ``f`` (``rglru.bwd_form``): the CTAs and threads of its launch,
+    read from a profiler trace (``kernel_forms``, exported to
+    ``TRACE_DUMPS/<tag>.json``) and held to the host's grid; the form's
+    window, ring slots and route; the compiled kernel's registers, shared
+    bytes, CTAs an SM and spills (none allowed) on this card."""
+    at = rg.bwd_attrs(f["window"], f["stages"], f["route"])
+    check(at["spill_bytes"] == 0 and at["smem_bytes"] == f["smem_bytes"],
+          f"rglru_scan_bwd form {f}: {at}")
+    ran = kernel_forms(torch, rg.rglru_scan_bwd, args,
+                       TRACE_DUMPS / f"{tag}.json")
+    k = [x for n, x in ran.items() if TRACE_NAMES[rg.NAME_BWD] in n]
+    check(len(ran) == 1 and len(k) == 1 and k[0]["ctas"]
+          and k[0]["threads"], f"{tag}: the trace holds no grid or block "
+                               f"of the kernel alone {ran}")
+    k = k[0]
+    check((k["ctas"], k["threads"]) == (f["ctas"], f["channels"]),
+          f"{tag}: launched {k['ctas']} CTAs of {k['threads']} threads, "
+          f"the host's form {f}")
+    return {"ctas": k["ctas"], "threads": k["threads"],
+            "window": f["window"], "stages": f["stages"],
+            "route": f["route"], "smem_bytes": at["smem_bytes"],
+            "registers": at["registers"],
+            "card_ctas_per_sm": at["ctas_per_sm"],
+            "spill_bytes": at["spill_bytes"]}
+
+
+def rglru_bwd_sweep(torch, rg, args: tuple, route: str) -> list:
+    """Every compiled form of the backward forced at these inputs on
+    ``route``, each bit-equal to the host's pick and timed: (window,
+    stages, ms)."""
+    want = rg.rglru_scan_bwd(*args)
+    out = []
+    for tw, st in rg.bwd_forms():
+        f = {"window": tw, "stages": st, "route": route}
+        got = rg.launch_bwd(*args, form=f)
+        check(all(torch.equal(p, q) for p, q in zip(got, want)),
+              f"rglru_scan_bwd form {f} differs from the host's pick")
+        out.append((tw, st, time_ms(
+            torch, lambda *x: rg.launch_bwd(*x, form=f), args)))
+    return out
+
+
+def compare_rglru_bwd(torch, rg, case: tuple, gen, parent=None,
+                      sweep: bool = False) -> dict:
+    """The RG-LRU backward at a case, from a final state's cotangent: the
+    kernel (and the parent tree's, if given) bit-equal to
+    ``rglru_bwd_ref`` (the same roundings in the same order), two calls
+    bit-equal, their times and the plain version's beside the bound, and
+    its form as the launch ran it (``rglru_bwd_form``). The host's Eq. 3
+    prediction of the form (``rglru.bwd_form``'s CTAs an SM, waves and
+    the busiest SM's CTAs) is logged beside it and kept nowhere else. With
+    ``sweep``, every compiled form forced and timed beside the host's
+    pick."""
     b, t, w = case
     a, x, h0 = rglru_inputs(torch, case, gen)
     y, _ = rg.rglru_scan(a, x, h0)
@@ -4555,24 +4687,52 @@ def compare_rglru_bwd(torch, rg, case: tuple, gen) -> dict:
           f"rglru_scan_bwd {name}: a second call differs")
     want = rg.rglru_bwd_ref(*args)
     exact = all(torch.equal(p, q) for p, q in zip(got, want))
+    check(exact, f"rglru_scan_bwd {name}: not bit-equal to plain")
     err = bwd_err(torch, f"rglru_scan_bwd {name}", ("da", "db", "dh0"), got,
                   want)
+    p_exact = None
+    if parent is not None:
+        p_exact = all(torch.equal(p, q) for p, q in zip(parent(*args), want))
+        check(p_exact, f"the parent's rglru_scan_bwd {name}: not bit-equal "
+                       f"to plain")
     # a, y, dy read and da, db written (fp32), h0 and dh_last read and dh0
     # written; an add and two multiplies per element
     b_ms, b_by = bound_ms(3.0 * b * t * w, 20.0 * b * t * w + 12.0 * b * w,
                           peak=PEAK_FP32_FLOPS)
-    f = rg.bwd_attrs()
+    pick = rg.bwd_form(b, t, w)
+    tag = "rglru_scan_bwd-" + "".join(c if c.isalnum() else "_"
+                                      for c in name)
+    f = rglru_bwd_form(torch, rg, pick, args, tag)
     row = {"case": name, "max_abs_err": err, "bit_equal_plain": exact,
            "ms": time_ms(torch, rg.rglru_scan_bwd, args),
+           "parent_ms": None if parent is None else time_ms(
+               torch, parent, args),
+           "parent_bit_equal_plain": p_exact,
            "plain_ms": time_ms(torch, rg.rglru_bwd_ref, args, reps=4),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "form": f}
+    row["bound_share"] = b_ms / row["ms"]
     log(f"rglru_scan_bwd {name}: two calls bit-equal; bit-equal to plain "
-        f"{exact}, max_abs_err {err:.4g} ms {row['ms']:.4f} plain_ms "
-        f"{row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}, "
-        f"{100 * b_ms / row['ms']:.1f}% of it); no library call computes "
-        f"it; form: {-(-b * w // f['threads'])} CTAs of {f['threads']} "
-        f"threads, {f['registers']} registers, {f['ctas_per_sm']} CTAs an "
-        f"SM, {f['spill_bytes']} B spilled")
+        f"{exact}, max_abs_err {err:.4g} ms {row['ms']:.4f} parent_ms "
+        + ("not timed" if parent is None else
+           f"{row['parent_ms']:.4f} (bit-equal to plain {p_exact})")
+        + f" plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}, "
+        f"{100 * row['bound_share']:.1f}% of it); no library call computes "
+        f"it; form (launched, from the trace): {f['ctas']} CTAs of "
+        f"{f['threads']} threads, windows of {f['window']} steps, "
+        f"{f['stages']} ring slots, {f['route']}; on the card "
+        f"{f['card_ctas_per_sm']} CTAs an SM, {f['smem_bytes']} B shared, "
+        f"{f['registers']} registers, {f['spill_bytes']} B spilled; the "
+        f"host's Eq. 3 prediction {pick['ctas_per_sm']} CTAs an SM, "
+        f"{pick['waves']} wave(s), the busiest SM {pick['busiest_ctas']} "
+        f"CTAs")
+    if sweep:
+        row["sweep"] = rglru_bwd_sweep(torch, rg, args, f["route"])
+        best = min(row["sweep"], key=lambda r: r[-1])
+        swept = [(*r[:-1], round(r[-1], 4)) for r in row["sweep"]]
+        log(f"rglru_scan_bwd {name} every form on {f['route']} (window, "
+            f"slots, ms): {swept}; fastest {best[:-1]} {best[-1]:.4f} ms, "
+            f"the pick {(f['window'], f['stages'])} {row['ms']:.4f}")
     return row
 
 
@@ -4808,8 +4968,9 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
     for ``TRAIN_FAMILY_STEPS`` steps at its defaults, with the counts set
     to 0 just before and read just after: exact launches, each step's
     loss, wall and stream ms, tokens/s and the peak memory; then one step
-    traced (``profiled_step``), for rwkv6 also on the parent tree's RWKV6
-    backward where ``--parent`` gave one."""
+    traced (``profiled_step``), for recurrentgemma-2b and rwkv6 also on
+    the parent tree's RG-LRU or RWKV6 backward (``TRACED_BWD``) where
+    ``--parent`` gave one."""
     from repro_torch.launch.train import main as train_main, to_device
     from repro_torch.train import data as tdata
     from repro_torch.train import optim as toptim
@@ -4918,21 +5079,26 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # (g), traced: one step profiled as qwen's (c), from (f)'s weights and
-    # batch; for rwkv6, if the parent tree's RWKV6 backward is given, that
-    # step on each backward in turn over TRACED_ROUNDS rounds, each from
-    # the same weights, so that their difference shows beside its spread
+    # batch; for a family in TRACED_BWD, if the parent tree's backward is
+    # given, that step on each backward in turn over TRACED_ROUNDS rounds,
+    # each from the same weights, so that their difference shows beside
+    # its spread
     params = tfm.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     batch = to_device(tdata.augment_for_arch(src.batch(0), cfg, TRAIN_SEQ),
                       "cuda")
     traced: dict = {}
-    kernels = [("kernel", ops.rwkv6_bwd)]
-    if "rwkv6" in arch and mods.get("parent_rwkv6_bwd"):
-        kernels.append(("parent rwkv6_bwd", mods["parent_rwkv6_bwd"]))
+    attr, parent_key = TRACED_BWD.get(arch, ("rwkv6_bwd", None))
+    saved = getattr(ops, attr)
+    kernels = [("kernel", saved)]
+    if mods.get(parent_key):
+        kernels.append((f"parent {attr}", mods[parent_key]))
     rounds = TRACED_ROUNDS if len(kernels) > 1 else 1
-    init = [t.detach().clone() for _, t in tstep.named_leaves(params)] \
+    # the weights each round starts from, kept on the host: a second copy
+    # on the card (10.6 GB for recurrentgemma-2b) left its first traced
+    # step out of memory
+    init = [t.detach().to("cpu") for _, t in tstep.named_leaves(params)] \
         if rounds > 1 else None
-    saved = ops.rwkv6_bwd
     try:
         for i in range(rounds):
             for what, fn in kernels:
@@ -4941,7 +5107,7 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
                         for (_, t), t0 in zip(tstep.named_leaves(params),
                                               init):
                             t.copy_(t0)
-                ops.rwkv6_bwd = fn
+                setattr(ops, attr, fn)
                 busy, p_wall, idle, top, *_ = profiled_step(
                     torch, tstep, toptim, cfg, tc, params, batch,
                     TRAIN_FAMILY_STEPS)
@@ -4957,7 +5123,7 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
                     f"next step the ops whose kernels took most (op, device "
                     f"ms, calls) {top}")
     finally:
-        ops.rwkv6_bwd = saved
+        setattr(ops, attr, saved)
     if rounds > 1:
         busy = {w: [x["busy_ms"] for x in traced[w]] for w, _ in kernels}
         med = {w: float(np.median(b)) for w, b in busy.items()}
@@ -4965,7 +5131,7 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
             f"over {rounds} rounds from the same weights: "
             + "; ".join(f"{w} median {med[w]:.3f} ms, {min(b):.3f}-"
                         f"{max(b):.3f}" for w, b in busy.items())
-            + f"; parent - kernel {med['parent rwkv6_bwd'] - med['kernel']:.3f}"
+            + f"; parent - kernel {med[f'parent {attr}'] - med['kernel']:.3f}"
             " ms (medians)")
     del init
     del params, batch
@@ -5007,10 +5173,9 @@ def train_phase(torch, np, mods, card: str) -> dict:
     step profiled: the device's busy time and idle share in its window; (d) a served model updated in place: the trained master
     copied into a ``ServeEngine``'s cast tree, the step cache's replayed
     prefill held bit-equal to the eager forward; (e) the backward kernels
-    at their training shapes against plain, timed; then (f) and (g) for
-    each of ``TRAIN_FAMILIES`` (``train_family``), and (h) the grouped
-    matmul's, the RG-LRU's and RWKV6's backward kernels at their training
-    shapes against plain, timed."""
+    (the matmul's, the attention's, the grouped matmul's, the RG-LRU's and
+    RWKV6's) at their training shapes against plain, timed; then (f) and
+    (g) for each of ``TRAIN_FAMILIES`` (``train_family``)."""
     from repro_torch.launch.train import main as train_main, to_device
     from repro_torch.train import data as tdata
     from repro_torch.train import optim as toptim
@@ -5153,6 +5318,18 @@ def train_phase(torch, np, mods, card: str) -> dict:
     fl = [compare_flash_bwd(torch, mods["fa"], c, gen,
                             mods.get("parent_flash_bwd"))
           for c in TRAIN_FLASH + LONG_FLASH_BWD]
+    # and the families' backward kernels, before the families: after them
+    # the cache held 64.8 GiB reserved with 0.1 GiB allocated (74.6 GiB
+    # after --parent's traced rounds), which empty_cache did not return,
+    # and the plain RWKV6 backward ran out of memory there
+    moe_bwd = [compare_moe_gmm_bwd(torch, mods["mt"], mods["mg"], c, gen)
+               for c in TRAIN_MOE]
+    rg_bwd = [compare_rglru_bwd(torch, mods["rg"], c, gen,
+                                mods.get("parent_rglru_bwd"))
+              for c in TRAIN_RGLRU]
+    rw_bwd = [compare_rwkv6_bwd(torch, mods["rw"], c, gen,
+                                mods.get("parent_rwkv6_bwd"))
+              for c in TRAIN_RWKV]
     # (f), (g) the families on their expert and scan kernels' backwards.
     # A family's step holds up to 62 GiB; on a cache that this process's
     # earlier phases shaped, recurrentgemma's first CLI step ran out of
@@ -5171,15 +5348,7 @@ def train_phase(torch, np, mods, card: str) -> dict:
                     for arch in TRAIN_FAMILIES}
     finally:
         set_alloc("expandable_segments:False")
-    log_memory(torch, "train (h) starts with")
-    # (h) those backward kernels at their training shapes
-    moe_bwd = [compare_moe_gmm_bwd(torch, mods["mt"], mods["mg"], c, gen)
-               for c in TRAIN_MOE]
-    rg_bwd = [compare_rglru_bwd(torch, mods["rg"], c, gen)
-              for c in TRAIN_RGLRU]
-    rw_bwd = [compare_rwkv6_bwd(torch, mods["rw"], c, gen,
-                                mods.get("parent_rwkv6_bwd"))
-              for c in TRAIN_RWKV]
+    log_memory(torch, "train (g) ends with")
     tok_s = tokens / (wall / 1e3)
     log(f"train summary {card}: {ARCH} full width, batch {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}, remat none: step wall {wall:.3f} ms, stream "
@@ -5350,6 +5519,17 @@ def main() -> None:
         if DEFERRED:
             fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
         return
+    if "--rglru-bwd" in argv:
+        # the RG-LRU backward alone at its training shapes and off the
+        # path, every compiled form swept, beside the parent tree's if given
+        parent = parent_rglru_bwd(torch, build, Path(argv[argv.index(
+            "--parent") + 1]).resolve()) if "--parent" in argv else None
+        rows = [compare_rglru_bwd(torch, rg, c, gen, parent, sweep=True)
+                for c in TRAIN_RGLRU + RGLRU_BWD_OFF_PATH]
+        print(json.dumps({"rglru_scan_bwd": six_digits(rows)}), flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
     if "--train" in argv:
         # the training phase alone
         trained = train_phase(torch, np, mods, card)
@@ -5365,6 +5545,7 @@ def main() -> None:
         parent = parent_flash(torch, build, psrc)
         mods["parent_flash_bwd"] = parent_flash_bwd(torch, build, psrc)
         mods["parent_rwkv6_bwd"] = parent_rwkv6_bwd(torch, build, psrc)
+        mods["parent_rglru_bwd"] = parent_rglru_bwd(torch, build, psrc)
         parent_rw = parent_rwkv6(torch, build, psrc)
         parent_rg = parent_rglru(torch, build, psrc)
     # recurrentgemma-2b's prefill shape, a ragged W (TMA), one step, a

@@ -49,12 +49,15 @@
 // tensor maps are kernel parameters, so a launch can be captured in a CUDA
 // graph.
 
-#include <cstring>
-
-#include "sm90.cuh"
+#include "rglru_common.cuh"
 
 namespace {
 
+using rglru::cp_async4;
+using rglru::cp_async_commit;
+using rglru::cp_async_wait;
+using rglru::encode_btw;
+using rglru::MAX_SMEM;
 using sm90::EncodeTiled;
 using sm90::mbar_expect_tx;
 using sm90::mbar_init;
@@ -66,7 +69,6 @@ constexpr int CH = 32;          // channels a CTA: one lane each
 constexpr int WARPS = 4;        // each takes a quarter of a window
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_STAGES = 2;   // more slots measured no faster
-constexpr int MAX_SMEM = 232448;  // a CTA's shared memory on sm_90
 
 // Dynamic shared memory of a launch: 128 bytes to align the ring, the ring
 // (stages x {a, b} x TW x CH fp32), an mbarrier a stage slot, the warps'
@@ -84,26 +86,6 @@ struct Args {
   float* h_last;
   int T, W, strips, stages, tma;
 };
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// Waits until at most `pending` of this thread's commit groups are in
-// flight (wait_group takes an immediate).
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  if (pending == 0)
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
 
 template <int TW>
 __global__ void __launch_bounds__(THREADS)
@@ -218,20 +200,6 @@ rglru_scan_kernel(__grid_constant__ const CUtensorMap map_a,
   if (warp == 0 && cv) p.h_last[(size_t)row * W + c] = h;
 }
 
-// (W, T, B) fp32 of a contiguous (B, T, W) tensor, boxes of CH channels x
-// tw steps x 1 row, no swizzle, zero fill out of bounds.
-bool encode_btw(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
-                int T, int W, int tw) {
-  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)W * 4, (cuuint64_t)T * W * 4};
-  const cuuint32_t box[3] = {CH, (cuuint32_t)tw, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int TW>
 cudaError_t set_smem_attr() {
   // the attribute holds per device; set once on each (setting it twice
@@ -331,8 +299,8 @@ int rglru_scan_forward(const void* a, const void* b, const void* h0, void* y,
   if (p.tma) {
     const EncodeTiled fn = sm90::encode_tiled();
     if (!fn) return static_cast<int>(cudaErrorNotSupported);
-    if (!encode_btw(fn, &ma, a, B, T, W, window) ||
-        !encode_btw(fn, &mb, b, B, T, W, window))
+    if (!encode_btw(fn, &ma, a, B, T, W, CH, window) ||
+        !encode_btw(fn, &mb, b, B, T, W, CH, window))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long grid = (long long)B * p.strips;

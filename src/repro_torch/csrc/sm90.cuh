@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the port's kernels (gemm_sm90.cuh, the
 // mainloop of matmul_tiled and moe_gmm, flash_attention.cu and its
-// backward, rglru_scan.cu): mbarriers, TMA tensor loads, wgmma
-// shared-memory descriptors and tensor-map encoding.
+// backward, rglru_scan.cu and its backward): mbarriers, TMA tensor loads
+// and stores, wgmma shared-memory descriptors and tensor-map encoding.
 
 #pragma once
 
@@ -79,6 +79,24 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A TMA tensor store of a 3-D box from shared memory, committed as its
+// own bulk group; rows and columns out of bounds are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until every bulk store this thread issued has read its source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile whose rows

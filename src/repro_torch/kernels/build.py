@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` holds one kernel behind a plain C interface; the
 headers ``csrc/*.cuh`` hold what several share (``gemm_sm90.cuh``, the GEMM
 mainloop of ``matmul_tiled`` and ``moe_gmm``; ``rwkv6_common.cuh``, the
 TF32 split, ``mma.sync`` and ``cp.async`` helpers of ``rwkv6`` and
-``rwkv6_bwd``). It is compiled with ``nvcc``
+``rwkv6_bwd``; ``rglru_common.cuh``, the ``cp.async`` helpers and the
+tensor map of ``rglru_scan`` and ``rglru_scan_bwd``). It is compiled with
+``nvcc``
 into ``<name>-<hash>.so`` under the build directory (``build/kernels`` at
 the repo root, or ``$REPRO_TORCH_BUILD_DIR``) the first time its wrapper
 runs, and loaded with ``ctypes``. The file name carries a hash of the

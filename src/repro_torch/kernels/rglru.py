@@ -33,22 +33,28 @@ Pallas counterpart: ``repro`` trains through plain JAX. From the forward's
 ``a``, its output ``y``, ``h0`` and the gradients ``dy`` and ``dh_last`` it
 walks the reverse recurrence ``g_t = dy_t + a_{t+1} g_{t+1}`` (``g_{T-1} =
 dy_{T-1} + dh_last``) and returns ``da_t = g_t y_{t-1}`` (``h0`` at t =
-0), ``db_t = g_t`` and ``dh0 = a_0 g_0``: a thread per (batch row,
-channel), each block of steps' loads issued at once. Its plain version
-:func:`rglru_bwd_ref` rounds each product and sum where the kernel does,
-so the two are bit-equal on the card.
+0), ``db_t = g_t`` and ``dh0 = a_0 g_0``. A CTA of one warp owns a
+(batch row, strip of 32 channels) pair, a lane a channel, and walks T from
+the end in windows that a ring of shared-memory slots brings in ahead of
+the walk (TMA, or ``cp.async`` where the forward's route rules say so),
+``y`` one step earlier than ``a`` and ``dy`` so a step's ``y_{t-1}`` lies
+in its slot; on the TMA route ``da`` and ``db`` go out of the slot by TMA
+stores. :func:`bwd_form` picks the window and the ring's depth so that
+the grid takes the fewest waves of SMs (paper Eq. 3). Its plain version :func:`rglru_bwd_ref` rounds each product
+and sum where the kernel does, so the two are bit-equal on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 __all__ = ["rglru_ref", "rglru_scan", "form", "rglru_bwd_ref",
-           "rglru_scan_bwd"]
+           "bwd_form", "rglru_scan_bwd"]
 
 NAME = "rglru_scan"
 NAME_BWD = "rglru_scan_bwd"
@@ -56,6 +62,21 @@ CHANNELS = 32      # channels a CTA (one lane each); csrc/rglru_scan.cu
 WARPS = 4          # checks these three
 MAX_STAGES = 2     # ring slots; more measured no faster (PERF.md §6)
 WINDOWS = (32, 64, 128)   # window steps the kernel is compiled for
+# the backward's compiled forms (csrc/rglru_scan_bwd.cu; _bind_bwd checks
+# them): a CTA of one warp, a lane a channel, window steps, and 1 to
+# BWD_MAX_STAGES ring slots within a CTA's shared memory
+BWD_CHANNELS = 32
+BWD_WINDOWS = (32, 64)
+BWD_MAX_STAGES = 4
+MAX_SMEM = 232448       # a CTA's shared memory on sm_90
+# what an SM of sm_90 holds, for counting CTAs an SM: shared memory
+# reserved a CTA, CTAs, threads and registers resident at once; and the
+# most registers a thread of the backward kernel takes (its launch bounds)
+CTA_RESERVED_SMEM = 1024
+MAX_CTAS_SM = 32
+MAX_THREADS_SM = 2048
+REGISTERS_SM = 65536
+BWD_MAX_REGISTERS = 128
 
 
 def rglru_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
@@ -114,6 +135,71 @@ def form(b: int, t: int, w: int, *, aligned: bool = True) -> dict:
             "window": window, "stages": stages,
             "smem_bytes": smem_bytes(window, stages),
             "route": "tma" if aligned and w % 4 == 0 else "cp.async"}
+
+
+def bwd_smem_bytes(window: int, stages: int) -> int:
+    """Dynamic shared memory of a backward CTA: 128 B of alignment slack,
+    the ring (stages x {a, dy, y} x window x ``BWD_CHANNELS`` fp32) and an
+    mbarrier a slot."""
+    return 128 + stages * 3 * window * BWD_CHANNELS * 4 + 8 * BWD_MAX_STAGES
+
+
+def bwd_forms() -> list:
+    """Every (window, stages) the backward kernel is compiled for."""
+    return [(tw, s) for tw in BWD_WINDOWS
+            for s in range(1, BWD_MAX_STAGES + 1)
+            if bwd_smem_bytes(tw, s) <= MAX_SMEM]
+
+
+def bwd_ctas_per_sm(smem: int, smem_per_sm: Optional[int] = None) -> int:
+    """Backward CTAs of ``smem`` bytes of dynamic shared memory an SM
+    holds at once (``core.gpu.H100_SXM``'s shared memory when None), at
+    ``BWD_MAX_REGISTERS`` a thread: the compiled kernel holds at least as
+    many (``bwd_attrs``)."""
+    from repro_torch.core.gpu import H100_SXM
+    smem_per_sm = H100_SXM.smem_per_sm if smem_per_sm is None \
+        else smem_per_sm
+    return min(smem_per_sm // (smem + CTA_RESERVED_SMEM), MAX_CTAS_SM,
+               MAX_THREADS_SM // BWD_CHANNELS,
+               REGISTERS_SM // (BWD_CHANNELS * BWD_MAX_REGISTERS))
+
+
+def bwd_form(b: int, t: int, w: int, *, aligned: bool = True,
+             sms: Optional[int] = None,
+             smem_per_sm: Optional[int] = None) -> dict:
+    """The backward kernel's form for (B, T, W) inputs, chosen on the host
+    by paper Eq. 3 over ``sms`` SMs (``core.gpu.H100_SXM``'s when None).
+    The grid is one CTA per batch row and strip of ``BWD_CHANNELS``
+    channels; over the compiled forms (:func:`bwd_forms`) with no more
+    ring slots than T has windows, it takes the one with the fewest waves
+    of ``sms`` x CTAs an SM, then the most steps in flight a CTA (window x
+    slots, up to T), then the smaller window. Returns its CTAs, channels,
+    window steps, ring slots, dynamic shared memory bytes, the host's
+    prediction of CTAs an SM, waves and the busiest SM's CTAs
+    (``ceil(CTAs / sms)``), and the copy route (``"tma"`` where W is a
+    multiple of 4 and the bases are 16-byte aligned, ``aligned``; else
+    ``"cp.async"``, as :func:`form`)."""
+    from repro_torch.core.gpu import H100_SXM
+    from repro_torch.core.tail_model import ceil_div
+    sms = H100_SXM.sm_count if sms is None else sms
+    ctas = b * ceil_div(w, BWD_CHANNELS)
+    best = None
+    for window, stages in bwd_forms():
+        if stages > max(1, ceil_div(t, window)):
+            continue
+        smem = bwd_smem_bytes(window, stages)
+        per_sm = bwd_ctas_per_sm(smem, smem_per_sm)
+        waves = ceil_div(ctas, sms * per_sm)
+        key = (waves, -min(window * stages, t), window)
+        if best is None or key < best[0]:
+            best = (key, {"ctas": ctas, "channels": BWD_CHANNELS,
+                          "window": window, "stages": stages,
+                          "smem_bytes": smem, "ctas_per_sm": per_sm,
+                          "waves": waves,
+                          "busiest_ctas": ceil_div(ctas, sms)})
+    f = best[1]
+    f["route"] = "tma" if aligned and w % 4 == 0 else "cp.async"
+    return f
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -196,25 +282,44 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rglru_scan_backward.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+    lib.rglru_scan_backward.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.rglru_scan_backward.restype = ci
     lib.rglru_scan_bwd_error_string.argtypes = [ci]
     lib.rglru_scan_bwd_error_string.restype = ctypes.c_char_p
-    lib.rglru_scan_bwd_attrs.argtypes = [ctypes.POINTER(ci)]
+    lib.rglru_scan_bwd_attrs.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
     lib.rglru_scan_bwd_attrs.restype = ci
+    lib.rglru_scan_bwd_smem.argtypes = [ci] * 2
+    lib.rglru_scan_bwd_smem.restype = ci
+    for fn in (lib.rglru_scan_bwd_channels, lib.rglru_scan_bwd_max_stages):
+        fn.argtypes = []
+        fn.restype = ci
+    # the compiled forms and their shared memory are bwd_form's
+    compiled = {(tw, s): lib.rglru_scan_bwd_smem(tw, s)
+                for tw in (16,) + BWD_WINDOWS + (128,)
+                for s in range(1, BWD_MAX_STAGES + 2)}
+    want = {k: bwd_smem_bytes(*k) if k in bwd_forms() else -1
+            for k in compiled}
+    if (lib.rglru_scan_bwd_channels(), lib.rglru_scan_bwd_max_stages()) \
+            != (BWD_CHANNELS, BWD_MAX_STAGES) or compiled != want:
+        raise RuntimeError("rglru_scan_bwd.cu forms differ from "
+                           "BWD_CHANNELS / BWD_WINDOWS / BWD_MAX_STAGES / "
+                           "bwd_smem_bytes")
 
 
-def bwd_attrs() -> dict:
-    """The compiled backward kernel on the current CUDA device: threads a
-    CTA, registers a thread, CTAs an SM holds, bytes spilled a thread."""
+def bwd_attrs(window: int, stages: int, route: str = "tma") -> dict:
+    """The compiled backward kernel in a form, on a route, on the current
+    CUDA device (``cudaFuncGetAttributes`` and the occupancy API): threads
+    a CTA, registers a thread, dynamic shared memory bytes, CTAs an SM
+    holds, bytes spilled a thread."""
     lib = build.load(NAME_BWD, _bind_bwd)
-    out = (ctypes.c_int * 4)()
-    err = lib.rglru_scan_bwd_attrs(out)
+    out = (ctypes.c_int * 5)()
+    err = lib.rglru_scan_bwd_attrs(window, stages, int(route == "tma"), out)
     if err:
         msg = lib.rglru_scan_bwd_error_string(err).decode()
-        raise RuntimeError(f"rglru_scan_bwd_attrs failed: {msg}")
-    return dict(zip(("threads", "registers", "ctas_per_sm", "spill_bytes"),
-                    out))
+        raise RuntimeError(f"rglru_scan_bwd_attrs({window}, {stages}, "
+                           f"{route}) failed: {msg}")
+    return dict(zip(("threads", "registers", "smem_bytes", "ctas_per_sm",
+                     "spill_bytes"), out))
 
 
 def rglru_scan_bwd(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
@@ -223,6 +328,15 @@ def rglru_scan_bwd(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
     ``a``, ``y`` (the forward's output) and ``dy``, (B, W) fp32 ``h0`` and
     ``dh_last`` (or None), contiguous, on one CUDA device -> (da, db
     (B, T, W), dh0 (B, W)) fp32. One launch, counted under ``NAME_BWD``."""
+    return launch_bwd(a, y, h0, dy, dh_last)
+
+
+def launch_bwd(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
+               dy: torch.Tensor, dh_last=None, form=None):
+    """:func:`rglru_scan_bwd` in a given form: ``form`` (a dict with
+    ``window``, ``stages`` and ``route``) or, where None,
+    :func:`bwd_form`'s. The TMA route needs W a multiple of 4 and 16-byte
+    aligned bases, else raises. Counted under ``NAME_BWD``."""
     states = (h0,) + (() if dh_last is None else (dh_last,))
     args = (a, y, dy) + states
     if not all(t.is_cuda and t.device == a.device for t in args):
@@ -248,13 +362,19 @@ def rglru_scan_bwd(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
         return da, db, dh0
     if t == 0:
         return da, db, dh0.zero_() if dh_last is None else dh0.copy_(dh_last)
+    aligned = all(x.data_ptr() % 16 == 0 for x in (a, y, dy))
+    f = bwd_form(bsz, t, w, aligned=aligned) if form is None else form
+    if f["route"] == "tma" and not (aligned and w % 4 == 0):
+        raise ValueError("rglru_scan_bwd: the TMA route needs W % 4 == 0 "
+                         "and 16-byte aligned a, y and dy")
     lib = build.load(NAME_BWD, _bind_bwd)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rglru_scan_backward(
             a.data_ptr(), y.data_ptr(), h0.data_ptr(), dy.data_ptr(),
             None if dh_last is None else dh_last.data_ptr(), da.data_ptr(),
-            db.data_ptr(), dh0.data_ptr(), bsz, t, w, stream)
+            db.data_ptr(), dh0.data_ptr(), bsz, t, w, f["window"],
+            f["stages"], int(f["route"] == "tma"), stream)
     if err:
         raise RuntimeError(f"rglru_scan_bwd launch failed: "
                            f"{lib.rglru_scan_bwd_error_string(err).decode()}")

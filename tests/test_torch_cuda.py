@@ -1625,7 +1625,7 @@ MOE_BWD_CASES = [(32, 1024, 1024, 512, True), (32, 1024, 512, 1024, False),
                  (32, 161, 1024, 512, False), (2, 65, 64, 63, False),
                  (3, 33, 31, 40, True)]
 RGLRU_BWD_CASES = [(8, 128, 2560), (8, 128, 2500), (2, 97, 2501),
-                   (1, 1, 7), (3, 300, 33)]
+                   (1, 1, 7), (3, 300, 33), (1, 2048, 2560), (2, 256, 512)]
 RWKV_BWD_CASES = [
     (8, 128, 32, 64, None, False, torch.bfloat16),   # the training path
     (2, 97, 4, 64, None, True, torch.bfloat16),
@@ -1804,6 +1804,87 @@ def test_rglru_bwd_kernel_vs_plain(gen, b, t, w, dh_last):
         assert torch.equal(g, want)
     assert all(torch.equal(p, q) for p, q in
                zip(got, rg.rglru_scan_bwd(a, y, h0, dy, dh)))
+
+
+def rglru_bwd_inputs(gen, b, t, w):
+    a, x, h0 = rglru_inputs(gen, b, t, w)
+    y, _ = rg.rglru_scan(a, x, h0)
+    dy = torch.randn(b, t, w, generator=gen, device="cuda")
+    dh = torch.randn(b, w, generator=gen, device="cuda")
+    return a, y, h0, dy, dh
+
+
+@pytest.mark.parametrize("form", rg.bwd_forms(),
+                         ids=lambda f: "tw{}-s{}".format(*f))
+@pytest.mark.parametrize("route", ["tma", "cp.async"])
+def test_rglru_bwd_kernel_every_form(gen, form, route):
+    """Each compiled form (window, ring slots) by each copy route, forced,
+    at a ragged T (several windows, a ragged first one) and a ragged
+    strip: bit-equal to the plain backward, and the compiled kernel's
+    threads and shared memory are what the host counts, it holds at least
+    the CTAs an SM the host counts, and it spills nothing."""
+    window, stages = form
+    args = rglru_bwd_inputs(gen, 2, 150, 260)
+    f = {"window": window, "stages": stages, "route": route}
+    got = rg.launch_bwd(*args, form=f)
+    for g, want in zip(got, rg.rglru_bwd_ref(*args)):
+        assert torch.equal(g, want)
+    at = rg.bwd_attrs(window, stages, route)
+    assert at["threads"] == rg.BWD_CHANNELS and at["spill_bytes"] == 0
+    assert at["smem_bytes"] == rg.bwd_smem_bytes(window, stages)
+    assert at["registers"] <= rg.BWD_MAX_REGISTERS
+    assert at["ctas_per_sm"] >= rg.bwd_ctas_per_sm(
+        at["smem_bytes"],
+        torch.cuda.get_device_properties(0).shared_memory_per_multiprocessor)
+
+
+def test_rglru_bwd_kernel_unaligned_base(gen):
+    """Views 4 bytes past a 16-byte boundary take the cp.async route: bit
+    equal to the plain backward and to the TMA route on aligned copies;
+    a TMA form forced on them raises."""
+    args = rglru_bwd_inputs(gen, 2, 150, 256)
+    views = []
+    for x in args[:4]:
+        store = torch.empty(x.numel() + 1, device="cuda")
+        v = store[1:].view_as(x)
+        v.copy_(x)
+        assert v.data_ptr() % 16 == 4 and v.is_contiguous()
+        views.append(v)
+    views.append(args[4])
+    assert rg.bwd_form(2, 150, 256)["route"] == "tma"
+    assert rg.bwd_form(2, 150, 256, aligned=False)["route"] == "cp.async"
+    got = rg.rglru_scan_bwd(*views)
+    for g, aligned, want in zip(got, rg.rglru_scan_bwd(*args),
+                                rg.rglru_bwd_ref(*args)):
+        assert torch.equal(g, aligned) and torch.equal(g, want)
+    with pytest.raises(ValueError, match="TMA route"):
+        rg.launch_bwd(*views, form=rg.bwd_form(2, 150, 256))
+
+
+def test_rglru_bwd_kernel_form_and_graph(gen):
+    """At recurrentgemma-2b's training shape the host's form fills one
+    wave (640 one-warp CTAs, 6 an SM on the card, the busiest SM 5), the
+    compiled kernel holds those CTAs an SM with no spills, and a call
+    captured in a CUDA graph equals the eager call bit for bit."""
+    f = rg.bwd_form(8, 128, 2560)
+    assert (f["ctas"], f["channels"], f["waves"], f["busiest_ctas"]) == \
+        (640, 32, 1, 5)
+    at = rg.bwd_attrs(f["window"], f["stages"], f["route"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert at["spill_bytes"] == 0 and at["ctas_per_sm"] * sms >= f["ctas"]
+    args = rglru_bwd_inputs(gen, 8, 128, 2560)
+    eager = rg.rglru_scan_bwd(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rg.rglru_scan_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = rg.rglru_scan_bwd(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(captured, eager))
 
 
 @pytest.mark.parametrize("case", RWKV_BWD_CASES,
