@@ -190,23 +190,42 @@ the target) and ``nvcc``:
    ``staircase_cta`` (b) held against its fp64 plain version on the same
    inputs (waves and tiles exact, rtol 1e-6); the measured reductions of
    Ours are printed, not checked;
-9. training (after Table 2): full-width qwen1.5-0.5b (random weights from
+9. training (after Table 2): first the fused AdamW pass (Triton,
+   ``kernels/adamw.py``) on ragged leaf sets (1, 4095, 4097, 2^20 + 3
+   elements and all of them with an empty leaf) and on each training
+   family's leaves at full width, with the clip active and not: every
+   param, moment and the norm within fp32's 2e-4 of ``adamw_ref`` (a
+   family's leaves in groups of at most 2^28 elements), two calls
+   bit-equal, the library call (``clip_grad_norm_`` + ``_fused_adamw_``)
+   printed beside it, its kernels a call read from one call's CUDA graph
+   (each leaf's partials and update once, the scalars once), and the whole
+   leaf set timed beside plain, the library and its bound (32 bytes a
+   parameter); then
+   full-width qwen1.5-0.5b (random weights from
    seed 0, ``SyntheticLM`` seed 0, batch 8 x 128): (a) one step's loss and
    every leaf's gradient on the kernels held to the same on the plain
    versions (4e-2 of each leaf's largest |grad|; the loss 1e-4
    relative), with the step's launches exact (per layer 3 products and 6
    backward products on ``matmul_tiled``, one attention and its
    backward); (b) ``launch.train``
-   at ``repro``'s CLI defaults for 20 steps, with the counts set to 0 just
-   before and read just after: exact launches, each step's loss, wall and
-   stream ms (CUDA events, idle gaps included), tokens/s, peak memory;
+   at ``repro``'s CLI defaults for 20 steps, its first step eager and the
+   rest replays of one CUDA graph of the whole step, with the counts set
+   to 0 just before and read just after ((h) below): exact launches, one
+   capture, each step's loss, grad_norm and lr and every final leaf
+   bit-equal to 20 eager kernel steps from the same init run before it,
+   each step's wall and stream ms (CUDA events, idle gaps included) eager
+   and graphed, tokens/s, capture seconds, peak memory, the graph's
+   kernel nodes equal to one step's counted launches (the AdamW pass's
+   each leaf's partials and update once, its scalars once), one more replay
+   traced (the device's busy time and idle share over its window);
    the same 20 steps from the CLI's init, batches and schedule run again
    on the kernels and on the plain versions, the first 5 steps' losses
    and four leaves' params after them held to plain; then ``launch.train --reduced
    --d-model 256`` for 30 steps, its loss falling by 0.2 as ``repro``'s
-   tests/test_train.py asks of ``repro``; (c) one step under
+   tests/test_train.py asks of ``repro``; (c) one eager step under
    ``torch.profiler``: the device's busy time and idle share in that
-   step's window, the top kernels; (d) the trained master copied in place into a ``ServeEngine``'s
+   step's window, the top kernels (the summary's busy time and idle share
+   are (b)'s traced replay's); (d) the trained master copied in place into a ``ServeEngine``'s
    cast tree, its step cache's prefill replay bit-equal to the eager
    forward; (e) the backward kernels at the training shapes (the matmul
    backward at the up/gate and down products, transposed copies timed
@@ -238,10 +257,11 @@ the target) and ``nvcc``:
    twice the distance between two right plain steps where that is
    larger (granite's near-tied top-8 choices and rwkv6's recurrence carry
    a rounding far at random weights); (g) ``launch.train --arch`` for 10
-   steps, the counts set to 0 just before and read just after: exact
-   launches, each step's loss, wall and stream ms, tokens/s, peak memory;
-   then one step traced as qwen's (c) (busy time, idle share, the top
-   ops);
+   steps against 10 eager kernel steps, as qwen's (b) ((h): bit-equal,
+   exact launches, one capture, eager and graphed wall and stream ms,
+   tokens/s, capture seconds, peak memory, the graph's kernel nodes, a
+   replay's idle share); then one eager step traced as qwen's (c) (busy
+   time, idle share, the top ops);
 10. prints one JSON line with every kernel's numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -253,7 +273,8 @@ under SRC (e.g. the parent commit unpacked into ``build/parent/src``),
 holds each against the plain version (the RG-LRU forward bit-equal to
 this tree's, the RG-LRU backward bit-equal to plain) and times it beside
 this tree's in every attention, attention backward, RWKV6, RG-LRU and
-(e) RWKV6 and RG-LRU backward case, and traces the recurrentgemma-2b and
+(e) RWKV6 and RG-LRU backward case, times its fused AdamW pass beside
+this tree's in every AdamW case (where it has one), and traces the recurrentgemma-2b and
 rwkv6 train steps on its RG-LRU and RWKV6 backwards too.
 
 Any failed check exits non-zero (Fig. 5's flat-stair check after every
@@ -295,6 +316,13 @@ runs only the RG-LRU backward's cases of phase 9 (e) and three off the
 training path (T 2048 at batch 1 and 4, one step), each with every
 compiled form swept beside the host's pick and the backward of the tree
 under SRC if given, and prints them as one JSON line, and no result line.
+
+    python3 chip_smoke.py --adamw [--parent SRC]
+
+runs only the fused AdamW pass's cases of phase 9 (the ragged leaf sets and
+each family's leaves), beside the pass of the tree under SRC if given (its
+``repro_torch/kernels/adamw.py``, timed in one CUDA graph as this tree's,
+alternating), and prints them as one JSON line, and no result line.
 
     python3 chip_smoke.py --train
 
@@ -379,6 +407,9 @@ REPLACES = {
     "moe_gmm_bwd": "src/repro/kernels/moe_gmm.py:39",
     "rglru_scan_bwd": "src/repro/kernels/rglru.py:43",
     "rwkv6_bwd": "src/repro/kernels/rwkv6.py:66",
+    # no Pallas kernel: repro's AdamW with its clipping, which XLA fuses
+    # inside the jitted train step (src/repro/launch/train.py:75)
+    "adamw": "src/repro/train/optim.py:102",
 }
 SOURCES = {
     "matmul_tiled": "src/repro_torch/csrc/matmul_tiled.cu",
@@ -393,13 +424,14 @@ SOURCES = {
     "moe_gmm_bwd": "src/repro_torch/csrc/moe_gmm.cu",
     "rglru_scan_bwd": "src/repro_torch/csrc/rglru_scan_bwd.cu",
     "rwkv6_bwd": "src/repro_torch/csrc/rwkv6_bwd.cu",
+    "adamw": "src/repro_torch/kernels/adamw.py",
 }
 ROUTES = {"matmul_tiled": "cuda", "flash_attention": "cuda",
           "matmul_tiled_bwd": "cuda", "flash_attention_bwd": "cuda",
           "staircase_fused": "triton", "staircase_cta": "triton",
           "rglru_scan": "cuda",
           "rwkv6": "cuda", "moe_gmm": "cuda", "moe_gmm_bwd": "cuda",
-          "rglru_scan_bwd": "cuda", "rwkv6_bwd": "cuda"}
+          "rglru_scan_bwd": "cuda", "rwkv6_bwd": "cuda", "adamw": "triton"}
 # the planner path's traffic classes: one served burst selects each
 # (batch x padded prompt tokens), "long" being the full-width burst's
 CLASSES = (("short", 4 * 32), ("long", 4 * max(PROMPT_LENS)))
@@ -580,8 +612,12 @@ def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
     """The kernel nodes of a captured CUDA graph (``kernel_nodes``): (their
     number, {port kernel trace name: nodes that launch it}, the GEMM nodes
     by tile as ``gemm_tiles`` names them)."""
+    return kernel_table(kernel_nodes(graph, path))
+
+
+def kernel_table(kernels: list) -> "tuple[int, dict, dict]":
+    """``graph_kernels``'s table from the text of each kernel node."""
     import re
-    kernels = kernel_nodes(graph, path)
     tiles: dict = {}
     for n in kernels:
         # gemm_kernel<BM, CW, SOLO, XM, WK>: the backward's forms are
@@ -602,14 +638,30 @@ def graph_kernels(graph, path: Path) -> "tuple[int, dict, dict]":
 # each port kernel's name in a device trace: the two GEMM wrappers launch
 # the one kernel of csrc/gemm_sm90.cuh, the staircase is not on a served
 # step; a counted RWKV6 backward runs rwkv6_bwd_scan and rwkv6_bwd_chunk
-# once each, so the second stands for the call
+# once each, so the second stands for the call, and a counted AdamW pass
+# runs _adamw_scalars once (and _adamw_partials and _adamw_update once a
+# leaf, ADAMW_KERNELS), so that one stands for it
 TRACE_NAMES = {"matmul_tiled": "gemm_sm90", "moe_gmm": "gemm_sm90",
                "matmul_tiled_bwd": "gemm_sm90", "moe_gmm_bwd": "gemm_sm90",
                "flash_attention": "flash_attention_kernel",
                "flash_attention_bwd": "flash_attention_bwd_kernel",
                "rglru_scan": "rglru_scan_kernel", "rwkv6": "rwkv6_kernel",
                "rglru_scan_bwd": "rglru_scan_bwd_kernel",
-               "rwkv6_bwd": "rwkv6_bwd_chunk"}
+               "rwkv6_bwd": "rwkv6_bwd_chunk", "adamw": "_adamw_scalars"}
+ADAMW_KERNELS = ("_adamw_partials", "_adamw_scalars", "_adamw_update")
+
+
+def adamw_kernels(nodes: list, leaves: int, what: str) -> dict:
+    """The fused AdamW pass's kernels among ``nodes`` (the text of a
+    graph's kernel nodes, ``kernel_nodes``), by name, checked to be one
+    call's on ``leaves`` non-empty leaves: each leaf's partials and update
+    once, the scalars once."""
+    got = {k: sum(k in n for n in nodes) for k in ADAMW_KERNELS}
+    want = {"_adamw_partials": leaves, "_adamw_scalars": 1,
+            "_adamw_update": leaves}
+    check(got == want, f"{what}: the AdamW pass's kernel nodes {got} != "
+                       f"one call's on {leaves} leaves {want}")
+    return got
 
 
 def traced_expected(launches: dict) -> dict:
@@ -1161,7 +1213,7 @@ def expected_launches(tfm, cfg, forwards: int = NEW_TOKENS) -> dict:
             "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
             "moe_gmm": 3 * mlps.count("moe") * forwards,
             "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
-            "moe_gmm_bwd": 0, "rglru_scan_bwd": 0, "rwkv6_bwd": 0}
+            "moe_gmm_bwd": 0, "rglru_scan_bwd": 0, "rwkv6_bwd": 0, "adamw": 0}
 
 
 def serve_full_width(torch, np, mods, arch: str = ARCH, then=None,
@@ -2574,7 +2626,7 @@ def plan_and_serve(torch, np, mods, full_tok_s: float) -> dict:
                          "rwkv6": 0, "moe_gmm": 0,
                          "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
                          "moe_gmm_bwd": 0, "rglru_scan_bwd": 0,
-                         "rwkv6_bwd": 0},
+                         "rwkv6_bwd": 0, "adamw": 0},
           f"planning launched {after_plan}, expected one CTA-wave and one "
           f"staircase sweep per class ({len(traffic)})")
     on_cpu = sv.ServingWidthPlanner(hw, tpl, modules=modules, device="cpu",
@@ -4450,14 +4502,15 @@ def grad_scales(torch, flat: dict) -> dict:
     return out
 
 
-def train_launches(tfm, cfg, steps: int) -> dict:
+def train_launches(tfm, cfg, steps: int, optimizer: bool = True) -> dict:
     """The kernels' launches of ``steps`` train steps with remat none, the
     kernels that launch none left out: per layer and step, a dense gated
     MLP's 3 products forward and 6 backward (dX and dW of each; 2 and 4
     ungated), an MoE layer's 3 expert products over every expert (the
     dense strategy) and 6 backward, and one forward and one backward of
     each global attention, RG-LRU scan and RWKV6 pass (local attention and
-    RWKV's channel mix are plain torch)."""
+    RWKV's channel mix are plain torch); and per step one fused AdamW pass,
+    unless ``optimizer`` is False (the gradients alone, ``grads_fn``)."""
     kinds = cfg.layer_kinds()
     mlps = [m for _, m in tfm.layer_plan(cfg)]
     per = (3 if cfg.mlp_gated else 2) * mlps.count("dense")
@@ -4468,8 +4521,485 @@ def train_launches(tfm, cfg, steps: int) -> dict:
            "flash_attention_bwd": kinds.count("attn"),
            "rglru_scan": kinds.count("rglru"),
            "rglru_scan_bwd": kinds.count("rglru"),
-           "rwkv6": kinds.count("rwkv"), "rwkv6_bwd": kinds.count("rwkv")}
+           "rwkv6": kinds.count("rwkv"), "rwkv6_bwd": kinds.count("rwkv"),
+           "adamw": int(optimizer)}
     return {k: n * steps for k, n in out.items() if n}
+
+
+# the fused AdamW pass's cases: ragged leaf sets (1, 4095, 4097, 2^20 + 3
+# elements, and all of them with an empty leaf), then each training
+# family's leaf set at full width; each with the clip active (gradients of
+# norm ADAMW_NORM_CLIP, above the clip at 1.0) and not (ADAMW_NORM_FREE)
+ADAMW_RAGGED = ((1,), (4095,), (4097,), (2 ** 20 + 3,),
+                (1, 4095, 0, 4097, 2 ** 20 + 3))
+ADAMW_NORM_CLIP, ADAMW_NORM_FREE = 40.0, 0.04
+# a family's leaves are held to plain in groups of at most this many
+# elements: the kernel's, plain's and the initial copies of recurrentgemma's
+# 2658.7 M params at once would not fit the card
+ADAMW_GROUP = 2 ** 28
+# the pass's operations a parameter: the norm's square and sum, the clip,
+# both moments, the bias corrections, sqrt, eps, decay and the step
+ADAMW_FLOPS = 21
+ADAMW_BYTES = 32
+
+
+def adamw_leaves(torch, gen, shapes, clip: bool) -> tuple:
+    """fp32 (params, grads, first and second moments) of ``shapes`` from a
+    state a few steps in (moments of an earlier step), the gradients scaled
+    to a global norm above or below the clip."""
+    p = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    m = [1e-2 * torch.randn(s, generator=gen, device="cuda")
+         for s in shapes]
+    v = [1e-4 * torch.randn(s, generator=gen, device="cuda").abs_()
+         for s in shapes]
+    g = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+    scale = (ADAMW_NORM_CLIP if clip else ADAMW_NORM_FREE) / norm
+    for x in g:
+        x.mul_(scale)
+    return p, g, m, v
+
+
+def adamw_held(torch, ka, shapes, clip: bool, gen, kw: dict) -> tuple:
+    """The pass on ``shapes`` against ``adamw_ref`` and the library call
+    (``torch.nn.utils.clip_grad_norm_`` + ``torch._fused_adamw_``, the same
+    function in other rounding) from the same state, one call each:
+    (the kernel's largest error over each leaf's largest |value| of plain,
+    its absolute error, the library's, the norms' relative gap)."""
+    p, g, m, v = adamw_leaves(torch, gen, shapes, clip)
+    runs = [[[t.clone() for t in ts] for ts in (p, m, v)]
+            + [torch.full((), 4, dtype=torch.int32, device="cuda")]
+            for _ in range(2)]
+    lr = torch.full((), 3e-3, device="cuda")
+    nk = ka.adamw(runs[0][0], g, runs[0][1], runs[0][2], runs[0][3], lr,
+                  **kw)
+    nr = ka.adamw_ref(runs[1][0], g, runs[1][1], runs[1][2], runs[1][3],
+                      lr, **kw)
+    lg = [x.clone() for x in g]
+    for x, y in zip(p, lg):
+        x.grad = y                  # clip_grad_norm_ reads each .grad
+    torch.nn.utils.clip_grad_norm_(p, kw["clip_norm"], foreach=True)
+    torch._fused_adamw_(p, lg, m, v, [], [torch.full((), 5.0, device="cuda")
+                                          for _ in shapes],
+                        lr=3e-3, beta1=kw["b1"], beta2=kw["b2"],
+                        weight_decay=kw["weight_decay"], eps=kw["eps"],
+                        amsgrad=False, maximize=False)
+    rel = err = lib_rel = 0.0
+    for k in range(3):
+        for a, b, c in zip(runs[0][k], runs[1][k], (p, m, v)[k]):
+            if not b.numel():
+                continue
+            scale = b.abs().max().item()
+            e = (a - b).abs().max().item()
+            finite = bool(torch.isfinite(a).all())
+            rel = max(rel, e / max(scale, 1e-30) if finite else math.inf)
+            err = max(err, e)
+            lib_rel = max(lib_rel, (c - b).abs().max().item()
+                          / max(scale, 1e-30))
+    check(int(runs[0][3]) == int(runs[1][3]) == 5,
+          f"adamw: count {int(runs[0][3])} / {int(runs[1][3])} != 5")
+    gap = abs(nk.item() - nr.item()) / max(nr.item(), 1e-30)
+    check((nr.item() > kw["clip_norm"]) == clip,
+          f"adamw: a norm of {nr.item()} for a case with clip {clip}")
+    return max(rel, gap), err, lib_rel, gap
+
+
+def family_shapes(torch, mods, arch: str) -> list:
+    """The shapes of a family's parameter leaves at full width."""
+    from repro_torch.train import step as tstep
+    params = mods["tfm"].init_params(
+        mods["configs"].get_config(arch),
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    shapes = [tuple(t.shape) for _, t in tstep.named_leaves(params)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def compare_adamw(torch, ka, case: tuple, gen, parent=None) -> dict:
+    """One case of the fused AdamW pass: ``case`` is (name, leaf shapes).
+    Held to ``adamw_ref`` with the clip active and not, one call each from
+    the same state (a family's leaves in groups of at most ``ADAMW_GROUP``
+    elements), every param, moment and the norm within fp32's 2e-4
+    (``BWD_FP32_TOL``) of each leaf's largest |value|, and two calls
+    bit-equal; its kernels a call from the nodes of one call's CUDA graph
+    (``adamw_kernels``); then the whole leaf set timed beside
+    ``adamw_ref``, the library call and the bound (32 bytes a parameter),
+    and beside the pass of another tree (``parent_adamw``) if given."""
+    name, shapes = case
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0)
+    n = sum(math.prod(s) for s in shapes)
+    groups, cur, size = [], [], 0
+    for s in shapes:
+        if cur and size + math.prod(s) > ADAMW_GROUP:
+            groups.append(cur)
+            cur, size = [], 0
+        cur.append(s)
+        size += math.prod(s)
+    groups.append(cur)
+    worst = {"rel": 0.0, "err": 0.0, "library_rel": 0.0, "norm_gap": 0.0}
+    for clip in (True, False):
+        for grp in groups:
+            rel, err, lib_rel, gap = adamw_held(torch, ka, grp, clip, gen, kw)
+            check(rel <= BWD_FP32_TOL,
+                  f"adamw {name} (clip {clip}): {rel:.3e} of the largest "
+                  f"value from plain > {BWD_FP32_TOL}")
+            worst = {"rel": max(worst["rel"], rel),
+                     "err": max(worst["err"], err),
+                     "library_rel": max(worst["library_rel"], lib_rel),
+                     "norm_gap": max(worst["norm_gap"], gap)}
+            gc.collect()
+            torch.cuda.empty_cache()
+    # two calls from one state give the same bits (no atomics)
+    p, g, m, v = adamw_leaves(torch, gen, shapes[:64], True)
+    twins = [[[t.clone() for t in ts] for ts in (p, m, v)]
+             + [torch.zeros((), dtype=torch.int32, device="cuda")]
+             for _ in range(2)]
+    lr = torch.full((), 3e-3, device="cuda")
+    outs = [ka.adamw(t[0], g, t[1], t[2], t[3], lr, **kw) for t in twins]
+    check(torch.equal(outs[0], outs[1]) and all(
+        torch.equal(a, b) for k in range(3)
+        for a, b in zip(twins[0][k], twins[1][k])),
+          f"adamw {name}: two calls from one state differ")
+    del p, g, m, v, twins, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the whole leaf set timed: each call updates the same leaves in place;
+    # its kernels a call read from the nodes of one call's graph
+    p, g, m, v = adamw_leaves(torch, gen, shapes, True)
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def call():
+        ka.adamw(p, g, m, v, count, lr, **kw)
+    leaves = sum(math.prod(s) > 0 for s in shapes)
+    nodes = adamw_kernels(one_call_graph(
+        torch, call, (), GRAPH_DUMPS / f"adamw_{len(shapes)}_{n}.dot",
+        nodes=True), leaves, f"adamw {name}")
+    big = n * ADAMW_BYTES > 4 * L2_BYTES
+    reps = (10, 3, 5) if big else (200, 50, 50)
+    ms = time_ms(torch, call, (), reps=reps[0])
+    parent_ms = None
+    if parent is not None:
+        # the other tree's pass and this one's again, alternating; the
+        # row's ms is the mean of this tree's two
+        parent_ms = [parent(p, g, m, v, count, lr, kw, reps[0])]
+        ms = [ms, time_ms(torch, call, (), reps=reps[0])]
+        parent_ms.append(parent(p, g, m, v, count, lr, kw, reps[0]))
+        log(f"adamw {name}: this tree's pass {ms[0]:.4f} / {ms[1]:.4f} ms, "
+            f"the parent's {parent_ms[0]:.4f} / {parent_ms[1]:.4f} "
+            f"(alternating, one call each in a graph of {reps[0]})")
+        ms = sum(ms) / 2
+    plain = time_ms(torch, lambda: ka.adamw_ref(p, g, m, v, count, lr,
+                                                **kw), (), reps=reps[1])
+    steps = [torch.full((), 1.0, device="cuda") for _ in shapes]
+    for x, y in zip(p, g):
+        x.grad = y                  # clip_grad_norm_ reads each .grad
+
+    def library():
+        torch.nn.utils.clip_grad_norm_(p, kw["clip_norm"], foreach=True)
+        torch._foreach_add_(steps, 1.0)
+        torch._fused_adamw_(p, g, m, v, [], steps, lr=3e-3, beta1=kw["b1"],
+                            beta2=kw["b2"], weight_decay=kw["weight_decay"],
+                            eps=kw["eps"], amsgrad=False, maximize=False)
+    lib = time_ms(torch, library, (), reps=reps[2])
+    b_ms, by = bound_ms(ADAMW_FLOPS * n, ADAMW_BYTES * n, PEAK_FP32_FLOPS)
+    del p, g, m, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"adamw {name}: {len(shapes)} leaves, {n} params: {ms:.4f} ms "
+        f"(one call, {sum(nodes.values())} kernels: {nodes}), plain "
+        f"{plain:.4f}, library (clip_grad_norm_ + _fused_adamw_) "
+        f"{lib:.4f}, bound {b_ms:.4f} ({by}; {100 * b_ms / ms:.1f} % of "
+        f"it); against plain, clip on and "
+        f"off{' in groups of <= 2^28 elements' if len(groups) > 1 else ''}: "
+        f"largest error {worst['rel']:.3e} of a leaf's largest value (bound "
+        f"{BWD_FP32_TOL}; absolute {worst['err']:.3e}; norms "
+        f"{worst['norm_gap']:.3e} apart), the library "
+        f"{worst['library_rel']:.3e}; two calls bit-equal")
+    return {"case": f"adamw {name} {len(shapes)} leaves {n} params",
+            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": worst["err"],
+            "rel_err": worst["rel"], "library_rel_err": worst["library_rel"],
+            "params": n, "kernels_a_call": sum(nodes.values()),
+            "kernels": nodes, "parent_ms": parent_ms}
+
+
+def adamw_phase(torch, mods) -> list:
+    """The fused AdamW pass on ragged leaf sets, then on each training
+    family's leaves at full width (``compare_adamw``), beside the parent
+    tree's pass if ``--parent`` gave one; from a generator of its own."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    parent = mods.get("parent_adamw")
+    rows = [compare_adamw(torch, mods["ka"], (
+        f"ragged {sizes}", [(n,) for n in sizes]), gen, parent)
+        for sizes in ADAMW_RAGGED]
+    for arch in (ARCH,) + TRAIN_FAMILIES:
+        rows.append(compare_adamw(
+            torch, mods["ka"], (arch, family_shapes(torch, mods, arch)),
+            gen, parent))
+    return rows
+
+
+def parent_adamw(torch, src: Path):
+    """The fused AdamW pass of the tree under ``src`` (its
+    ``repro_torch/kernels/adamw.py``, loaded under a private name) as a
+    function (params, grads, mu, nu, count, lr, kw, reps) -> the device ms
+    of one call, timed as ``time_ms`` times this tree's: ``reps`` calls
+    captured in one CUDA graph, its replay between CUDA events. A pass that
+    reads its leaves from a device table filled after the capture (the
+    form with one launch for every leaf, which has ``deferred_tables``)
+    is captured inside that context. Its calls are not counted. None where
+    the tree has no pass."""
+    import importlib.util
+    path = src / "repro_torch" / "kernels" / "adamw.py"
+    if not path.is_file():
+        log(f"{path} is missing: no parent AdamW pass")
+        return None
+    spec = importlib.util.spec_from_file_location("_parent_adamw", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def ms(p, g, m, v, count, lr, kw: dict, reps: int) -> float:
+        before = dict(mod.build.LAUNCHES)
+        mod.adamw(p, g, m, v, count, lr, **kw)      # compiles it
+        torch.cuda.synchronize()
+        tables = getattr(mod, "deferred_tables", None)
+        graph = torch.cuda.CUDAGraph()
+        with (tables([t.numel() for t in p], "cuda", reps) if tables
+              else contextlib.nullcontext()):
+            with torch.cuda.graph(graph):
+                for _ in range(reps):
+                    mod.adamw(p, g, m, v, count, lr, **kw)
+        mod.build.LAUNCHES.clear()
+        mod.build.LAUNCHES.update(before)
+        graph.replay()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        graph.replay()
+        ev[1].record()
+        ev[1].synchronize()
+        del graph
+        return ev[0].elapsed_time(ev[1]) / reps
+    log(f"the parent's AdamW pass loaded from {path}")
+    return ms
+
+
+def leaf_sums(torch, trees) -> list:
+    """Per leaf of each tree, two checksums of its bits: the float64 sum of
+    its values and the float64 sum of its 32-bit patterns, each over fixed
+    chunks in a fixed order (two equal leaves give equal sums)."""
+    from repro_torch.train import step as tstep
+    out = []
+    for tree in trees:
+        for _, t in tstep.named_leaves(tree):
+            flat = t.detach().reshape(-1)
+            bits = flat.view(torch.int32) if flat.element_size() == 4 \
+                else flat.view(torch.int16)
+            out.append(torch.stack([
+                sum(c.double().sum() for c in flat.split(1 << 24)),
+                sum(c.double().sum() for c in bits.split(1 << 24))]))
+    return torch.stack(out).tolist() if out else []
+
+
+def eager_kernel_run(torch, mods, arch: str, steps: int) -> tuple:
+    """``steps`` eager kernel steps (``build_train_step``) from the CLI's
+    init, batches, configuration and schedule: (per step its loss,
+    grad_norm, lr, wall and stream ms; the final params' and moments' leaf
+    checksums; the peak bytes)."""
+    from repro_torch.launch.train import to_device
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import step as tstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = mods["configs"].get_config(arch)
+    params = mods["tfm"].init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    opt = toptim.adamw_init(params)
+    step_fn = tstep.build_train_step(
+        cfg, tstep.TrainConfig(adamw=toptim.AdamWConfig(),
+                               remat="none", moe_strategy="dense"),
+        toptim.cosine_schedule(3e-3, max(steps // 20, 1), steps))
+    src = tdata.SyntheticLM(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+    rows = []
+    for i in range(steps):
+        batch = to_device(tdata.augment_for_arch(src.batch(i), cfg,
+                                                 TRAIN_SEQ, i), "cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        w0 = time.perf_counter()
+        _, _, m = step_fn(params, opt, batch, i)
+        ev[1].record()
+        loss = float(m["loss"])
+        wall = (time.perf_counter() - w0) * 1e3
+        ev[1].synchronize()
+        rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "wall_ms": wall,
+                     "stream_ms": ev[0].elapsed_time(ev[1])})
+    sums = leaf_sums(torch, (params, opt.mu, opt.nu))
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, sums, peak
+
+
+def graphed_vs_eager(torch, np, mods, arch: str, steps: int,
+                     card: str) -> dict:
+    """(h) The train step as one compiled unit, at full width, batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``, from the seed's init: ``steps`` eager
+    kernel steps (``eager_kernel_run``), everything freed, then
+    ``launch.train`` (its first step eager, then one capture and replays),
+    with the counts set to 0 just before and read just after: exact
+    launches (``train_launches``, the fused AdamW pass included), one
+    capture, each step's loss, grad_norm and lr and every final leaf's
+    checksums bit-equal to the eager run's (where the eager run does not
+    repeat itself, a second one measures its spread and the graphed run is
+    held within twice it); the graph's kernel nodes (``graph_kernels``)
+    equal to one step's counted launches, and the AdamW pass's one call's
+    on every leaf (``adamw_kernels``); one more replay profiled (the
+    device's idle share over its window); eager and graphed wall and
+    stream ms (medians of steps 2 to ``steps`` - 1), tokens/s, capture
+    seconds and peak memory. Returns the CLI's run, for the kernel line."""
+    from repro_torch.launch.train import main as train_main, pinned
+    from repro_torch.train import data as tdata
+    from repro_torch.train import step as tstep
+    from torch.profiler import ProfilerActivity, profile
+    tfm, ops = mods["tfm"], mods["ops"]
+    cfg = mods["configs"].get_config(arch)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_memory(torch, f"train (h) {arch} starts with")
+    eager, eager_sums, eager_peak = eager_kernel_run(torch, mods, arch,
+                                                     steps)
+    stats, final = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with kept_graphs(torch):
+        losses = train_main(["--arch", arch, "--steps", str(steps),
+                             "--log-every", str(steps), "--seed", str(SEED)],
+                            stats=stats, final=final)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_fn = final["step_fn"]
+    want = dict.fromkeys(launches, 0) | train_launches(tfm, cfg, steps)
+    check(launches == want,
+          f"train (h) {arch}: launch.train launches {launches} != {want}")
+    check(step_fn.captures == 1 and [s["replayed"] for s in stats]
+          == [False] + [True] * (steps - 1),
+          f"train (h) {arch}: {step_fn.captures} captures, replayed "
+          f"{[s['replayed'] for s in stats]}")
+    check(len({s["lr"] for s in stats[1:]}) > 1,
+          f"train (h) {arch}: the replays read one lr {stats[1]['lr']}")
+    sums = leaf_sums(torch, (final["params"], final["opt_state"].mu,
+                             final["opt_state"].nu))
+    keys = ("loss", "grad_norm", "lr")
+    got = [[s[k] for k in keys] for s in stats]
+    ref = [[e[k] for k in keys] for e in eager]
+    spread = None
+    if got != ref or sums != eager_sums:
+        # the eager step's own repeat: a second run from the same seed
+        again, again_sums, _ = eager_kernel_run(torch, mods, arch, steps)
+        ref2 = [[e[k] for k in keys] for e in again]
+        spread = max([abs(a - b) for r, q in zip(ref, ref2)
+                      for a, b in zip(r, q)]
+                     + [abs(a - b) for r, q in zip(eager_sums, again_sums)
+                        for a, b in zip(r, q)])
+        apart = max([abs(a - b) for r, q in zip(got, ref)
+                     for a, b in zip(r, q)]
+                    + [abs(a - b) for r, q in zip(sums, eager_sums)
+                       for a, b in zip(r, q)])
+        log(f"train (h) {arch}: the graphed run differs from the eager "
+            f"run by {apart:.6g} at most; two eager runs by {spread:.6g} "
+            f"(the eager step {'repeats' if spread == 0 else 'does not repeat'}"
+            f" itself)")
+        check(spread > 0 and apart <= 2 * spread,
+              f"train (h) {arch}: graphed != eager: losses {got} vs {ref}")
+    # the graph's kernel nodes against one step's counted launches, and
+    # the fused AdamW pass's kernels against one call's on every leaf
+    nodes = kernel_nodes(step_fn.graphs()[0],
+                         GRAPH_DUMPS / f"train_{arch}.dot")
+    n_nodes, by_name, _ = kernel_table(nodes)
+    per_step = traced_expected(train_launches(tfm, cfg, 1))
+    check(by_name == per_step,
+          f"train (h) {arch}: graph kernel nodes {by_name} != one step's "
+          f"launches {per_step}")
+    adamw_nodes = adamw_kernels(nodes, sum(
+        t.numel() > 0 for _, t in tstep.named_leaves(final["params"])),
+        f"train (h) {arch}")
+    # one more replay (a step past the run), profiled on the device
+    src = tdata.SyntheticLM(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+    batch = pinned(tdata.augment_for_arch(src.batch(steps), cfg, TRAIN_SEQ,
+                                          steps))
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        step_fn(final["params"], final["opt_state"], batch, steps)
+        ev[1].record()
+        torch.cuda.synchronize()
+    replay_ms = ev[0].elapsed_time(ev[1])
+    busy = profiled_busy(torch, prof)[0]
+    idle = 1 - busy / replay_ms if busy > 0 else None
+    step_fn.reset()
+    del final, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def med(rows, k):
+        return float(np.median([r[k] for r in rows[2:steps]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"losses": losses, "launches": launches,
+           "eager_wall_ms": med(eager, "wall_ms"),
+           "eager_stream_ms": med(eager, "stream_ms"),
+           "wall_ms": med(stats, "wall_ms"),
+           "stream_ms": med(stats, "stream_ms"),
+           "capture_s": stats[1]["capture_s"], "peak_bytes": peak,
+           "eager_peak_bytes": eager_peak, "graph_kernels": n_nodes,
+           "adamw_kernels": adamw_nodes,
+           "replay_busy_ms": busy, "replay_ms": replay_ms,
+           "replay_idle": idle, "eager_spread": spread,
+           "steps": [{k: s[k] for k in ("step", "loss", "grad_norm", "lr",
+                                        "wall_ms", "stream_ms")}
+                     for s in stats],
+           "eager_steps": eager}
+    out["tok_s"] = tokens / (out["wall_ms"] / 1e3)
+    out["eager_tok_s"] = tokens / (out["eager_wall_ms"] / 1e3)
+    for i, (s, e) in enumerate(zip(stats, eager)):
+        log(f"train (h) {arch} step {i}: loss {s['loss']:.6f}, grad_norm "
+            f"{s['grad_norm']:.6f}, lr {s['lr']:.6e}; graphed wall "
+            f"{s['wall_ms']:.3f} ms, stream {s['stream_ms']:.3f} "
+            f"({'replay' if s['replayed'] else 'eager'}"
+            + (f", capture {s['capture_s']:.3f} s" if "capture_s" in s
+               else "") + f"); eager wall {e['wall_ms']:.3f}, stream "
+            f"{e['stream_ms']:.3f}")
+    log(f"train (h) {card}: {arch} full width, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {steps} steps from seed {SEED}: the graphed CLI run "
+        + ("bit-equal to the eager kernel run" if spread is None else
+           f"within twice the eager run's own spread {spread:.6g}")
+        + f" (per-step loss, grad_norm and lr, {len(sums)} leaf checksums); "
+        f"step wall / stream ms, medians of steps 2-{steps - 1}: eager "
+        f"{out['eager_wall_ms']:.3f} / {out['eager_stream_ms']:.3f} "
+        f"({out['eager_tok_s']:.1f} tokens/s), graphed {out['wall_ms']:.3f} "
+        f"/ {out['stream_ms']:.3f} ({out['tok_s']:.1f} tokens/s); capture "
+        f"{out['capture_s']:.3f} s; peak {peak / 2**30:.3f} GiB graphed, "
+        f"{eager_peak / 2**30:.3f} eager; the graph {n_nodes} kernel nodes "
+        f"(the port's {by_name}; the AdamW pass's {adamw_nodes}); one "
+        f"replay traced: its window (events, "
+        f"the batch copy included) {replay_ms:.3f} ms, kernels busy "
+        f"{busy:.3f} ms, idle "
+        + ("not measured (no device time)" if idle is None
+           else f"{100 * idle:.1f}%") + f"; launches {launches}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def train_held_to_plain(torch, mods, cfg, params, src, tc,
@@ -4953,7 +5483,8 @@ def reordered(ops, arch: str):
         setattr(ops, name, dispatch)
 
 
-def train_family(torch, np, mods, arch: str, card: str) -> dict:
+def train_family(torch, np, mods, arch: str, card: str,
+                 graphed: dict) -> dict:
     """One family's training at full width, freed before it returns: (f)
     one step on the kernels, each scan and expert kernel pass held to its
     plain version on its own inputs (``held_passes``), launches exact per
@@ -4999,7 +5530,7 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
         lk, _, gk = tstep.grads_fn(params, batch, cfg, tc)
     torch.cuda.synchronize()
     got = {k: n for k, n in ops.LAUNCHES.items() if n}
-    want = train_launches(tfm, cfg, 1)
+    want = train_launches(tfm, cfg, 1, optimizer=False)
     check(got == want, f"train (f) {arch}: launches {got} != {want}")
     check(set(held) == set(want) & {c for c, *_ in HELD_PASSES.values()}
           and max(held.values()) <= 1.0,
@@ -5050,33 +5581,16 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (g) the training CLI
-    stats = []
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    losses = train_main(["--arch", arch, "--steps", str(TRAIN_FAMILY_STEPS),
-                         "--log-every", "1", "--seed", str(SEED)],
-                        stats=stats)
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    want = dict.fromkeys(launches, 0) | train_launches(tfm, cfg,
-                                                       TRAIN_FAMILY_STEPS)
-    check(launches == want,
-          f"launch.train --arch {arch}: launches {launches} != {want}")
+    # (g) the training CLI, graphed after its first step, against the
+    # eager kernel step: run before the families' other phases ((h),
+    # ``graphed``)
+    losses, launches = graphed["losses"], graphed["launches"]
     check(len(losses) == TRAIN_FAMILY_STEPS
           and all(map(math.isfinite, losses)),
           f"launch.train --arch {arch}: losses {losses}")
-    for st in stats:
-        log(f"train (g) {arch} step {st['step']}: loss {st['loss']:.6f}, "
-            f"wall {st['wall_ms']:.3f} ms, stream {st['stream_ms']:.3f} ms "
-            f"(events, idle gaps included), "
-            f"{TRAIN_BATCH * TRAIN_SEQ / (st['wall_ms'] / 1e3):.1f} tokens/s")
-    warm = stats[2:]
-    wall = float(np.median([st["wall_ms"] for st in warm]))
-    stream = float(np.median([st["stream_ms"] for st in warm]))
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / (wall / 1e3)
-    gc.collect()
-    torch.cuda.empty_cache()
+    wall, stream, tok_s = (graphed[k] for k in ("wall_ms", "stream_ms",
+                                                "tok_s"))
+    peak = graphed["peak_bytes"]
 
     # (g), traced: one step profiled as qwen's (c), from (f)'s weights and
     # batch; for a family in TRACED_BWD, if the parent tree's backward is
@@ -5114,7 +5628,7 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
                 traced.setdefault(what, []).append(
                     {"busy_ms": busy, "profiled_wall_ms": p_wall,
                      "idle": idle})
-                log(f"train (g) {arch} one step traced on the device "
+                log(f"train (g) {arch} one eager step traced on the device "
                     f"({what}, round {i + 1} of {rounds}): wall "
                     f"{p_wall:.3f} ms under the profiler, its kernels busy "
                     f"{busy:.3f} ms, device idle "
@@ -5139,8 +5653,11 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
     torch.cuda.empty_cache()
     log(f"train summary {card}: {arch} full width ({n_params / 1e6:.1f} M "
         f"params), batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat none, dense "
-        f"experts: step wall {wall:.3f} ms, stream {stream:.3f} ms (medians "
-        f"of steps 2-{TRAIN_FAMILY_STEPS - 1}), {tok_s:.1f} tokens/s, peak "
+        f"experts: graphed step wall {wall:.3f} ms, stream {stream:.3f} ms "
+        f"(medians of steps 2-{TRAIN_FAMILY_STEPS - 1}), {tok_s:.1f} "
+        f"tokens/s (eager {graphed['eager_wall_ms']:.3f} / "
+        f"{graphed['eager_stream_ms']:.3f} ms, "
+        f"{graphed['eager_tok_s']:.1f} tokens/s), peak "
         f"{peak / 2**30:.3f} GiB; losses {[round(x, 4) for x in losses]}; "
         f"{time.perf_counter() - t_fam:.1f}s")
     return {"launches": launches, "losses": losses, "wall_ms": wall,
@@ -5149,8 +5666,7 @@ def train_family(torch, np, mods, arch: str, card: str) -> dict:
             "loss_order_floor": loss_floor,
             "worst_grad": worst[0], "order_floor": fl[0],
             "held_passes": held, "n_params": n_params, "traced": traced,
-            "steps": [{k: st[k] for k in ("step", "loss", "wall_ms",
-                                          "stream_ms")} for st in stats]}
+            "graphed": graphed}
 
 
 def log_memory(torch, what: str) -> None:
@@ -5170,7 +5686,10 @@ def train_phase(torch, np, mods, card: str) -> dict:
     just after: each loss, the step's wall and stream ms, tokens/s, peak
     memory; the same steps held to plain (``train_held_to_plain``); then
     a reduced qwen through the same CLI, whose loss must fall; (c) one
-    step profiled: the device's busy time and idle share in its window; (d) a served model updated in place: the trained master
+    eager step profiled: the device's busy time and idle share in its
+    window, and the ops its kernels come from (the summary's busy time and
+    idle share are (b)'s traced replay's); (d) a served model updated in
+    place: the trained master
     copied into a ``ServeEngine``'s cast tree, the step cache's replayed
     prefill held bit-equal to the eager forward; (e) the backward kernels
     (the matmul's, the attention's, the grouped matmul's, the RG-LRU's and
@@ -5193,12 +5712,17 @@ def train_phase(torch, np, mods, card: str) -> dict:
                       "cuda")
     tc = tstep.TrainConfig(remat="none", moe_strategy="dense")
 
+    # the fused AdamW pass on ragged leaf sets, then on each training
+    # family's leaves at full width, before any family's weights are made
+    # (from a generator of its own: gen's draws are the CLI's init)
+    adamw_rows = adamw_phase(torch, mods)
+
     # (a) the kernel step against the plain step
     ops.reset_launches()
     lk, mk, gk = tstep.grads_fn(params, batch, cfg, tc)
     torch.cuda.synchronize()
     got = {k: n for k, n in ops.LAUNCHES.items() if n}
-    want = train_launches(tfm, cfg, 1)
+    want = train_launches(tfm, cfg, 1, optimizer=False)
     check(got == want, f"train step launches {got} != {want}")
     lp, mp, gp = tstep.grads_fn(params, batch, cfg, tc, force="plain")
     check(abs(float(lk) - float(lp)) <= TRAIN_LOSS_TOL * abs(float(lp)),
@@ -5222,29 +5746,24 @@ def train_phase(torch, np, mods, card: str) -> dict:
         f"launches {got}")
     del gk, gp, fk, fp
 
-    # (b) the training CLI, the main path
-    stats = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    losses = train_main(["--arch", ARCH, "--steps", str(TRAIN_STEPS),
-                         "--log-every", "1", "--seed", str(SEED)],
-                        stats=stats)
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    want = dict.fromkeys(launches, 0) | train_launches(tfm, cfg,
-                                                       TRAIN_STEPS)
-    check(launches == want, f"launch.train: launches {launches} != {want}")
+    # (b) the training CLI, the main path: graphed after its first step,
+    # against the eager kernel step ((h)); then the same for the other
+    # families, before their held steps and the backward kernels' cases:
+    # after those the caching allocator held 47.5 GiB reserved that
+    # empty_cache had not returned, and recurrentgemma-2b's capture ran out
+    # of memory there (its graphed step peaks at 45.6 GiB in a fresh
+    # process). The graphed runs take the allocator's default segments
+    # (the families' held steps run on expandable ones, set below)
+    graphed = graphed_vs_eager(torch, np, mods, ARCH, TRAIN_STEPS, card)
+    family_graphs = {arch: graphed_vs_eager(torch, np, mods, arch,
+                                            TRAIN_FAMILY_STEPS, card)
+                     for arch in TRAIN_FAMILIES}
+    losses, launches = graphed["losses"], graphed["launches"]
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"launch.train: losses {losses}")
-    warm = stats[2:]
-    wall = float(np.median([s["wall_ms"] for s in warm]))
-    stream = float(np.median([s["stream_ms"] for s in warm]))
+    peak, wall, stream = (graphed[k] for k in ("peak_bytes", "wall_ms",
+                                               "stream_ms"))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    for s in stats:
-        log(f"train (b) step {s['step']:2d}: loss {s['loss']:.6f}, wall "
-            f"{s['wall_ms']:.3f} ms, stream {s['stream_ms']:.3f} ms "
-            f"(events, idle gaps included)")
     held = train_held_to_plain(torch, mods, cfg, params, src, tc, losses)
     # a task the model can learn in a few steps: a reduced qwen (head dim
     # 64, vocab 256) through the same CLI on the card, held to repro's
@@ -5262,16 +5781,19 @@ def train_phase(torch, np, mods, card: str) -> dict:
         f"{TRAIN_SMALL_STEPS} steps of 4 x 64: loss {small[0]:.4f} -> "
         f"{small[-1]:.4f} (best of the last 5 {min(small[-5:]):.4f})")
 
-    # (c) one step profiled (the CLI's step, on (a)'s weights)
-    busy, prof_wall, idle, top, opt, step_fn = profiled_step(
+    # (c) one eager step profiled (the CLI's step, on (a)'s weights): the
+    # ops a graphed step's kernels come from, which a trace of a replay
+    # does not name
+    e_busy, e_wall, e_idle, top, opt, step_fn = profiled_step(
         torch, tstep, toptim, cfg, tc, params, batch, TRAIN_STEPS)
-    log(f"train (c) one step traced on the device: wall {prof_wall:.3f} "
-        f"ms under the profiler, its kernels busy {busy:.3f} ms, device "
-        "idle " + ("not measured (no device time)" if idle is None
-                   else f"{100 * idle:.1f}%") + f" of that wall ((b)'s "
-        f"unprofiled median {wall:.3f} ms); in the next step, traced on the "
-        f"host too, the ops whose kernels took most (op, device ms, calls) "
-        f"{top}")
+    log(f"train (c) one eager step traced on the device: wall "
+        f"{e_wall:.3f} ms under the profiler, its kernels busy "
+        f"{e_busy:.3f} ms, device idle "
+        + ("not measured (no device time)" if e_idle is None
+           else f"{100 * e_idle:.1f}%") + f" of that wall (the eager "
+        f"step's unprofiled median {graphed['eager_wall_ms']:.3f} ms); in "
+        f"the next step, traced on the host too, the ops whose kernels "
+        f"took most (op, device ms, calls) {top}")
 
     # (d) a served model updated in place by the optimizer
     cache = sv.WidthVariantCompileCache(cfg, hw=mods["H100_SXM"])
@@ -5344,25 +5866,35 @@ def train_phase(torch, np, mods, card: str) -> dict:
         or torch.cuda.memory._set_allocator_settings
     set_alloc("expandable_segments:True")
     try:
-        families = {arch: train_family(torch, np, mods, arch, card)
+        families = {arch: train_family(torch, np, mods, arch, card,
+                                       family_graphs[arch])
                     for arch in TRAIN_FAMILIES}
     finally:
         set_alloc("expandable_segments:False")
     log_memory(torch, "train (g) ends with")
     tok_s = tokens / (wall / 1e3)
+    # the main path's device time: (b)'s traced replay of the graph
+    busy, idle, replay_ms = (graphed[k] for k in (
+        "replay_busy_ms", "replay_idle", "replay_ms"))
     log(f"train summary {card}: {ARCH} full width, batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ}, remat none: step wall {wall:.3f} ms, stream "
+        f"{TRAIN_SEQ}, remat none: graphed step wall {wall:.3f} ms, stream "
         f"{stream:.3f} ms (events; medians of steps 2-{TRAIN_STEPS - 1}), "
-        f"{tok_s:.1f} tokens/s, kernels busy {busy:.3f} ms and device idle "
+        f"{tok_s:.1f} tokens/s; one traced replay: kernels busy "
+        f"{busy:.3f} ms, device idle "
         + ("not measured" if idle is None else f"{100 * idle:.1f}%")
-        + f" of a profiled step's wall {prof_wall:.3f} ms, peak "
+        + f" of its window {replay_ms:.3f} ms; the eager step (c): busy "
+        f"{e_busy:.3f} ms, idle "
+        + ("not measured" if e_idle is None else f"{100 * e_idle:.1f}%")
+        + f" of its profiled wall {e_wall:.3f} ms; peak "
         f"{peak / 2**30:.3f} GiB; losses {[round(x, 4) for x in losses]}, "
         f"plain {[round(x, 4) for x in held['plain_losses']]}; phase "
         f"{time.perf_counter() - t_phase:.1f}s")
     return {"launches": launches, "losses": losses, "wall_ms": wall,
             "stream_ms": stream, "tok_s": tok_s, "idle": idle,
-            "busy_ms": busy, "profiled_wall_ms": prof_wall,
-            "small_losses": small, "held": held,
+            "busy_ms": busy, "replay_ms": replay_ms, "eager_idle": e_idle,
+            "eager_busy_ms": e_busy, "eager_profiled_wall_ms": e_wall,
+            "small_losses": small, "held": held, "graphed": graphed,
+            "adamw": adamw_rows,
             "peak_bytes": peak, "matmul_bwd": mm, "flash_bwd": fl,
             "families": families, "moe_gmm_bwd": moe_bwd,
             "rglru_scan_bwd": rg_bwd, "rwkv6_bwd": rw_bwd}
@@ -5413,6 +5945,7 @@ def main() -> None:
                                              CtaWaveModel)
     from repro_torch.launch import wave_verification
     from repro_torch.kernels import autotune, build, ops
+    from repro_torch.kernels import adamw as ka
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_tiled as mt
     from repro_torch.kernels import moe_gmm as mg
@@ -5440,7 +5973,7 @@ def main() -> None:
             "serve_batched_main": serve_batched_main,
             "serve_continuous": serve_continuous, "chaos": chaos,
             "serve_resilient": serve_resilient,
-            "mt": mt, "mg": mg, "fa": fa, "rg": rg, "rw": rw,
+            "mt": mt, "mg": mg, "fa": fa, "rg": rg, "rw": rw, "ka": ka,
             "autotune": autotune,
             "pruning_opt": pruning_opt, "pruning": pruning}
 
@@ -5530,6 +6063,17 @@ def main() -> None:
         if DEFERRED:
             fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
         return
+    if "--adamw" in argv:
+        # the fused AdamW pass alone on its cases, beside the parent tree's
+        # if given
+        if "--parent" in argv:
+            mods["parent_adamw"] = parent_adamw(torch, Path(argv[argv.index(
+                "--parent") + 1]).resolve())
+        print(json.dumps({"adamw": six_digits(adamw_phase(torch, mods))}),
+              flush=True)
+        if DEFERRED:
+            fail(f"{len(DEFERRED)} check(s) failed: {DEFERRED}")
+        return
     if "--train" in argv:
         # the training phase alone
         trained = train_phase(torch, np, mods, card)
@@ -5546,6 +6090,7 @@ def main() -> None:
         mods["parent_flash_bwd"] = parent_flash_bwd(torch, build, psrc)
         mods["parent_rwkv6_bwd"] = parent_rwkv6_bwd(torch, build, psrc)
         mods["parent_rglru_bwd"] = parent_rglru_bwd(torch, build, psrc)
+        mods["parent_adamw"] = parent_adamw(torch, psrc)
         parent_rw = parent_rwkv6(torch, build, psrc)
         parent_rg = parent_rglru(torch, build, psrc)
     # recurrentgemma-2b's prefill shape, a ragged W (TMA), one step, a
@@ -5717,7 +6262,9 @@ def main() -> None:
                             ("rglru_scan_bwd", trained["rglru_scan_bwd"][0],
                              trained["families"][RECURRENT_ARCHS[0]]),
                             ("rwkv6_bwd", trained["rwkv6_bwd"][0],
-                             trained["families"][RECURRENT_ARCHS[1]])):
+                             trained["families"][RECURRENT_ARCHS[1]]),
+                            ("adamw", trained["adamw"][len(ADAMW_RAGGED)],
+                             trained["graphed"])):
         check(path["launches"][name] > 0,
               f"{name} was not launched on the main path")
         kernels.append({
@@ -5741,6 +6288,20 @@ def main() -> None:
         if name == "rwkv6_bwd":
             # the kernels one counted call runs: its graph's kernel nodes
             kernels[-1]["kernels_a_call"] = row["kernels_a_call"]
+        if name == "adamw":
+            # its kernels a call (graph nodes of one call on qwen's
+            # leaves), and those of each family's captured step; every case
+            # (the ragged leaf sets and each family's), and each family's
+            # CLI run's launches
+            kernels[-1]["kernels_a_call"] = row["kernels_a_call"]
+            kernels[-1]["step_graph_kernels"] = {
+                a: trained["families"][a]["graphed"]["adamw_kernels"]
+                for a in TRAIN_FAMILIES} | {
+                ARCH: trained["graphed"]["adamw_kernels"]}
+            kernels[-1]["cases"] = trained["adamw"]
+            kernels[-1]["train_launches"] = {
+                a: trained["families"][a]["launches"]["adamw"]
+                for a in TRAIN_FAMILIES}
         if name == "matmul_tiled":
             # its cases at the Table 2 convnet's conv products
             kernels[-1]["table2_cases"] = [

@@ -25,7 +25,8 @@ before it imports Triton, so the compiled kernel stays in the gitignored
 one right after the launch returned without error, and nowhere else. Each
 counts one per call: a product in the decode form of ``matmul_tiled`` or
 ``moe_gmm`` sums its K chunks inside the same launch, and a call of
-``flash_attention_bwd`` is one launch of both its roles. The matmul
+``flash_attention_bwd`` is one launch of both its roles, and a call of
+``adamw`` is its three passes. The matmul
 backward's products launch ``matmul_tiled``'s kernel and count under
 ``matmul_tiled_bwd``, the grouped matmul's launch ``moe_gmm``'s and count
 under ``moe_gmm_bwd``.
@@ -51,7 +52,7 @@ CUDA_SOURCES = ("matmul_tiled", "flash_attention", "rwkv6",  # csrc/<name>.cu
                 "moe_gmm", "rglru_scan", "flash_attention_bwd",
                 "rglru_scan_bwd", "rwkv6_bwd")
 TRITON_KERNELS = {"staircase_fused": "staircase_fused",      # kernels/<v>.py
-                  "staircase_cta": "staircase_fused"}
+                  "staircase_cta": "staircase_fused", "adamw": "adamw"}
 # launches counted apart from their library's name: the backward's products
 # of the matmul (csrc/matmul_tiled.cu) and of the grouped matmul
 # (csrc/moe_gmm.cu)

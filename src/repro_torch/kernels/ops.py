@@ -30,6 +30,10 @@ with its row log-sum-exp, then ``flash_attention_bwd``, one ``wgmma``
 launch; ``rglru_scan_bwd``; ``rwkv6_bwd``), on the CPU (or with ``force="plain"``) the plain forward
 and the plain backward's explicit formulas. Serving, under ``no_grad`` or
 on tensors that need no grad, takes the forward alone.
+
+The optimizer: ``adamw`` updates fp32 leaves with their global-norm
+clipping in one fused pass (``kernels.adamw``) on a CUDA tensor, and with
+its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import adamw as adamw_kernel
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention as flash_attention_kernel)
@@ -406,3 +411,17 @@ def rwkv6(r, k, v, log_w, u, s0=None, *, chunk: int = CHUNK,
     return rwkv6_kernel(r.contiguous(), k.contiguous(), v.contiguous(),
                         log_w.contiguous(), u.contiguous(),
                         None if s0 is None else s0.contiguous(), chunk=chunk)
+
+
+def adamw(params, grads, mu, nu, count, lr, *, b1: float, b2: float,
+          eps: float, weight_decay: float, clip_norm: float,
+          force: Optional[str] = None) -> torch.Tensor:
+    """AdamW with global-norm clipping over lists of fp32 leaves (params,
+    gradients, first and second moments), in place, from the int32 0-d
+    ``count`` and the fp32 0-d ``lr`` on their device -> the gradients'
+    global norm (``kernels.adamw``)."""
+    kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+              clip_norm=clip_norm)
+    if _use_plain(count, force):
+        return adamw_kernel.adamw_ref(params, grads, mu, nu, count, lr, **kw)
+    return adamw_kernel.adamw(params, grads, mu, nu, count, lr, **kw)

@@ -9,8 +9,14 @@ and backward, on the hand-written kernels; so do ``--arch
 granite-moe-1b-a400m`` (its dense expert products on ``moe_gmm`` and its
 backward), ``recurrentgemma-2b`` (the RG-LRU on ``rglru_scan`` and
 ``rglru_scan_bwd``) and ``rwkv6-1.6b`` (``rwkv6`` and ``rwkv6_bwd``).
-``--device cpu --reduced`` runs the plain versions on the CPU with a tiny
-config:
+On the card the step is one compiled unit, as ``repro``'s CLI jits it: the
+first step runs eagerly and compiles every kernel, then every later step
+replays one CUDA graph of forward, backward, clipping and AdamW
+(``train.graph.GraphedTrainStep``), AdamW on its fused Triton pass
+(``kernels.adamw``); the batch is copied into the graph's static buffers
+from pinned memory before each replay. ``--device cpu --reduced`` runs the
+plain versions on the CPU with a tiny config, the same step's body run
+eagerly on its static buffers (no graph):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --reduced --steps 200 --ckpt-dir /tmp/ckpt
@@ -37,8 +43,9 @@ from repro_torch.models import init_params
 from repro_torch.serving.engine import require_device
 from repro_torch.train import (
     AdamWConfig, DataConfig, TrainConfig, adamw_init, augment_for_arch,
-    build_train_step, checkpoint, cosine_schedule, make_source,
+    checkpoint, cosine_schedule, make_source,
 )
+from repro_torch.train.graph import GraphedTrainStep
 
 
 def to_device(batch: dict, device) -> dict:
@@ -46,12 +53,25 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def main(argv=None, *, stats: Optional[list] = None):
+def pinned(batch: dict) -> dict:
+    """A batch of numpy arrays as tensors in pinned host memory, which the
+    graphed step copies to the card without blocking."""
+    return {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+
+
+def main(argv=None, *, stats: Optional[list] = None,
+         final: Optional[dict] = None):
     """Returns the losses of the steps run. ``stats``, if a list, gets one
-    dict per step: its loss, wall ms (host clock to the step's last
-    result) and, on a card, stream ms: the elapsed time between CUDA
-    events recorded before the step and after its last queued work, the
-    device's idle gaps included (not its busy time)."""
+    dict per step: its loss, grad_norm and lr, wall ms (host clock to the
+    step's last result) and, on a card, stream ms (the elapsed time
+    between CUDA events recorded before the step, its batch copy included,
+    and after its last queued work, the device's idle gaps included, not
+    its busy time), whether the step replayed the graph and, on the step
+    that captured it, the capture's seconds. ``final``, if a dict, gets the
+    trained "params" and "opt_state" and the step function ("step_fn");
+    its graphs then stay alive for the caller, who frees them with
+    ``step_fn.reset()``, where otherwise they are freed before this
+    returns."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
@@ -96,7 +116,7 @@ def main(argv=None, *, stats: Optional[list] = None):
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device)
     opt_state = adamw_init(params, tc.adamw)
-    step_fn = build_train_step(cfg, tc, lr)
+    step_fn = GraphedTrainStep(cfg, tc, lr)
 
     start = 0
     if args.ckpt_dir:
@@ -120,10 +140,11 @@ def main(argv=None, *, stats: Optional[list] = None):
     try:
         for step in range(start, args.steps):
             batch = augment_for_arch(source.batch(step), cfg, args.seq, step)
-            batch = to_device(batch, device)
+            batch = pinned(batch) if on_card else to_device(batch, device)
             if on_card:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
+                captures = step_fn.captures
             w0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch,
                                                  step)
@@ -133,12 +154,17 @@ def main(argv=None, *, stats: Optional[list] = None):
             wall = (time.perf_counter() - w0) * 1e3
             losses.append(loss)
             if stats is not None:
-                stream_ms = None
+                st = {"step": step, "loss": loss,
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "lr": float(metrics["lr"]), "wall_ms": wall,
+                      "stream_ms": None, "replayed": False}
                 if on_card:
                     ev[1].synchronize()
-                    stream_ms = ev[0].elapsed_time(ev[1])
-                stats.append({"step": step, "loss": loss, "wall_ms": wall,
-                              "stream_ms": stream_ms})
+                    st["stream_ms"] = ev[0].elapsed_time(ev[1])
+                    st["replayed"] = bool(step_fn.graphs())
+                    if step_fn.captures > captures:
+                        st["capture_s"] = step_fn.capture_s[-1]
+                stats.append(st)
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"step {step:5d} loss {loss:7.4f} "
                       f"grad_norm {float(metrics['grad_norm']):8.3f} "
@@ -163,6 +189,10 @@ def main(argv=None, *, stats: Optional[list] = None):
             pending.join()
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
+        if final is not None:
+            final.update(params=params, opt_state=opt_state, step_fn=step_fn)
+        else:
+            step_fn.reset()
     if args.ckpt_dir:
         checkpoint.save(args.ckpt_dir, args.steps, (params, opt_state))
     if losses:

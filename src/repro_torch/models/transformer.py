@@ -697,8 +697,11 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig,
     else:
         denom = nll.numel()
     loss = torch.sum(nll) / denom
-    lb, z = (torch.as_tensor(aux[k], dtype=torch.float32, device=lf.device)
-             for k in AUX_KEYS)
+    # a family without experts has float aux terms: made on the device by
+    # a fill, with no copy from the host (a CUDA graph captures this)
+    lb, z = (aux[k].to(torch.float32) if torch.is_tensor(aux[k])
+             else torch.full((), aux[k], dtype=torch.float32,
+                             device=lf.device) for k in AUX_KEYS)
     total = loss + aux_weight * lb + z_weight * z
     metrics = {"loss": loss, "moe_lb_loss": lb, "moe_z_loss": z,
                "logz_mean": torch.mean(logz)}

@@ -7,15 +7,23 @@ parameters, moments and compensation into the given tensors in place,
 under ``torch.no_grad()``, and returns those same tensors: PyTorch's idiom,
 and at full width the memory of a second copy of every tree is not there to
 spend. The values are ``repro``'s: the same formulas, in fp32.
+
+Every value the update reads per step is a tensor on the leaves' device:
+``count``, the bias corrections computed from it, ``lr`` (from
+:func:`cosine_schedule` of a step-index tensor) and the clip scale. So the
+update runs inside a CUDA graph (``train/graph.py``) without a copy from the
+host, and each replay reads that step's values.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
+
+from repro_torch.kernels import ops
 
 F32 = torch.float32
 
@@ -111,18 +119,32 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(grads, state: AdamState, params, lr, cfg: AdamWConfig):
+def adamw_update(grads, state: AdamState, params, lr, cfg: AdamWConfig,
+                 force: Optional[str] = None):
     """One AdamW step with global-norm clipping. Writes the new params,
     moments, compensation and count into their tensors in place and
-    returns ``(params, state, {"grad_norm"})`` with those tensors."""
+    returns ``(params, state, {"grad_norm"})`` with those tensors.
+
+    An fp32 master with fp32 moments and gradients (the CLI's
+    configuration) takes ``ops.adamw``: on a CUDA tensor the fused Triton
+    pass (``kernels.adamw``), on the CPU or with ``force="plain"`` its
+    plain version. The ``bf16_kahan`` master, 8-bit moments and gradients
+    accumulated in bf16 take the plain update below on every device: the
+    pass does not cover them yet."""
+    lr = torch.as_tensor(lr, dtype=F32).to(state.count.device)
+    if cfg.master_dtype == "f32" and not cfg.quantize_moments \
+            and all(g.dtype == F32 for g in _leaves(grads)):
+        gnorm = ops.adamw(
+            _leaves(params), _leaves(grads), _leaves(state.mu),
+            _leaves(state.nu), state.count, lr, b1=cfg.b1, b2=cfg.b2,
+            eps=cfg.eps, weight_decay=cfg.weight_decay,
+            clip_norm=cfg.clip_norm, force=force)
+        return params, state, {"grad_norm": gnorm}
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     state.count.add_(1)
     cf = state.count.to(F32)
-    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=F32,
-                                       device=cf.device), cf)
-    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=F32,
-                                       device=cf.device), cf)
-    lr = torch.as_tensor(lr, dtype=F32)
+    bc1 = 1.0 - torch.pow(torch.full_like(cf, cfg.b1), cf)
+    bc2 = 1.0 - torch.pow(torch.full_like(cf, cfg.b2), cf)
     kahan = cfg.master_dtype == "bf16_kahan"
 
     def upd(g, m, v, p, c):

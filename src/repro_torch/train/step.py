@@ -117,13 +117,19 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
     metrics): the params and optimizer state are updated in place (see
     ``optim.adamw_update``) and returned; metrics has "loss",
     "moe_lb_loss", "moe_z_loss", "logz_mean", "grad_norm", "lr" and
-    "total_loss"."""
+    "total_loss". ``step_idx`` is an int or a 0-d tensor; the learning rate
+    is computed from it on the optimizer state's device, so an int step and
+    the same step as a tensor there (a CUDA graph's input) give the same
+    bits."""
 
     def train_step(params, opt_state: AdamState, batch: dict, step_idx):
         loss, metrics, grads = grads_fn(params, batch, cfg, tc, force)
+        if not torch.is_tensor(step_idx):
+            step_idx = torch.full((), step_idx, dtype=torch.int64,
+                                  device=opt_state.count.device)
         lr = lr_schedule(step_idx)
         params, opt_state, om = adamw_update(grads, opt_state, params, lr,
-                                             tc.adamw)
+                                             tc.adamw, force=force)
         metrics = dict(metrics, **om, lr=lr, total_loss=loss)
         return params, opt_state, metrics
 

@@ -241,7 +241,7 @@ def test_prefill_on_kernels_vs_plain(gen):
                             "rwkv6": 0, "moe_gmm": 0,
                             "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
                             "moe_gmm_bwd": 0, "rglru_scan_bwd": 0,
-                            "rwkv6_bwd": 0}
+                            "rwkv6_bwd": 0, "adamw": 0}
     want, _ = tfm.forward(params, cfg, tokens=toks, mode="prefill",
                           force="plain")
     v = cfg.vocab_size
@@ -348,7 +348,7 @@ def test_new_family_on_the_card_vs_cpu(gen, arch):
         "rwkv6": 0, "moe_gmm": 0,
                             "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
                             "moe_gmm_bwd": 0, "rglru_scan_bwd": 0,
-                            "rwkv6_bwd": 0}
+                            "rwkv6_bwd": 0, "adamw": 0}
     for card, cpu in zip(out["cuda"][0], out["cpu"][0]):
         assert bool(torch.isfinite(card).all())
         assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -800,7 +800,7 @@ def test_recurrent_family_on_the_card_vs_cpu(gen, arch):
         "flash_attention": kinds.count("attn"), "staircase_fused": 0, "staircase_cta": 0,
         "rglru_scan": kinds.count("rglru"), "rwkv6": kinds.count("rwkv"),
         "moe_gmm": 0, "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
-        "moe_gmm_bwd": 0, "rglru_scan_bwd": 0, "rwkv6_bwd": 0}
+        "moe_gmm_bwd": 0, "rglru_scan_bwd": 0, "rwkv6_bwd": 0, "adamw": 0}
     v = cfg.vocab_size
     card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
     assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -1034,7 +1034,7 @@ def test_moe_family_on_the_card_vs_cpu(gen, strategy):
                             "rwkv6": 0, "moe_gmm": 3 * cfg.n_layers,
                             "flash_attention_bwd": 0, "matmul_tiled_bwd": 0,
                             "moe_gmm_bwd": 0, "rglru_scan_bwd": 0,
-                            "rwkv6_bwd": 0}
+                            "rwkv6_bwd": 0, "adamw": 0}
     v = cfg.vocab_size
     card, cpu = card[..., :v].float().cpu(), cpu[..., :v].float()
     assert (card - cpu).abs().max().item() <= 4e-2 * max(
@@ -2181,3 +2181,240 @@ def test_train_remat_modes_on_kernels(gen):
         for (path, a), (_, b) in zip(tstep.named_leaves(g0),
                                      tstep.named_leaves(g)):
             assert torch.equal(a, b), (remat, path)
+
+
+def adamw_case(gen, sizes, clip: bool):
+    """fp32 leaves of ``sizes`` elements from a non-zero state (count 4,
+    moments of an earlier step) and gradients whose global norm is about
+    40 (the clip at 1.0 is active) or 0.04 (it is not)."""
+    p = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
+    m = [1e-2 * torch.randn(n, generator=gen, device="cuda") for n in sizes]
+    v = [1e-4 * torch.randn(n, generator=gen, device="cuda").abs()
+         for n in sizes]
+    g = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
+    norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+    g = [x * ((40.0 if clip else 0.04) / norm) for x in g]
+    return p, g, m, v
+
+
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("sizes", [(1,), (4095,), (4097,), (2 ** 20 + 3,),
+                                   (1, 4095, 0, 4097, 2 ** 20 + 3)])
+def test_adamw_kernel_vs_plain(gen, sizes, clip):
+    """The fused AdamW pass against ``adamw_ref`` on ragged leaves over 3
+    calls: params, moments and the norm within fp32's 2e-4 of each leaf's
+    largest value (the kernel sums the norm in block order and rounds
+    pow, sqrt and division at other last bits), the count equal, one
+    launch a call; a second run from the same state bit-equal (no
+    atomics)."""
+    from repro_torch.kernels import adamw as ka
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0)
+    p, g, m, v = adamw_case(gen, sizes, clip)
+    runs = [[[t.clone() for t in ts] for ts in (p, m, v)]
+            + [torch.full((), 4, dtype=torch.int32, device="cuda")]
+            for _ in range(3)]
+    for i in range(3):
+        lr = torch.full((), 3e-3 * (i + 1), device="cuda")
+        before = ops.LAUNCHES["adamw"]
+        norms = [ka.adamw(r[0], g, r[1], r[2], r[3], lr, **kw)
+                 for r in runs[:2]]
+        assert ops.LAUNCHES["adamw"] == before + 2
+        want = ka.adamw_ref(runs[2][0], g, runs[2][1], runs[2][2],
+                            runs[2][3], lr, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(norms[0], norms[1])
+        assert abs(norms[0].item() - want.item()) <= 2e-4 * want.item()
+        assert (want.item() > 1.0) == clip
+    assert all(int(r[3]) == 7 for r in runs)
+    for k in range(3):
+        for a, b, ref in zip(runs[0][k], runs[1][k], runs[2][k]):
+            assert torch.equal(a, b)
+            if ref.numel():
+                err = (a - ref).abs().max().item()
+                assert err <= 2e-4 * ref.abs().max().item(), (k, err)
+
+
+def test_adamw_kernel_graph_nodes_and_replay(gen, tmp_path):
+    """One call of the fused pass captured in a CUDA graph: each non-empty
+    leaf's partials and update one kernel node each, the scalars one; two
+    replays equal two eager calls from the same state bit for bit (the
+    graph keeps each leaf's address and length)."""
+    from repro_torch.kernels import adamw as ka
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0)
+    sizes = (1, 4095, 0, 4097, 2 ** 20 + 3)
+    p, g, m, v = adamw_case(gen, sizes, True)
+    runs = [[[t.clone() for t in ts] for ts in (p, m, v)]
+            + [torch.full((), 4, dtype=torch.int32, device="cuda")]
+            for _ in range(2)]
+    lr = torch.full((), 3e-3, device="cuda")
+    out = {}
+
+    def call():
+        out["norm"] = ka.adamw(runs[0][0], g, runs[0][1], runs[0][2],
+                               runs[0][3], lr, **kw)
+    nodes = one_call_kernels(call, tmp_path / "adamw.dot")
+    names = ("_adamw_partials", "_adamw_scalars", "_adamw_update")
+    assert {k: sum(k in n for n in nodes) for k in names} == {
+        "_adamw_partials": 4, "_adamw_scalars": 1, "_adamw_update": 4}
+    assert len(nodes) == 9
+    # one_call_kernels' warm-up ran one call; then two replays of a graph
+    # of one call against three eager calls on the twin
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    for _ in range(2):
+        graph.replay()
+    for _ in range(3):
+        want = ka.adamw(runs[1][0], g, runs[1][1], runs[1][2], runs[1][3],
+                        lr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out["norm"], want)
+    assert int(runs[0][3]) == int(runs[1][3]) == 7
+    for k in range(3):
+        for a, b in zip(runs[0][k], runs[1][k]):
+            assert torch.equal(a, b), k
+
+
+def graph_case(gen, n_layers: int = 2):
+    """A small qwen on the card (head dim 64) with two copies of its
+    weights and optimizer state, and pinned batches of 4 x 64."""
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import step as tstep
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), n_layers=n_layers,
+                         d_model=256, n_heads=4, d_ff=512, vocab=250)
+    params = tfm.init_params(cfg, gen)
+    copies = []
+    for _ in range(2):
+        p = tstep.from_named_leaves([(k, t.detach().clone())
+                                     for k, t in tstep.named_leaves(params)])
+        copies.append((p, toptim.adamw_init(p)))
+    rng = np.random.default_rng(0)
+
+    def batch(step):
+        toks = torch.from_numpy(rng.integers(0, 250, size=(4, 65)))
+        return {"tokens": toks[:, :-1].contiguous().pin_memory(),
+                "labels": toks[:, 1:].contiguous().pin_memory()}
+    return cfg, copies, [batch(s) for s in range(6)]
+
+
+def test_graphed_step_equals_eager_bit_for_bit(gen):
+    """``GraphedTrainStep`` on the card (step 0 eager, step 1 captured and
+    replayed, the rest replayed) against ``build_train_step`` on a copy of
+    the same weights: every metric, param and moment bit-equal over 4
+    steps, one capture, and the learning rate read from the step index on
+    each replay (it differs between replays)."""
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import step as tstep
+    from repro_torch.train.graph import GraphedTrainStep
+    cfg, ((pa, sa), (pb, sb)), batches = graph_case(gen)
+    tc = tstep.TrainConfig(remat="none")
+    lr = toptim.cosine_schedule(3e-3, 1, 10)
+    eager = tstep.build_train_step(cfg, tc, lr)
+    graphed = GraphedTrainStep(cfg, tc, lr)
+    lrs = []
+    for s in range(4):
+        _, _, ma = eager(pa, sa, {k: v.cuda() for k, v in
+                                  batches[s].items()}, s)
+        _, _, mb = graphed(pb, sb, batches[s], s)
+        for k in ma:
+            assert torch.equal(ma[k], mb[k]), (s, k)
+        lrs.append(mb["lr"].item())
+    assert graphed.captures == 1 and len(graphed.graphs()) == 1
+    assert lrs[1] != lrs[2] != lrs[3]
+    for ta, tb in ((pa, pb), (sa.mu, sb.mu), (sa.nu, sb.nu)):
+        for (path, a), (_, b) in zip(tstep.named_leaves(ta),
+                                     tstep.named_leaves(tb)):
+            assert torch.equal(a, b), path
+    assert int(sa.count) == int(sb.count) == 4
+    graphed.reset()
+
+
+def test_graphed_step_launches_exact_per_replay(gen):
+    """The capture's own wrapper calls are taken back out of the counts,
+    the eager step counts its launches and each replay adds one step's:
+    after N steps the counts are N eager steps' (the fused AdamW pass one
+    a step)."""
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import step as tstep
+    from repro_torch.train.graph import GraphedTrainStep
+    cfg, ((p, s), _), batches = graph_case(gen)
+    graphed = GraphedTrainStep(cfg, tstep.TrainConfig(remat="none"),
+                               toptim.cosine_schedule(3e-3, 1, 10))
+    one = train_launches(cfg) | {"adamw": 1}
+    ops.reset_launches()
+    for n in range(1, 5):
+        graphed(p, s, batches[n], n)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.LAUNCHES.items() if v} == \
+            {k: v * n for k, v in one.items()}
+    graphed.reset()
+
+
+def test_capture_after_restore_sees_restored_weights(gen, tmp_path):
+    """A checkpoint restored into new tensors gets a graph of its own (the
+    old one updates the old tensors): its steps, eager then captured, equal
+    the eager step's from the same restore bit for bit."""
+    from repro_torch.train import checkpoint
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import step as tstep
+    from repro_torch.train.graph import GraphedTrainStep
+    cfg, ((p, s), _), batches = graph_case(gen)
+    tc = tstep.TrainConfig(remat="none")
+    lr = toptim.cosine_schedule(3e-3, 1, 10)
+    graphed = GraphedTrainStep(cfg, tc, lr)
+    for n in range(3):
+        graphed(p, s, batches[n], n)
+    checkpoint.save(str(tmp_path), 3, (p, s))
+    pr, sr = checkpoint.restore(str(tmp_path), 3, (p, s))
+    pe, se = checkpoint.restore(str(tmp_path), 3, (p, s))
+    eager = tstep.build_train_step(cfg, tc, lr)
+    for n in range(3, 6):
+        _, _, ma = eager(pe, se, {k: v.cuda() for k, v in
+                                  batches[n].items()}, n)
+        _, _, mb = graphed(pr, sr, batches[n], n)
+        assert torch.equal(ma["loss"], mb["loss"]), n
+        assert torch.equal(ma["grad_norm"], mb["grad_norm"]), n
+    assert graphed.captures == 2
+    for (path, a), (_, b) in zip(tstep.named_leaves(pe),
+                                 tstep.named_leaves(pr)):
+        assert torch.equal(a, b), path
+    graphed.reset()
+
+
+def test_launch_train_graphs_after_its_first_step(gen):
+    """``launch.train`` on the card: step 0 eager, one capture at step 1,
+    every later step a replay; the counts are the steps' launches with one
+    fused AdamW pass each."""
+    from repro_torch.launch.train import main
+    stats = []
+    losses = None
+    ops.reset_launches()
+    losses = main(["--arch", "qwen1.5-0.5b", "--reduced", "--d-model", "256",
+                   "--steps", "5", "--seq", "64", "--batch", "4",
+                   "--log-every", "100"], stats=stats)
+    assert len(losses) == 5 and all(np.isfinite(losses))
+    assert [st["replayed"] for st in stats] == [False] + [True] * 4
+    assert [("capture_s" in st) for st in stats] == \
+        [False, True, False, False, False]
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), n_layers=2,
+                         d_model=256)
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        k: 5 * v for k, v in (train_launches(cfg) | {"adamw": 1}).items()}
+
+
+def test_launch_train_raises_when_a_capture_fails(gen, monkeypatch):
+    """A failed capture raises out of ``launch.train``: no step after the
+    first runs eagerly in its place."""
+    import contextlib
+    from repro_torch.launch.train import main
+
+    @contextlib.contextmanager
+    def refused(*a, **kw):
+        raise RuntimeError("capture refused")
+        yield
+    monkeypatch.setattr(torch.cuda, "graph", refused)
+    stats = []
+    with pytest.raises(RuntimeError, match="capture refused"):
+        main(["--arch", "qwen1.5-0.5b", "--reduced", "--d-model", "256",
+              "--steps", "3", "--seq", "64", "--batch", "4"], stats=stats)
+    assert len(stats) == 1 and not stats[0]["replayed"]

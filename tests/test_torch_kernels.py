@@ -265,7 +265,8 @@ def test_library_path_tracks_the_source(monkeypatch, tmp_path):
                                        "rwkv6", "moe_gmm", "rglru_scan",
                                        "flash_attention_bwd",
                                        "rglru_scan_bwd", "rwkv6_bwd"}
-    assert set(build.TRITON_KERNELS) == {"staircase_fused", "staircase_cta"}
+    assert set(build.TRITON_KERNELS) == {"staircase_fused", "staircase_cta",
+                                         "adamw"}
     assert build.EXTRA_COUNTS == ("matmul_tiled_bwd", "moe_gmm_bwd")
     assert set(build.LAUNCHES) == set(build.CUDA_SOURCES) \
         | set(build.TRITON_KERNELS) | set(build.EXTRA_COUNTS)
