@@ -1,6 +1,7 @@
 """Hardware specifications for the wave-quantization (tail-effect) model
 (``repro.core.hardware``'s counterpart: the four TPU entries unchanged, plus
-``H100_SXM``, the card the port runs on, defined in ``core.gpu``).
+``H100_SXM``, the card the port runs on, and the other GPU platforms of
+paper Tables 4/5, defined in ``core.gpu``).
 
 The paper parameterizes its latency model by the GPU's SM count ``S``
 (Titan-V: 80, P6000: 30, Jetson Nano: 1).  On TPU the scheduling granule is
@@ -92,13 +93,14 @@ TPU_LITE = HardwareSpec(
     vmem_bytes=32 * 1024**2,
 )
 
-# The card the port serves on, a ``gpu.GpuSpec``: the tail model's GPU form
-# (``tail_model.CtaWaveModel``) plans for it. Imported here, after
+# The card the port serves on and the other GPU platforms of Tables 4/5,
+# each a ``gpu.GpuSpec``: the tail model's GPU form
+# (``tail_model.CtaWaveModel``) plans for them. Imported here, after
 # ``HardwareSpec``, which ``gpu`` subclasses.
-from repro_torch.core.gpu import H100_SXM  # noqa: E402
+from repro_torch.core.gpu import GPU_PLATFORMS, H100_SXM  # noqa: E402,F401
 
 REGISTRY: Dict[str, HardwareSpec] = {
-    s.name: s for s in (TPU_V5E, TPU_V4, TPU_V5P, TPU_LITE, H100_SXM)
+    s.name: s for s in (TPU_V5E, TPU_V4, TPU_V5P, TPU_LITE, *GPU_PLATFORMS)
 }
 
 

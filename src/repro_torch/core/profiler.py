@@ -175,6 +175,15 @@ def time_graph_ms(fn, reps: int = 20, repeats: int = 5) -> list[float]:
     return out
 
 
+def bf16_operands(m: int, k: int, n: int, device, seed: int = 0):
+    """Random bf16 x (m, k) and w (k, n) from ``seed``, made on
+    ``device``: the operands the card's timings multiply."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=device).bfloat16()
+    w = torch.randn(k, n, generator=gen, device=device).bfloat16()
+    return x, w
+
+
 def measured_profile(layer: LayerShape, widths: Sequence[int], *,
                      hw: Optional[HardwareSpec] = None, device="cuda",
                      reps: int = 20, repeats: int = 5,
@@ -200,12 +209,10 @@ def measured_profile(layer: LayerShape, widths: Sequence[int], *,
                            f"is not an available CUDA device")
     hw = hw if hw is not None else GpuSpec.from_device(dev)
     tbl = CtaWaveModel(hw, tile_hw=tile_hw).evaluate_batch(layer, widths)
-    k_dev = ceil_div(layer.d_in, layer.shard_in)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(layer.tokens, k_dev, generator=gen, device=dev) \
-        .bfloat16()
     n_max = max(ceil_div(int(w), layer.shard_out) for w in widths)
-    w_full = torch.randn(k_dev, n_max, generator=gen, device=dev).bfloat16()
+    x, w_full = bf16_operands(layer.tokens,
+                              ceil_div(layer.d_in, layer.shard_in), n_max,
+                              dev, seed)
     # the widest product first: the decode form's workspace grows once,
     # not at every width (each buffer it outgrows stays allocated)
     ops.matmul(x, w_full, tile=tile, hw=tile_hw)

@@ -257,11 +257,11 @@ _STACKED_CHUNK = 32768
 
 # Staircase evaluation engines (see ``kernels.staircase_fused``):
 #   numpy            exact reference — bit-for-bit vs the frozen scalar path
-#   kernel           the affine-in-waves factoring of the sweep through
-#                    ``kernels.ops`` on the model's ``device``: the Triton
-#                    kernel (float32) on a CUDA device, its fp64 plain
-#                    version on the CPU (same staircase as numpy: identical
-#                    wave counts, latency within a few ulp)
+#   kernel           the sweep through ``kernels.ops`` on the model's
+#                    ``device``: the Triton kernel on a CUDA device, its
+#                    plain version on the CPU; both evaluate the numpy
+#                    engine's float64 expression, so their tables equal
+#                    numpy's bit for bit and Algorithm 2 breaks ties alike
 BACKENDS = ("numpy", "kernel")
 
 
@@ -410,8 +410,9 @@ class WaveQuantizationModel(_StackedSweep):
     @property
     def table_variant(self) -> str:
         """The table cache's name for this sweep engine: "" for the exact
-        numpy engine, else the backend and its device type, since the fp32
-        card sweep and the fp64 CPU sweep agree only to a tolerance."""
+        numpy engine, else the backend and its device type (their tables
+        equal numpy's, but a table is only read back by the engine and
+        device that wrote it)."""
         if self.backend == "numpy":
             return ""
         return f"{self.backend}-{self.device.type}"
@@ -433,10 +434,11 @@ class WaveQuantizationModel(_StackedSweep):
         return ceil_div(per_dev, self.hw.lane)
 
     # ---- kernel backend -------------------------------------------------
-    def _kernel_staircase(self, w2d, shard_out, ca, mb, mc):
+    def _kernel_staircase(self, w2d, shard_out, two_mk, fm, mk, kpm, bpe):
         """Route a fused (rows, C) sweep through ``kernels.ops`` on the
         model's device; the results come back as float64/int64 NumPy."""
         from repro_torch.kernels import ops
+        from repro_torch.kernels.staircase_fused import sweep_rates
         rows = w2d.shape[0]
 
         def put(a, dtype):
@@ -446,8 +448,10 @@ class WaveQuantizationModel(_StackedSweep):
         w = torch.from_numpy(np.ascontiguousarray(w2d, dtype=np.int64)) \
             .to(self.device)
         lat, waves, _ = ops.staircase_latency(
-            w, put(shard_out, np.int64), put(ca, np.float64),
-            put(mb, np.float64), put(mc, np.float64), lane=self.hw.lane)
+            w, put(shard_out, np.int64), put(two_mk, np.float64),
+            put(fm, np.float64), *(put(a, np.int64) for a in (mk, kpm, bpe)),
+            torch.from_numpy(sweep_rates(self.hw)).to(self.device),
+            lane=self.hw.lane)
         return (lat.cpu().numpy().astype(np.float64),
                 waves.cpu().numpy().astype(np.int64))
 
@@ -458,20 +462,17 @@ class WaveQuantizationModel(_StackedSweep):
         hw = self.hw
         if w.size == 0 or int(w.min()) < 1 or layer.dtype_bits % 8 != 0:
             return None
-        from repro_torch.kernels.staircase_fused import fused_coeffs
         sub = hw.sublane(layer.dtype_bits)
         m_pad = ceil_div(layer.tokens, sub) * sub
         k_pad = self.padded_dim(layer.d_in, layer.shard_in, hw.lane)
         two_mk = (2.0 * m_pad) * k_pad
-        ca, mb, mc = fused_coeffs(
-            hw, two_mk=two_mk, mk=m_pad * k_pad, k_plus_m=k_pad + m_pad,
-            fm=layer.flop_multiplier, bits=layer.dtype_bits)
         latency, n_waves = self._kernel_staircase(
-            w[None, :], np.array([[layer.shard_out]], np.int64),
-            np.array([[ca]]), np.array([[mb]]), np.array([[mc]]))
+            w[None, :], layer.shard_out, two_mk, layer.flop_multiplier,
+            m_pad * k_pad, k_pad + m_pad, layer.dtype_bits // 8)
         latency, n_waves = latency[0], n_waves[0]
-        padded_per_dev = ((two_mk * layer.flop_multiplier) * hw.lane) \
-            * n_waves
+        padded_per_dev = two_mk * (n_waves * hw.lane)
+        if layer.flop_multiplier != 1.0:
+            padded_per_dev = padded_per_dev * layer.flop_multiplier
         return latency, n_waves, padded_per_dev, True
 
     def _staircase_core(self, layer: LayerShape, w: np.ndarray):
@@ -608,21 +609,19 @@ class WaveQuantizationModel(_StackedSweep):
                        need_padded: bool, out):
         """Stacked fused evaluation, or None when outside the fused domain
         (see ``_staircase_core_fused``)."""
-        hw = self.hw
         if w.size == 0 or not cols.bytes_aligned or int(w.min()) < 1:
             return None
-        from repro_torch.kernels.staircase_fused import fused_coeffs
-        ca, mb, mc = fused_coeffs(
-            hw, two_mk=cols.two_mk, mk=cols.mk, k_plus_m=cols.k_plus_m,
-            fm=cols.fm, bits=cols.bits)
         latency, n_waves = self._kernel_staircase(
-            w, cols.shard_out, ca, mb, mc)
+            w, cols.shard_out, cols.two_mk, cols.fm, cols.mk, cols.k_plus_m,
+            cols.bits // 8)
         if out is not None:
             out[...] = latency
             latency = out
         padded_per_dev = None
         if need_padded:
-            padded_per_dev = ((cols.two_mk * cols.fm) * hw.lane) * n_waves
+            padded_per_dev = cols.two_mk * (n_waves * self.hw.lane)
+            if not cols.all_fm1:
+                padded_per_dev = padded_per_dev * cols.fm
         return latency, n_waves, padded_per_dev, True
 
     def _staircase_core_stacked(self, cols: _LayerColumns, w: np.ndarray,
@@ -816,11 +815,11 @@ class CtaWaveModel(_StackedSweep):
     ``table_cache`` call on ``WaveQuantizationModel``, so Algorithm 2 runs
     on it unchanged. ``backend`` "numpy" is the exact engine; "kernel"
     sweeps through ``ops.staircase_cta_latency`` on ``device`` (the Triton
-    kernel, fp32, on a CUDA device; its fp64 plain version on the CPU),
-    falling back to numpy outside the kernel's domain (widths below 1,
-    dtypes that are not whole bytes), as ``WaveQuantizationModel`` does.
-    Every stacked row is bit-for-bit the per-layer sweep: both run the
-    same stacked core.
+    kernel on a CUDA device, its plain version on the CPU; both the numpy
+    core's float64 expression, so bit for bit its values), falling back
+    to numpy outside the kernel's domain (widths below 1, dtypes that are
+    not whole bytes), as ``WaveQuantizationModel`` does. Every stacked row
+    is bit-for-bit the per-layer sweep: both run the same stacked core.
 
     Each width is priced on the tile its GEMM launches. Without
     ``tile_hw`` that is the default tile, as a launch outside
@@ -984,23 +983,24 @@ class CtaWaveModel(_StackedSweep):
             nbytes = elems * cols.bits // 8 * cols.experts
         return np.maximum(compute_s, nbytes / hw.hbm_bandwidth), waves, tiles
 
+    KERNEL_COLUMNS = ("shard_out", "g", "slots", "dl", "mk", "kpm", "bpe")
+
     def _kernel_columns(self, cols: _CtaColumns) -> dict:
-        """The CTA-wave kernel's (L, 1) columns: latency = max(ca * waves,
-        mb * tiles + mc), ca = dL, mb and mc the bytes term's slope and
-        intercept over the tiles (byte-aligned dtypes)."""
-        hw = self.hw
-        bpe = (cols.bits // 8) * cols.experts
+        """The CTA-wave kernel's (L, 1) columns (``KERNEL_COLUMNS``): the
+        numpy core's own, with ``bpe`` the bytes an element times the
+        experts (byte-aligned dtypes), and the (1,) bandwidth (``dl``
+        already carries the peak)."""
         return {"shard_out": cols.shard_out, "g": cols.g,
-                "slots": cols.slots, "ca": cols.dl,
-                "mb": (cols.k_plus_m * bpe / hw.hbm_bandwidth)
-                * cols.block_n,
-                "mc": (cols.mk * bpe) / hw.hbm_bandwidth}
+                "slots": cols.slots, "dl": cols.dl, "mk": cols.mk,
+                "kpm": cols.k_plus_m,
+                "bpe": (cols.bits // 8) * cols.experts,
+                "bandwidth": np.array([self.hw.hbm_bandwidth], np.float64)}
 
     def kernel_columns(self, layers: Sequence[LayerShape]) -> dict:
         """The kernel backend's per-layer columns for ``layers`` (numpy,
-        (L, 1)) and its ``block_n``: what ``ops.staircase_cta_latency``
-        takes beside the widths; with ``tile_hw``, the rows of every tile
-        slot, slot after slot."""
+        (L, 1)), the bandwidth and its ``block_n``: what
+        ``ops.staircase_cta_latency`` takes beside the widths; with
+        ``tile_hw``, the rows of every tile slot, slot after slot."""
         cols = self._stack_columns(layers)
         if isinstance(cols, _TiledColumns):
             cols = _CtaColumns.stack(cols.slots)
@@ -1018,9 +1018,10 @@ class CtaWaveModel(_StackedSweep):
         k = self._kernel_columns(cols)
         lat, waves, tiles = ops.staircase_cta_latency(
             torch.from_numpy(np.ascontiguousarray(w, dtype=np.int64))
-            .to(self.device), *(put(k[n], np.int64) for n in
-                                ("shard_out", "g", "slots")),
-            *(put(k[n], np.float64) for n in ("ca", "mb", "mc")),
+            .to(self.device),
+            *(put(k[n], np.float64 if n == "dl" else np.int64)
+              for n in self.KERNEL_COLUMNS),
+            torch.from_numpy(k["bandwidth"]).to(self.device),
             block_n=cols.block_n)
         return (lat.cpu().numpy().astype(np.float64),
                 waves.cpu().numpy().astype(np.int64),

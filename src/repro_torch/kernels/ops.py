@@ -334,58 +334,84 @@ def flash_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
                                   window=window)
 
 
-def staircase_latency(widths, shard_out, ca, mb, mc, *, lane: int,
-                      force: Optional[str] = None):
-    """Fused staircase sweep (``kernels.staircase_fused``): (L, C) widths
-    and (L, 1) ``shard_out``/``ca``/``mb``/``mc`` -> (latency, waves,
-    occupancy). A CUDA tensor launches the Triton kernel, which computes in
-    int32 and fp32; the widths and shards are checked against its domain
-    first, in int64 whatever their integer type (one host sync), and cast.
-    A CPU tensor takes the fp64 plain version."""
+def _sweep_bytes_fit(w_max, so, quantum: int, kpm, mk, bpe, g=None):
+    """Whether each row's bytes, (mk + kpm x the widest padded width) x
+    bpe, and for the CTA form g x its tiles, stay in the kernels' integer
+    range (checked in float64, which cannot overflow)."""
+    cells = -torch.div(-(-torch.div(-w_max.clamp(min=0), so.clamp(min=1),
+                                     rounding_mode="floor")), quantum,
+                       rounding_mode="floor")
+    top = (mk.double() + kpm.double() * (cells * quantum).double()) \
+        * bpe.double()
+    ok = (top < 2.0 ** 62) & (mk >= 0) & (kpm >= 0) & (bpe >= 0)
+    if g is not None:
+        ok &= g * cells < 2 ** 31
+    return ok.all()
+
+
+def staircase_latency(widths, shard_out, two_mk, fm, mk, kpm, bpe, rates, *,
+                      lane: int, force: Optional[str] = None):
+    """Fused staircase sweep (``kernels.staircase_fused``): (L, C) widths,
+    (L, 1) ``shard_out``/``two_mk``/``fm``/``mk``/``kpm``/``bpe`` and the
+    (2,) rates -> (latency, waves, occupancy), the tail model's numpy
+    expression in float64. A CUDA tensor launches the Triton kernel, which
+    takes int32 widths and shards: the domain is checked first, in int64
+    whatever the integer types (one host sync), and the inputs cast. A CPU
+    tensor takes the plain version."""
     if _use_plain(widths, force):
-        return staircase_ref(widths, shard_out, ca, mb, mc, lane=lane)
+        return staircase_ref(widths, shard_out, two_mk, fm, mk, kpm, bpe,
+                             rates, lane=lane)
     w, so = widths.to(torch.int64), shard_out.to(torch.int64)
+    mk, kpm, bpe = mk.to(torch.int64), kpm.to(torch.int64), \
+        bpe.to(torch.int64)
+    w_max = w.amax(dim=1, keepdim=True) if w.numel() else w[:, :1]
     if bool((w < 0).any() | (w >= 2 ** 31).any() | (so < 1).any()
-            | (so >= 2 ** 31).any()):
+            | (so >= 2 ** 31).any()
+            | ~_sweep_bytes_fit(w_max, so, lane, kpm, mk, bpe)):
         raise ValueError("staircase_latency: the kernel takes widths in "
-                         "[0, 2**31) and shard_out in [1, 2**31)")
-    i32, f32 = torch.int32, torch.float32
+                         "[0, 2**31), shard_out in [1, 2**31) and a row's "
+                         "bytes below 2**62")
+    i32, f64 = torch.int32, torch.float64
     return staircase_fused(
-        widths.to(i32).contiguous(), shard_out.to(i32).contiguous(),
-        ca.to(f32).contiguous(), mb.to(f32).contiguous(),
-        mc.to(f32).contiguous(), lane=lane)
+        w.to(i32).contiguous(), so.to(i32).contiguous(),
+        two_mk.to(f64).contiguous(), fm.to(f64).contiguous(),
+        mk.contiguous(), kpm.contiguous(), bpe.contiguous(),
+        rates.to(f64).contiguous(), lane=lane)
 
 
-def staircase_cta_latency(widths, shard_out, g, slots, ca, mb, mc, *,
-                          block_n: int, force: Optional[str] = None):
+def staircase_cta_latency(widths, shard_out, g, slots, dl, mk, kpm, bpe,
+                          bandwidth, *, block_n: int,
+                          force: Optional[str] = None):
     """CTA-wave staircase sweep (``kernels.staircase_fused``, the tail
-    model's GPU form): (L, C) widths and (L, 1) ``shard_out``, ``g``,
-    ``slots``, ``ca``, ``mb``, ``mc`` -> (latency, waves, tiles). A CUDA
-    tensor launches the Triton kernel, which computes in int32 and fp32;
-    the integers are checked against its domain first, in int64 (one host
-    sync), and cast. A CPU tensor takes the fp64 plain version."""
+    model's GPU form): (L, C) widths, (L, 1) ``shard_out``, ``g``,
+    ``slots``, ``dl``, ``mk``, ``kpm``, ``bpe`` and the (1,) bandwidth ->
+    (latency, waves, tiles), ``CtaWaveModel``'s numpy expression in
+    float64. A CUDA tensor launches the Triton kernel, which takes int32
+    widths, shards, g and slots: the domain is checked first, in int64 (one
+    host sync), and the inputs cast. A CPU tensor takes the plain
+    version."""
     if _use_plain(widths, force):
-        return staircase_cta_ref(widths, shard_out, g, slots, ca, mb, mc,
-                                 block_n=block_n)
-    w, so = widths.to(torch.int64), shard_out.to(torch.int64)
-    gg, sl = g.to(torch.int64), slots.to(torch.int64)
+        return staircase_cta_ref(widths, shard_out, g, slots, dl, mk, kpm,
+                                 bpe, bandwidth, block_n=block_n)
+    i64 = torch.int64
+    w, so, gg, sl = (t.to(i64) for t in (widths, shard_out, g, slots))
+    mk, kpm, bpe = mk.to(i64), kpm.to(i64), bpe.to(i64)
     top = 2 ** 31
     w_max = w.amax(dim=1, keepdim=True) if w.numel() else w[:, :1]
-    most = gg * -torch.div(-(-torch.div(-w_max.clamp(min=0), so.clamp(min=1),
-                                        rounding_mode="floor")), block_n,
-                           rounding_mode="floor")
     if bool((w < 0).any() | (w >= top).any() | (so < 1).any()
             | (so >= top).any() | (gg < 0).any() | (sl < 1).any()
-            | (sl >= top).any() | (most >= top).any()):
+            | (sl >= top).any()
+            | ~_sweep_bytes_fit(w_max, so, block_n, kpm, mk, bpe, gg)):
         raise ValueError("staircase_cta_latency: the kernel takes widths "
                          "in [0, 2**31), shard_out and slots in [1, 2**31), "
-                         "g >= 0 and g x tiles below 2**31")
-    i32, f32 = torch.int32, torch.float32
+                         "g >= 0, g x tiles below 2**31 and a row's bytes "
+                         "below 2**62")
+    i32, f64 = torch.int32, torch.float64
     return staircase_cta(
-        widths.to(i32).contiguous(), shard_out.to(i32).contiguous(),
-        g.to(i32).contiguous(), slots.to(i32).contiguous(),
-        ca.to(f32).contiguous(), mb.to(f32).contiguous(),
-        mc.to(f32).contiguous(), block_n=block_n)
+        w.to(i32).contiguous(), so.to(i32).contiguous(),
+        gg.to(i32).contiguous(), sl.to(i32).contiguous(),
+        dl.to(f64).contiguous(), mk.contiguous(), kpm.contiguous(),
+        bpe.contiguous(), bandwidth.to(f64).contiguous(), block_n=block_n)
 
 
 def rglru_scan(a, b, h0, *, force: Optional[str] = None):

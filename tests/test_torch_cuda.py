@@ -358,19 +358,40 @@ def test_new_family_on_the_card_vs_cpu(gen, arch):
 # ---------------------------------------------------------------------------
 # the staircase kernel (Triton) and the planner on the card
 # ---------------------------------------------------------------------------
+RATES = (989e12, 3.35e12)
+
+
+def sweep_row_columns(rng, rows):
+    """The float64 and int64 row columns both sweeps share, over the
+    ranges a layer gives them, and the rates, on the card."""
+    mk = rng.integers(1, 2 ** 26, size=(rows, 1))
+    kpm = rng.integers(1, 2 ** 15, size=(rows, 1))
+    bpe = rng.choice([2, 4, 8], size=(rows, 1))
+    return mk, kpm, bpe
+
+
+def cuda(a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda().to(dtype)
+
+
 def staircase_inputs(rows, cols, lane, seed=0):
     """int32 widths in [1, 50000) with width 1 and exact multiples of
-    shard x lane in the first columns, shards 1-3 and 8, fp32 columns."""
+    shard x lane in the first columns, shards 1-3 and 8, the TPU form's
+    row columns (two_mk, FLOP multipliers 0.5-3, mk, kpm, bpe) and the
+    rates."""
     rng = np.random.default_rng(seed)
     so = rng.choice([1, 2, 3, 8], size=(rows, 1))
     w = rng.integers(1, 50000, size=(rows, cols))
     w[:, 0] = 1
     if cols > 1:
         w[:, 1] = so[:, 0] * lane * rng.integers(1, 20, size=rows)
-    cols_f = [rng.random((rows, 1)) * 1e-4 for _ in range(3)]
-    return tuple(torch.from_numpy(a).cuda().to(t) for a, t in
-                 ((w, torch.int32), (so, torch.int32),
-                  *((c, torch.float32) for c in cols_f)))
+    two_mk = 2.0 * rng.integers(1, 2 ** 26, size=(rows, 1))
+    fm = rng.choice([1.0, 0.5, 3.0], size=(rows, 1))
+    mk, kpm, bpe = sweep_row_columns(rng, rows)
+    i32, i64, f64 = torch.int32, torch.int64, torch.float64
+    return (cuda(w, i32), cuda(so, i32), cuda(two_mk, f64), cuda(fm, f64),
+            cuda(mk, i64), cuda(kpm, i64), cuda(bpe, i64),
+            cuda(np.array(RATES), f64))
 
 
 @pytest.mark.parametrize("rows,cols,lane", [(1, 1, 128), (3, 5, 128),
@@ -379,46 +400,51 @@ def staircase_inputs(rows, cols, lane, seed=0):
                                             (37, 1000, 96),
                                             (1024, 1024, 64)])
 def test_staircase_kernel_vs_plain(gen, rows, cols, lane):
-    """Waves exact; latency and occupancy within rtol 1e-6 (fp32 kernel vs
-    the fp64 plain version on the same fp32 inputs)."""
+    """Bit for bit the plain version: both evaluate the numpy engine's
+    float64 expression, products and correctly rounded divisions."""
     args = staircase_inputs(rows, cols, lane)
     before = ops.LAUNCHES["staircase_fused"]
     lat, wv, occ = sf.staircase_fused(*args, lane=lane)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["staircase_fused"] == before + 1
-    assert (lat.dtype, wv.dtype, occ.dtype) == (torch.float32, torch.int32,
-                                                torch.float32)
+    assert (lat.dtype, wv.dtype, occ.dtype) == (torch.float64, torch.int32,
+                                                torch.float64)
     rlat, rwv, rocc = sf.staircase_ref(*args, lane=lane)
     assert torch.equal(wv.long(), rwv)
-    assert ((lat.double() - rlat).abs() <= 1e-6 * rlat.abs()).all()
-    assert ((occ.double() - rocc).abs() <= 1e-6 * rocc.abs()).all()
+    assert torch.equal(lat, rlat) and torch.equal(occ, rocc)
 
 
 @pytest.mark.parametrize("itype", [torch.int64, torch.int32])
 def test_staircase_dispatch_checks_and_casts(gen, itype):
     """The int32 domain is checked in int64 whatever the inputs' integer
-    type, and the kernel's ceil-divisions do not overflow at its top."""
+    type, a row's bytes below 2**62, and the kernel's ceil-divisions do
+    not overflow at its top."""
     w = torch.tensor([[1, 64, 65]], dtype=itype, device="cuda")
     so = torch.ones(1, 1, dtype=itype, device="cuda")
-    c = torch.full((1, 1), 1e-6, dtype=torch.float64, device="cuda")
-    lat, wv, occ = ops.staircase_latency(w, so, c, c, c, lane=64)
-    assert wv.tolist() == [[1, 1, 2]] and lat.dtype == torch.float32
+    c = torch.full((1, 1), 1e6, dtype=torch.float64, device="cuda")
+    i = torch.ones(1, 1, dtype=itype, device="cuda")
+    rates = torch.tensor(RATES, dtype=torch.float64, device="cuda")
+    lat, wv, occ = ops.staircase_latency(w, so, c, c, i, i, i, rates,
+                                         lane=64)
+    assert wv.tolist() == [[1, 1, 2]] and lat.dtype == torch.float64
     top = torch.tensor([[2 ** 31 - 1, 2 ** 31 - 2, 2 ** 31 - 64]],
                        dtype=itype, device="cuda")
     for shard in (1, 3, 2 ** 31 - 1):
         s = torch.full((1, 1), shard, dtype=itype, device="cuda")
-        _, wv, occ = ops.staircase_latency(top, s, c, c, c, lane=64)
-        _, rwv, rocc = sf.staircase_ref(top, s, c, c, c, lane=64)
-        assert torch.equal(wv.long(), rwv) and (wv > 0).all()
-        assert ((occ.double() - rocc).abs() <= 1e-6 * rocc).all()
-    bad = [(-w, so), (w, so * 0)]
+        got = ops.staircase_latency(top, s, c, c, i, i, i, rates, lane=64)
+        want = sf.staircase_ref(top, s, c, c, i, i, i, rates, lane=64)
+        assert torch.equal(got[1].long(), want[1]) and (got[1] > 0).all()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    bad = [(-w, so, i), (w, so * 0, i), (w, so, -i)]
     if itype == torch.int64:
-        bad += [(w + 2 ** 31 - 1, so), (w, so + 2 ** 31 - 1)]
-    for bad_w, bad_so in bad:
+        bad += [(w + 2 ** 31 - 1, so, i), (w, so + 2 ** 31 - 1, i),
+                (w, so, i * 2 ** 62)]
+    for bad_w, bad_so, bad_i in bad:
         with pytest.raises(ValueError, match="2\\*\\*31"):
-            ops.staircase_latency(bad_w, bad_so, c, c, c, lane=64)
+            ops.staircase_latency(bad_w, bad_so, c, c, bad_i, i, i, rates,
+                                  lane=64)
     with pytest.raises(TypeError):
-        sf.staircase_fused(w, so, c, c, c, lane=64)
+        sf.staircase_fused(w, so, c, c, i, i, i, rates, lane=64)
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +453,8 @@ def test_staircase_dispatch_checks_and_casts(gen, itype):
 def cta_inputs(rows, cols, shards=(1, 2, 3, 8), seed=0):
     """int32 widths in [1, 50000) with width 1 and exact multiples of
     shard x 64 first, ``g`` as the port's GEMM gives it (1-64 row tiles x
-    1-16 K chunks), slots 132 x 1-3, fp32 coefficient columns."""
+    1-16 K chunks), slots 132 x 1-3, a wave's time, the bytes columns and
+    the bandwidth."""
     rng = np.random.default_rng(seed)
     so = rng.choice(shards, size=(rows, 1))
     w = rng.integers(1, 50000, size=(rows, cols))
@@ -437,49 +464,54 @@ def cta_inputs(rows, cols, shards=(1, 2, 3, 8), seed=0):
     g = rng.integers(1, 65, size=(rows, 1)) * rng.integers(1, 17,
                                                            size=(rows, 1))
     sl = 132 * rng.integers(1, 4, size=(rows, 1))
-    cols_f = [rng.random((rows, 1)) * 1e-5 for _ in range(3)]
-    return tuple(torch.from_numpy(a).cuda().to(t) for a, t in
-                 ((w, torch.int32), (so, torch.int32), (g, torch.int32),
-                  (sl, torch.int32),
-                  *((c, torch.float32) for c in cols_f)))
+    dl = rng.random((rows, 1)) * 1e-5
+    mk, kpm, bpe = sweep_row_columns(rng, rows)
+    i32, i64, f64 = torch.int32, torch.int64, torch.float64
+    return (cuda(w, i32), cuda(so, i32), cuda(g, i32), cuda(sl, i32),
+            cuda(dl, f64), cuda(mk, i64), cuda(kpm, i64), cuda(bpe, i64),
+            cuda(np.array(RATES[1:]), f64))
 
 
 @pytest.mark.parametrize("rows,cols,shards", [
     (1, 1, (1,)), (3, 5, (1, 2)), (24, 3, (1,)), (24, 45, (1,)),
     (40, 257, (1, 2, 3, 8)), (37, 1000, (3,)), (1024, 1024, (1, 2, 3, 8))])
 def test_staircase_cta_kernel_vs_plain(gen, rows, cols, shards):
-    """Waves and tiles exact; latency within rtol 1e-6 (fp32 kernel vs
-    the fp64 plain version on the same fp32 inputs)."""
+    """Bit for bit the plain version (``CtaWaveModel``'s float64
+    expression on both)."""
     args = cta_inputs(rows, cols, shards)
     before = ops.LAUNCHES["staircase_cta"]
     lat, wv, tiles = sf.staircase_cta(*args, block_n=64)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["staircase_cta"] == before + 1
     assert (lat.dtype, wv.dtype, tiles.dtype) == (
-        torch.float32, torch.int32, torch.int32)
+        torch.float64, torch.int32, torch.int32)
     rlat, rwv, rtiles = sf.staircase_cta_ref(*args, block_n=64)
     assert torch.equal(wv.long(), rwv) and torch.equal(tiles.long(), rtiles)
-    assert ((lat.double() - rlat).abs() <= 1e-6 * rlat.abs()).all()
+    assert torch.equal(lat, rlat)
 
 
 def test_staircase_cta_dispatch_checks_and_casts(gen):
-    """The int32 domain (g x tiles included) is checked in int64 and the
-    inputs cast; a CPU tensor takes the plain version."""
+    """The int32 domain (g x tiles included) and a row's bytes are checked
+    in int64 and the inputs cast; a CPU tensor takes the plain version."""
     w = torch.tensor([[1, 64, 65, 8448]], device="cuda")
     one = torch.ones(1, 1, dtype=torch.int64, device="cuda")
     c = torch.full((1, 1), 1e-6, dtype=torch.float64, device="cuda")
+    bw = torch.tensor(RATES[1:], dtype=torch.float64, device="cuda")
     lat, wv, tiles = ops.staircase_cta_latency(w, one, one * 4, one * 264,
-                                               c, c, c, block_n=64)
+                                               c, one, one, one * 2, bw,
+                                               block_n=64)
     assert tiles.tolist() == [[1, 1, 2, 132]]
-    assert wv.tolist() == [[1, 1, 1, 2]] and lat.dtype == torch.float32
+    assert wv.tolist() == [[1, 1, 1, 2]] and lat.dtype == torch.float64
     for bad in [dict(w=-w), dict(so=one * 0), dict(sl=one * 0),
-                dict(g=-one), dict(g=one * 2 ** 30)]:
-        kw = dict(w=w, so=one, g=one, sl=one) | bad
+                dict(g=-one), dict(g=one * 2 ** 30), dict(kpm=one * 2 ** 58)]:
+        kw = dict(w=w, so=one, g=one, sl=one, kpm=one) | bad
         with pytest.raises(ValueError, match="2\\*\\*31"):
             ops.staircase_cta_latency(kw["w"], kw["so"], kw["g"], kw["sl"],
-                                      c, c, c, block_n=64)
+                                      c, one, kw["kpm"], one, bw,
+                                      block_n=64)
     with pytest.raises(TypeError):
-        sf.staircase_cta(w, one, one, one, c, c, c, block_n=64)
+        sf.staircase_cta(w, one, one, one, c, one, one, one, bw,
+                         block_n=64)
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -501,8 +533,7 @@ def test_gemm_forms_read_on_the_card(gen, module, kind):
 
 def test_cta_model_kernel_backend_equals_numpy(gen):
     """``CtaWaveModel``'s kernel backend on the card against its numpy
-    engine: equal waves, latency within rtol 1e-6, stacked and per
-    layer."""
+    engine: equal waves and latency, bit for bit."""
     from repro_torch.core import H100_SXM, LayerShape
     from repro_torch.core.tail_model import CtaWaveModel
     rng = np.random.default_rng(1)
@@ -518,7 +549,7 @@ def test_cta_model_kernel_backend_equals_numpy(gen):
     a = ker.evaluate_model_batch(layers, widths)
     b = ref.evaluate_model_batch(layers, widths)
     assert np.array_equal(a.waves, b.waves)
-    np.testing.assert_allclose(a.latency_s, b.latency_s, rtol=1e-6)
+    assert np.array_equal(a.latency_s, b.latency_s)
     assert ker.table_variant == ref.table_variant + "-kernel-cuda"
 
 
@@ -2418,3 +2449,59 @@ def test_launch_train_raises_when_a_capture_fails(gen, monkeypatch):
         main(["--arch", "qwen1.5-0.5b", "--reduced", "--d-model", "256",
               "--steps", "3", "--seq", "64", "--batch", "4"], stats=stats)
     assert len(stats) == 1 and not stats[0]["replayed"]
+
+
+# ---------------------------------------------------------------------------
+# the paper's Fig. 1/3, Table 3 and Tables 4/5 on the card
+# ---------------------------------------------------------------------------
+def test_paper_staircase_on_the_card(gen):
+    """Fig. 1/3's card phase at qwen1.5-0.5b alone, 512 tokens: the
+    product at d_ff matches plain, the kernel backend's sweep
+    (``staircase_cta``) gives numpy's waves and stairs, and the stair
+    window is timed."""
+    from repro_torch.launch import staircase
+    ops.reset_launches()
+    out = staircase.run(verbose=False, tokens=512, device="cuda",
+                        archs=["qwen1.5-0.5b"])
+    k = out["kernel"]["qwen1.5-0.5b"]
+    assert k["waves_equal"] and k["stairs_equal"] and k["max_rel_err"] == 0
+    card = out["lines"][0]["card"]
+    assert card["held"]["ok"]
+    assert card["widths"][0] == 2112 and card["widths"][-1] == 4288
+    assert all(np.isfinite(card["us"])) and min(card["us"]) > 0
+    assert ops.LAUNCHES["staircase_cta"] > 0
+    assert ops.LAUNCHES["matmul_tiled"] > 0
+    tpu = staircase.run(verbose=False, hw="tpu_v5e", device="cuda",
+                        archs=["qwen1.5-0.5b"])
+    k = tpu["kernel"]["qwen1.5-0.5b"]
+    assert k["waves_equal"] and k["stairs_equal"] and k["max_rel_err"] == 0
+    assert ops.LAUNCHES["staircase_fused"] > 0
+
+
+def test_paper_table3_on_the_card(gen):
+    """Table 3's card phase at qwen1.5-0.5b alone, 512 tokens: the kernel
+    backend's plan equals numpy's (2816 -> 4224, 1024 -> 1536), and the old
+    and new products, timed in alternating rounds, match plain."""
+    from repro_torch.launch import nas_scaleup
+    out = nas_scaleup.run(verbose=False, tokens=512, device="cuda",
+                          archs=["qwen1.5-0.5b"], rounds=2)
+    row = out["rows"][0]
+    assert row["kernel_equal"]
+    assert row["new_widths"] == {"d_ff": 4224, "attn_width": 1536}
+    card = row["card"]
+    assert card["held_ok"] and len(card["held"]) == 4
+    assert len(card["old"]["rounds"]) == len(card["new"]["rounds"]) == 2
+    assert card["old"]["us"] > 0 and card["new"]["us"] > 0
+
+
+def test_paper_tables45_on_the_card(gen):
+    """Tables 4/5's card phase at 512 tokens on two platforms: the kernel
+    backend's plans equal numpy's and every timed product matches plain."""
+    from repro_torch.launch import platform_generality as pg
+    out = pg.run(verbose=False, tokens=512, device="cuda",
+                 platforms=("h100_sxm", "jetson_nano"), rounds=2)
+    assert all(r["kernel_equal"] for r in out["rows"].values())
+    assert out["card"]["held_ok"]
+    assert all(r["card"]["us"] > 0 for r in out["rows"].values())
+    tpu = pg.run_tpu(verbose=False, device="cuda")
+    assert all(tpu["kernel_equal"].values())

@@ -187,8 +187,9 @@ def test_stacked_sweep_equals_per_layer(backend, seed):
                                    rtol=1e-12)
 
 
-def staircase_cta_oracle(w, so, g, sl, ca, mb, mc, block_n):
-    """The CTA-wave sweep in plain NumPy, cell by cell."""
+def staircase_cta_oracle(w, so, g, sl, dl, mk, kpm, bpe, bw, block_n):
+    """The CTA-wave sweep in plain Python, cell by cell, in
+    ``CtaWaveModel``'s float64 operand order."""
     lat = np.empty(w.shape)
     waves = np.empty(w.shape, np.int64)
     tiles = np.empty(w.shape, np.int64)
@@ -197,7 +198,9 @@ def staircase_cta_oracle(w, so, g, sl, ca, mb, mc, block_n):
             t = -(-(-(-int(w[r, c]) // int(so[r, 0]))) // block_n)
             n = -(-(int(g[r, 0]) * t) // int(sl[r, 0]))
             tiles[r, c], waves[r, c] = t, n
-            lat[r, c] = max(ca[r, 0] * n, mb[r, 0] * t + mc[r, 0])
+            nbytes = (int(mk[r, 0]) + int(kpm[r, 0]) * (t * block_n)) \
+                * int(bpe[r, 0])
+            lat[r, c] = max(float(n) * float(dl[r, 0]), nbytes / bw)
     return lat, waves, tiles
 
 
@@ -206,7 +209,8 @@ def staircase_cta_oracle(w, so, g, sl, ca, mb, mc, block_n):
     (13, 57, (1, 2, 3, 8), 96), (5, 0, (1,), 64)])
 def test_staircase_cta_ref_equals_the_oracle(rows, cols, shards, block_n):
     """Ragged rows, shards > 1, widths 1 and exact multiples of
-    shard x block_n, g over the GEMM's range, one to three CTAs an SM."""
+    shard x block_n, g over the GEMM's range, one to three CTAs an SM:
+    bit for bit the oracle."""
     rng = np.random.default_rng(rows * 7 + cols)
     so = rng.choice(shards, size=(rows, 1))
     w = rng.integers(1, 50000, size=(rows, cols))
@@ -215,12 +219,18 @@ def test_staircase_cta_ref_equals_the_oracle(rows, cols, shards, block_n):
         w[:, 1] = so[:, 0] * block_n * rng.integers(1, 40, size=rows)
     g = rng.integers(1, 65, size=(rows, 1)) * rng.integers(1, 17, (rows, 1))
     sl = 132 * rng.integers(1, 4, size=(rows, 1))
-    ca, mb, mc = (rng.random((rows, 1)) * 1e-5 for _ in range(3))
-    want = staircase_cta_oracle(w, so, g, sl, ca, mb, mc, block_n)
-    t = [torch.from_numpy(a) for a in (w, so, g, sl, ca, mb, mc)]
+    dl = rng.random((rows, 1)) * 1e-5
+    mk = rng.integers(1, 2 ** 26, size=(rows, 1))
+    kpm = rng.integers(1, 2 ** 15, size=(rows, 1))
+    bpe = rng.choice([2, 4, 8], size=(rows, 1))
+    bandwidth = np.array([3.35e12])
+    want = staircase_cta_oracle(w, so, g, sl, dl, mk, kpm, bpe,
+                                bandwidth[0], block_n)
+    t = [torch.from_numpy(a) for a in (w, so, g, sl, dl, mk, kpm, bpe,
+                                       bandwidth)]
     got = ops.staircase_cta_latency(*t, block_n=block_n)
     assert got[0].dtype == torch.float64 and got[1].dtype == torch.int64
-    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=1e-15)
+    assert np.array_equal(got[0].numpy(), want[0])
     assert np.array_equal(got[1].numpy(), want[1])
     assert np.array_equal(got[2].numpy(), want[2])
     assert all(torch.equal(a, b) for a, b in zip(

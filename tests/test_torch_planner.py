@@ -42,7 +42,7 @@ from repro_torch.core import (
 from repro_torch.core import hardware as thw
 from repro_torch.kernels import matmul_tiled, ops
 from repro_torch.kernels.staircase_fused import (
-    fused_columns, staircase_ref,
+    staircase_ref, sweep_columns, sweep_rates,
 )
 from repro_torch.serving import ServingWidthPlanner, TrafficClass, \
     serving_templates
@@ -85,7 +85,9 @@ def test_h100_entry_follows_the_matmul_tile():
         matmul_tiled.BLOCK_N, matmul_tiled.BLOCK_M, matmul_tiled.BLOCK_M)
     assert hw.ici_bandwidth == 0.0
     assert hardware_fingerprint(hw) != hardware_fingerprint(TPU_V5E)
-    assert set(thw.REGISTRY) == set(jhw.REGISTRY) | {"h100_sxm"}
+    assert set(thw.REGISTRY) == set(jhw.REGISTRY) | {
+        "h100_sxm", "h100_pcie", "a100_sxm4_80gb", "titan_v",
+        "quadro_p6000", "jetson_nano"}
 
 
 # ---------------------------------------------------------------------------
@@ -163,28 +165,37 @@ def test_kernel_backend_falls_back_outside_its_domain():
 # ---------------------------------------------------------------------------
 # the kernel's plain version
 # ---------------------------------------------------------------------------
-def _columns(rng, rows, lane_hw=HW):
-    shapes = [JLayerShape(f"l{i}", tokens=int(rng.integers(1, 5000)),
-                          d_in=int(rng.integers(1, 5000)), width=1,
-                          shard_out=int(rng.choice([1, 2, 3, 8])))
-              for i in range(rows)]
-    return j_fused_columns(lane_hw, shapes)
+def _sweep_inputs(rng, rows, cols, hw=HW):
+    """Random widths and ``rows`` layers (shards 1-8, both dtypes, FLOP
+    multipliers), as repro's layer shapes and the port's sweep inputs."""
+    jl, tl = both_layers(rng, rows)
+    w = rng.integers(1, 50000, size=(rows, cols))
+    ins = [torch.from_numpy(np.ascontiguousarray(w))] + [
+        torch.from_numpy(np.asarray(a)) for a in sweep_columns(hw, tl)] + [
+        torch.from_numpy(sweep_rates(hw))]
+    return jl, w, ins
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (3, 5), (8, 128), (13, 200),
                                    (40, 257), (24, 3)])
 def test_staircase_ref_matches_the_reference(shape):
-    """Exact against repro's fp64 reference; against the Pallas kernel in
-    interpret mode (fp32): waves exact, rtol 1e-6."""
+    """Bit for bit against repro's numpy engine (latency and waves) and
+    repro's fp64 fused reference (waves and occupancy); against the Pallas
+    kernel in interpret mode (fp32, on repro's affine columns): waves
+    exact, latency and occupancy within rtol 1e-6."""
     rng = np.random.default_rng(42)
     rows, cols = shape
-    w = rng.integers(1, 50000, size=(rows, cols))
-    so, ca, mb, mc = _columns(rng, rows)
-    want = j_fused_ref(w, so, ca, mb, mc, lane=HW.lane)
-    got = staircase_ref(*(torch.from_numpy(np.asarray(a))
-                          for a in (w, so, ca, mb, mc)), lane=HW.lane)
-    for x, y in zip(want, got):
-        assert np.array_equal(x, y.numpy())
+    jl, w, ins = _sweep_inputs(rng, rows, cols)
+    got = staircase_ref(*ins, lane=HW.lane)
+    want = jtm.WaveQuantizationModel(HW).evaluate_model_batch(jl, list(w))
+    for i in range(rows):
+        row = want.layer_table(i)
+        assert np.array_equal(row.latency_s, got[0][i].numpy())
+        assert np.array_equal(row.waves, got[1][i].numpy())
+    so, ca, mb, mc = j_fused_columns(HW, jl)
+    fused = j_fused_ref(w, so, ca, mb, mc, lane=HW.lane)
+    assert np.array_equal(fused[1], got[1].numpy())
+    assert np.array_equal(fused[2], got[2].numpy())
     lat32, wv32, occ32 = jops.staircase_latency(
         w, so, ca, mb, mc, lane=HW.lane, force="pallas_interpret")
     assert np.array_equal(wv32, got[1].numpy())
@@ -194,39 +205,102 @@ def test_staircase_ref_matches_the_reference(shape):
 
 def test_staircase_ref_ragged_lane_and_exact_multiples():
     """A lane that is not a power of two, shards 1-3, and widths 1 and
-    exact multiples of shard * lane (the stair edges)."""
+    exact multiples of shard * lane (the stair edges): bit for bit
+    repro's numpy engine on the same spec."""
     rng = np.random.default_rng(7)
     lane = 96
-    so = rng.choice([1, 2, 3], size=(37, 1))
+    hw, jhw96 = dataclasses.replace(HW, lane=lane), \
+        dataclasses.replace(jhw.TPU_V5E, lane=lane)
+    jl, tl = [], []
+    for i in range(37):
+        kw = dict(tokens=int(rng.integers(1, 9000)),
+                  d_in=int(rng.integers(1, 9000)), width=1,
+                  shard_out=int(rng.choice([1, 2, 3])))
+        jl.append(JLayerShape(f"l{i}", **kw))
+        tl.append(LayerShape(f"l{i}", **kw))
+    so = np.array([[t.shard_out] for t in tl])
     w = rng.integers(1, 20000, size=(37, 1000))
     w[:, 0] = 1
     w[:, 1] = so[:, 0] * lane * rng.integers(1, 50, size=37)
-    ca, mb, mc = (rng.random((37, 1)) for _ in range(3))
-    want = j_fused_ref(w, so, ca, mb, mc, lane=lane)
-    got = ops.staircase_latency(*(torch.from_numpy(a)
-                                  for a in (w, so, ca, mb, mc)), lane=lane)
-    for x, y in zip(want, got):
-        assert np.array_equal(x, y.numpy())
+    got = ops.staircase_latency(
+        torch.from_numpy(w), *(torch.from_numpy(np.asarray(a)) for a in
+                               sweep_columns(hw, tl)),
+        torch.from_numpy(sweep_rates(hw)), lane=lane)
+    want = jtm.WaveQuantizationModel(jhw96).evaluate_model_batch(jl, list(w))
+    for i in range(37):
+        assert np.array_equal(want.layer_table(i).latency_s,
+                              got[0][i].numpy())
+        assert np.array_equal(want.layer_table(i).waves, got[1][i].numpy())
     assert (got[2][:, 1] == 1.0).all()          # a full last wave
     assert (got[1][:, 0] == 1).all()
 
 
 def test_staircase_dispatch_on_the_cpu():
     w = torch.ones(2, 3, dtype=torch.int64)
+    one = torch.ones(2, 1, dtype=torch.int64)
     col = torch.ones(2, 1, dtype=torch.float64)
-    so = torch.ones(2, 1, dtype=torch.int64)
-    lat, wv, occ = ops.staircase_latency(w, so, col, col, col, lane=4)
+    rates = torch.ones(2, dtype=torch.float64)
+    lat, wv, occ = ops.staircase_latency(w, one, col, col, one, one, one,
+                                         rates, lane=4)
     assert lat.dtype == torch.float64 and wv.dtype == torch.int64
     assert lat.device.type == "cpu"
     with pytest.raises(ValueError, match="force"):
-        ops.staircase_latency(w, so, col, col, col, lane=4, force="kernel")
+        ops.staircase_latency(w, one, col, col, one, one, one, rates,
+                              lane=4, force="kernel")
 
 
-def test_fused_columns_copy_equals_reference():
+def test_sweep_columns_are_the_model_s():
+    """The sweep's columns are the tail model's stacked columns, and on
+    repro's layers they give repro's affine coefficients back."""
     rng = np.random.default_rng(3)
     jl, tl = both_layers(rng, 9)
-    for x, y in zip(j_fused_columns(HW, jl), fused_columns(HW, tl)):
-        assert np.array_equal(x, y)
+    so, two_mk, fm, mk, kpm, bpe = sweep_columns(HW, tl)
+    cols = WaveQuantizationModel(HW)._stack_columns(tl)
+    for a, b in ((so, cols.shard_out), (two_mk, cols.two_mk),
+                 (fm, cols.fm), (mk, cols.mk), (kpm, cols.k_plus_m),
+                 (bpe, cols.bits // 8)):
+        assert np.array_equal(a, b) and a.dtype == b.dtype
+    jso, ca, mb, mc = j_fused_columns(HW, jl)
+    assert np.array_equal(jso, so)
+    np.testing.assert_allclose(ca, two_mk * fm / HW.peak_flops_bf16
+                               * HW.lane, rtol=1e-15)
+    np.testing.assert_allclose(mc, mk * bpe / HW.hbm_bandwidth, rtol=1e-15)
+    np.testing.assert_allclose(mb, kpm * bpe / HW.hbm_bandwidth * HW.lane,
+                               rtol=1e-15)
+    assert np.array_equal(sweep_rates(HW), [HW.peak_flops_bf16,
+                                            HW.hbm_bandwidth])
+
+
+@pytest.mark.parametrize("spec", ["tpu_v4", "tpu_v5p"])
+def test_kernel_backend_breaks_ties_as_numpy(spec):
+    """Paper Tables 4/5's layers on two TPU specs, where the four layers'
+    latency gains are equal in exact arithmetic and the numpy engine's
+    last bits order them: the kernel backend's plan is numpy's (and
+    repro's). The affine fp32 sweep picked another plan on tpu_v5p on the
+    card, and its fp64 form another on both."""
+    hw, jhw_ = get_hardware(spec), jhw.get_hardware(spec)
+
+    def tunables(mod, hw_):
+        LS, TL, cands_fn = mod
+        out = []
+        for i, w in enumerate((11008, 13824, 9000, 5500)):
+            layer = LS(f"L{i}", tokens=4096, d_in=4096, width=w,
+                       shard_out=16)
+            out.append(TL(layer=layer, params_per_unit=4096,
+                          candidates=cands_fn(hw_, layer,
+                                              max_width=int(w * 1.5))))
+        return out
+    jls, tls = tunables(JMOD, jhw_), tunables(TMOD, hw)
+    tau = 0.1 * sum(tl.params(tl.layer.width) for tl in tls)
+    want = JOpt(jtm.WaveQuantizationModel(jhw_)).optimize_latency(
+        jls, tau=tau, delta=0.95)
+    for backend in ("numpy", "kernel"):
+        got = TailEffectOptimizer(WaveQuantizationModel(
+            hw, backend=backend, device="cpu")).optimize_latency(
+            tls, tau=tau, delta=0.95)
+        assert got.new_widths == want.new_widths, backend
+        assert [m.layer for m in got.moves] == [m.layer for m in want.moves]
+        assert got.latency_new_s == want.latency_new_s
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from repro_torch import serving as tserving
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import TPU_V5E
 from repro_torch.interop import params_from_jax
+from repro_torch.launch import nas_scaleup, platform_generality, staircase
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve_batched import main as serve_batched_main
 from repro_torch.launch.train import main as train_main
@@ -342,6 +343,9 @@ def test_entry_points_default_to_the_card(model):
         serve_main(["--reduced"])
     with pytest.raises(RuntimeError, match="cuda"):
         train_main(["--reduced", "--steps", "1"])
+    for cli in (staircase, nas_scaleup, platform_generality):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main([])
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -364,7 +368,9 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.launch.pruning_opt', 'repro_torch.train',"
         " 'repro_torch.train.data', 'repro_torch.train.optim',"
         " 'repro_torch.train.step', 'repro_torch.train.checkpoint',"
-        " 'repro_torch.launch.train'}\n"
+        " 'repro_torch.launch.train', 'repro_torch.launch.staircase',"
+        " 'repro_torch.launch.nas_scaleup',"
+        " 'repro_torch.launch.platform_generality'}\n"
         "sys.exit(1 if bad or len(names) < 20 or new - set(names) else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
